@@ -1,0 +1,586 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Drives ``repro_torch``'s main path — create -> ingest -> query of the
+``lsketch`` kind — at the repo's paper-table deployment
+(``benchmarks/paper_tables.py`` ``_lsk_cfg(COMFS, d=2048, k=8,
+window=True)``: d=2048, 4 label blocks, F=1024, r=s=8, c=16, k=8, window
+1440, pool 16384 x 16 probes), 4 shards stacked on one card, over the
+com-Friendster analog stream cut to 2,000,000 edges for the time limit.
+
+Phases (any failure raises, so the exit code is non-zero):
+  1. card name and power limit;
+  2. build every CUDA kernel from ``src/repro_torch/csrc`` (one nvcc per
+     source, in parallel) and print each ``-Xptxas -v`` report;
+  3. the insert kernel against its plain version at the first flush's
+     shapes, exactly;
+  4. ingest in flushes cut at subwindow boundaries (<= 65,536 edges) plus
+     one ~512-edge flush spanning a boundary (the scan route); the first
+     two flushes are replayed on a CPU clone of shard 0 through the plain
+     versions and must match leaf for leaf;
+  5. edge, vertex (out, in) and label batches of 1,024 queries, with and
+     without the edge label, at last in {None, 1, 8} on the kernel path;
+     sampled answers must equal the dense scan path's;
+  6. the query kernels against their plain versions at the main path's
+     shapes, exactly; timings by CUDA events;
+  7. a profiler trace of two replayed flushes (where ingest time goes);
+  8. one JSON line of the kernels, the card line, and the result line.
+
+The main path whose kernel launches are counted is phases 4 and 5.
+Exits non-zero without printing a result when no card is present, or when
+the repository's ``src`` is missing.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+from repro_torch import sketch as skt  # noqa: E402
+from repro_torch.core import hashing as hsh  # noqa: E402
+from repro_torch.core.lsketch import edge_probes, precompute  # noqa: E402
+from repro_torch.core.types import (LEAVES, LSketchConfig,  # noqa: E402
+                                    init_leaves)
+from repro_torch.data.stream import COMFS, generate  # noqa: E402
+from repro_torch.engine import insert as eng  # noqa: E402
+from repro_torch.engine.window import WindowRing  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.sketch_insert.kernel import (  # noqa: E402
+    sketch_insert_kernel_sharded, sketch_insert_plain)
+from repro_torch.kernels.sketch_insert.ops import _bin_plan  # noqa: E402
+from repro_torch.kernels.sketch_query.kernel import (  # noqa: E402
+    sketch_query_kernel_sharded, sketch_query_plain)
+from repro_torch.kernels.vertex_scan.kernel import (  # noqa: E402
+    vertex_scan_kernel_sharded, vertex_scan_plain)
+from repro_torch.sketch.ingest import (StackedBatch,  # noqa: E402
+                                       _partition_stack)
+
+# benchmarks/paper_tables.py _lsk_cfg(COMFS, d=2048, k=8, window=True)
+CFG = LSketchConfig(d=2048, n_blocks=4, F=1024, r=8, s=8, c=16, k=8,
+                    window_size=1440, pool_capacity=16384, pool_probes=16)
+N_SHARDS = 4
+N_EDGES = 2_000_000
+FULL_STREAM_EDGES = 1_806_067_135  # com-Friendster, the stream COMFS models
+MAX_FLUSH = 65_536
+SPAN_FLUSH = 512
+N_QUERIES = 1024
+N_SCAN_SAMPLE = 64
+HORIZONS = (None, 1, 8)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, published peak
+SEED = 0
+
+WRAPPERS = {
+    "sketch_insert_kernel_sharded": sketch_insert_kernel_sharded,
+    "sketch_query_kernel_sharded": sketch_query_kernel_sharded,
+    "vertex_scan_kernel_sharded": vertex_scan_kernel_sharded,
+}
+KERNELS = {
+    "sketch_insert_kernel_sharded": dict(
+        source="src/repro_torch/csrc/sketch_insert.cu",
+        replaces="src/repro/kernels/sketch_insert/kernel.py:324"),
+    "sketch_query_kernel_sharded": dict(
+        source="src/repro_torch/csrc/sketch_query.cu",
+        replaces="src/repro/kernels/sketch_query/kernel.py:113"),
+    "vertex_scan_kernel_sharded": dict(
+        source="src/repro_torch/csrc/vertex_scan.cu",
+        replaces="src/repro/kernels/vertex_scan/kernel.py:99"),
+}
+
+
+def _log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def _sync():
+    torch.cuda.synchronize()
+
+
+def event_ms(fn, reps: int = 1) -> float:
+    """Mean milliseconds of ``fn`` over ``reps`` runs, by CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    _sync()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    _sync()
+    return start.elapsed_time(end) / reps
+
+
+def n_distinct(ids: torch.Tensor) -> int:
+    return int(torch.unique(ids).numel())
+
+
+def diff(pairs):
+    """(mismatching elements, max abs difference) over (a, b) int tensor
+    pairs."""
+    n_bad, err = 0, 0
+    for a, b in pairs:
+        ne = a != b
+        n = int(ne.sum())
+        if n:
+            n_bad += n
+            err = max(err, int((a[ne].long() - b[ne].long()).abs().max()))
+    return n_bad, err
+
+
+def flush_cuts(time_col: np.ndarray, subwindow: int):
+    """Flush boundaries: every subwindow boundary and every MAX_FLUSH edges
+    within a subwindow — except one boundary near the middle, which a
+    SPAN_FLUSH-edge flush straddles. Returns (cuts, index of that flush)."""
+    widx = time_col // subwindow
+    bounds = (np.flatnonzero(np.diff(widx)) + 1).tolist()
+    mid = bounds[len(bounds) // 2]
+    lo, hi = mid - SPAN_FLUSH // 2, mid + SPAN_FLUSH // 2
+    seg_edges = sorted(set([0] + [b for b in bounds if b != mid]
+                           + [lo, hi, len(time_col)]))
+    cuts = [0]
+    for a, z in zip(seg_edges[:-1], seg_edges[1:]):
+        if (a, z) == (lo, hi):
+            cuts.append(z)
+            continue
+        n_chunks = -(-(z - a) // MAX_FLUSH)
+        step = -(-(z - a) // n_chunks)
+        cuts.extend(list(range(a + step, z, step)) + [z])
+    return cuts, cuts.index(lo)
+
+
+def check_insert_kernel(cfg, spec, batch, dev, tag) -> dict:
+    """Phase 3: the insert kernel and its plain version on two fresh
+    states, fed the first flush exactly as the engine would."""
+    cols, counts = _partition_stack(spec, batch)
+    tb = {f: torch.from_numpy(v).to(dev) for f, v in cols.items()}
+    S, B = tb["src"].shape
+    n_valid = torch.from_numpy(counts).to(dev)
+    valid = torch.arange(B, device=dev)[None, :] < n_valid[:, None]
+    kern, plain = init_leaves(cfg, (S,), dev), init_leaves(cfg, (S,), dev)
+    widx = torch.div(tb["time"], cfg.subwindow_size, rounding_mode="floor")
+    plan = WindowRing.for_config(cfg).plan(kern.slot_widx, kern.cur_widx,
+                                           widx, valid)
+    probes = edge_probes(cfg, precompute(cfg, tb["src"], tb["src_label"]),
+                         precompute(cfg, tb["dst"], tb["dst_label"]))
+    le_idx = hsh.edge_label_bucket(tb["edge_label"], cfg.c, cfg.seed)
+    w = (tb["weight"] * plan.count_live).to(torch.int32).contiguous()
+    _, _, order, bcounts, offs = _bin_plan(cfg, probes, w)
+    slot = plan.slot[:, 0].to(torch.int32).contiguous()
+    args = (probes.rows.contiguous(), probes.cols.contiguous(),
+            probes.keys.contiguous(), w, le_idx, slot, order, offs, bcounts)
+    walked = int(bcounts.clamp(max=B).sum())
+    flags = {}
+    ms = event_ms(lambda: flags.__setitem__(
+        "kernel", sketch_insert_kernel_sharded(*args, kern.key, kern.C,
+                                               kern.P, B)))
+    plain_ms = event_ms(lambda: flags.__setitem__(
+        "plain", sketch_insert_plain(*args, plain.key, plain.C, plain.P, B)))
+    mism, err = diff([(flags["kernel"].int(), flags["plain"].int()),
+                      (kern.key, plain.key), (kern.C, plain.C),
+                      (kern.P, plain.P)])
+    # bytes the insert must move, each read once and written once: per
+    # walked edge its order entry, s probe coordinates and keys, weight and
+    # label; each (shard, bin)'s offset and count; the distinct candidate
+    # key cells of the walked edges; each distinct winning cell's key write
+    # and C read-modify-write, each distinct (cell, label) P read-modify-
+    # write (a fresh state: exactly the cells that received weight, at the
+    # shard's one slot); one flag per row
+    live = w > 0
+    sh = torch.arange(S, device=dev)[:, None, None]
+    cells = (sh * cfg.d + probes.rows.long()) * cfg.d + probes.cols.long()
+    n_cand = n_distinct(cells[live][..., None] * 2 +
+                        torch.arange(2, device=dev))  # key [S, d, d, 2]
+    n_win = sum(int((kern.C[i, ..., int(slot[i])] != 0).sum())
+                for i in range(S))
+    n_win_le = sum(int((kern.P[i, ..., int(slot[i]), :] != 0).sum())
+                   for i in range(S))
+    nbytes = walked * (4 + 3 * cfg.s * 4 + 8) + 2 * bcounts.numel() * 4 + \
+        n_cand * 4 + n_win * (4 + 8) + n_win_le * 8 + S * B
+    _log(f"phase 3 insert kernel vs plain at flush-1 shapes [S={S}, B={B}], "
+         f"{walked} edges walked: mismatches={mism} max_abs_err={err}; "
+         f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms {tag}")
+    if mism:
+        raise AssertionError("insert kernel disagrees with its plain version")
+    return dict(mismatches=mism, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                nbytes=nbytes, shape=f"S={S} B={B} walked={walked} "
+                f"candidate_cells={n_cand} winning_cells={n_win}")
+
+
+def clone_check(cfg, spec, state, clone, batch, i) -> None:
+    """Phase 4: replay shard 0's rows of a flush on its CPU clone through
+    the plain versions and compare leaf for leaf with the card."""
+    cols, counts = _partition_stack(spec, batch)
+    row0 = {f: torch.from_numpy(v[0:1].copy()) for f, v in cols.items()}
+    saved = dict(eng.ROUTE_EDGES)
+    eng.insert_stacked_fused_impl(cfg, clone, StackedBatch(**row0),
+                                  counts[0:1], use_kernel=True)
+    eng.ROUTE_EDGES.update(saved)
+    live = state.shards.map(lambda x: x[0:1].cpu())
+    bad = [f for f, x, y in zip(LEAVES, clone.leaves(), live.leaves())
+           if not torch.equal(x, y)]
+    _log(f"phase 4 flush {i}: CPU clone of shard 0 through the plain "
+         f"versions vs the card, leaf for leaf: "
+         f"{'equal' if not bad else 'DIFFER ' + str(bad)}")
+    if bad:
+        raise AssertionError(f"shard-0 clone differs in {bad}")
+
+
+def ingest_stream(cfg, spec, stream, flushes, span_i, dev, tag):
+    """Phase 4: the stream through ``skt.ingest`` flush by flush."""
+    state = skt.create(spec, device=dev)
+    routes = {"kernel": 0, "scan": 0}
+    flush_s = []
+    for i, (a, z) in enumerate(flushes):
+        batch = stream.slice(a, z)
+        clone = state.shards.map(lambda x: x[0:1].cpu()) if i < 2 else None
+        before = dict(eng.ROUTE_EDGES)
+        _sync()
+        t0 = time.perf_counter()
+        state = skt.ingest(spec, state, batch, path="cuda")
+        _sync()
+        flush_s.append(time.perf_counter() - t0)
+        for k in routes:
+            routes[k] += eng.ROUTE_EDGES[k] - before[k]
+        if i == span_i and eng.ROUTE_EDGES["scan"] == before["scan"]:
+            raise AssertionError("the boundary-spanning flush did not take "
+                                 "the scan route")
+        if clone is not None:
+            clone_check(cfg, spec, state, clone, batch, i)
+    n_edges, total = len(stream), sum(routes.values())
+    if total != n_edges or not routes["kernel"] or not routes["scan"]:
+        raise AssertionError(f"route counts {routes} != {n_edges} edges")
+    ingest_s = sum(flush_s)
+    pool_used = int((state.shards.pool_key[..., 0] != -1).sum())
+    _log(f"phase 4 ingest: {n_edges} edges in {len(flushes)} flushes, "
+         f"{ingest_s:.3f} s of ingest calls = {n_edges / ingest_s:.0f} "
+         f"edges/s {tag}; route edges: kernel {routes['kernel']} "
+         f"({routes['kernel'] / total:.4%}), scan {routes['scan']} "
+         f"({routes['scan'] / total:.4%}); pool entries {pool_used}, "
+         f"pool_lost {state.shards.pool_lost.tolist()}; per flush: kernel "
+         f"route median {1e3 * np.median(np.delete(flush_s, span_i)):.1f} "
+         f"ms, scan-route flush ({flushes[span_i][1] - flushes[span_i][0]} "
+         f"edges) {1e3 * flush_s[span_i]:.1f} ms")
+    return state, n_edges / ingest_s
+
+
+def query_inputs(cfg, stream):
+    """The query batches of phase 5, as host arrays, seeded."""
+    rng = np.random.default_rng(SEED + 1)
+    recent = np.flatnonzero(stream.time >= stream.time[-1] -
+                            cfg.subwindow_size * 2)
+    ei = rng.choice(recent, N_QUERIES)
+    vi = rng.integers(0, len(stream), N_QUERIES)
+    even = np.arange(N_QUERIES) % 2 == 0
+    return dict(
+        src=stream.src[ei], src_label=stream.src_label[ei],
+        dst=stream.dst[ei], dst_label=stream.dst_label[ei],
+        le=stream.edge_label[ei],
+        v=np.where(even, stream.src[vi], stream.dst[vi]).astype(np.int32),
+        lv=np.where(even, stream.src_label[vi],
+                    stream.dst_label[vi]).astype(np.int32),
+        labels=(np.arange(N_QUERIES) % COMFS.n_vertex_labels).astype(
+            np.int32))
+
+
+def query_batch(qi, kind, with_le, last, sl=slice(None)):
+    le = qi["le"][sl] if with_le else None
+    if kind == "edge":
+        return skt.QueryBatch.edges(qi["src"][sl], qi["src_label"][sl],
+                                    qi["dst"][sl], qi["dst_label"][sl], le,
+                                    last=last)
+    if kind in ("vertex-out", "vertex-in"):
+        return skt.QueryBatch.vertices(qi["v"][sl], qi["lv"][sl], le,
+                                       direction=kind[7:], last=last)
+    return skt.QueryBatch.labels(qi["labels"][sl], le, last=last)
+
+
+KINDS = ("edge", "vertex-out", "vertex-in", "label")
+
+
+def run_queries(spec, state, qi, tag):
+    """Phase 5: every kind x edge label x horizon on the kernel path."""
+    answers, q_times = {}, {}
+    for kind in KINDS:
+        for with_le in (False, True):
+            for last in HORIZONS:
+                q = query_batch(qi, kind, with_le, last)
+                skt.query_planes(spec, state, last)  # plane build: set-up
+                _sync()
+                t0 = time.perf_counter()
+                out = skt.query(spec, state, q, path="cuda")
+                _sync()
+                q_times.setdefault(kind, []).append(
+                    time.perf_counter() - t0)
+                if out.shape != (N_QUERIES,) or out.dtype != torch.int32 \
+                        or int(out.min()) < 0:
+                    raise AssertionError(f"bad {kind} answers")
+                answers[(kind, with_le, last)] = out.cpu()
+    hit = float((answers[("edge", False, None)] > 0).float().mean())
+    _log(f"phase 5 queries: {len(answers)} batches of {N_QUERIES}; edge "
+         f"queries with a positive estimate: {hit:.4f}")
+    for kind, ts in q_times.items():
+        _log(f"phase 5 {kind}: {1e6 * np.mean(ts) / N_QUERIES:.3f} us/query "
+             f"(mean over {len(ts)} batches of {N_QUERIES}, cached planes) "
+             f"{tag}")
+    return answers
+
+
+def check_scan_path(spec, state, qi, answers) -> None:
+    """Phase 5: sampled kernel-path answers against the dense scan path."""
+    sample = slice(0, N_SCAN_SAMPLE)
+    mism = 0
+    for (kind, with_le, last), got in answers.items():
+        q = query_batch(qi, kind, with_le, last, sample)
+        want = skt.query(spec, state, q, path="scan").cpu()
+        mism += int((want != got[sample]).sum())
+    _log(f"phase 5 cuda path vs scan path on {N_SCAN_SAMPLE} queries x "
+         f"{len(answers)} batches: mismatches={mism}")
+    if mism:
+        raise AssertionError("cuda-path answers differ from the scan path")
+
+
+def scan_nbytes(cfg, lines, f, le, key_plane, direction) -> int:
+    """Bytes a vertex-scan batch must move, each read once: every shard's
+    keys on the distinct lines the batch scans (queries share lines), cw
+    of each distinct matching cell and pw of each distinct (matching cell,
+    label), the per-query inputs and the two outputs."""
+    S, _, d, _ = key_plane.shape
+    nq = lines.shape[0]
+    dev = key_plane.device
+    base = (torch.arange(S, device=dev)[:, None, None, None] * 2 +
+            torch.arange(2, device=dev)[:, None, None]) * d
+    j = torch.arange(d, device=dev)
+    lq = le[None, None, :, None].long()
+    cells, cells_le = [], []
+    for i in range(cfg.r):  # the plain scan's match rule, by line
+        li = lines[:, i].long()
+        if direction == "out":
+            kg = key_plane[:, :, li]  # [S, 2, nq, d]
+            cell = (base + li[:, None]) * d + j
+        else:
+            kg = key_plane[:, :, :, li].movedim(3, 2)
+            cell = (base + j) * d + li[:, None]
+        ia, ib, fa, fb = hsh.unpack_key(kg, cfg.F)
+        idx, fp = (ia, fa) if direction == "out" else (ib, fb)
+        match = (kg != -1) & (idx == i) & (fp == f[None, None, :, None])
+        cells.append(cell.expand_as(match)[match])
+        cells_le.append((cell * cfg.c + lq).expand_as(match)[match])
+    n_lines = n_distinct(lines)
+    return S * n_lines * 2 * d * 4 + n_distinct(torch.cat(cells)) * 4 + \
+        n_distinct(torch.cat(cells_le)) * 4 + nq * (cfg.r + 2) * 4 + \
+        2 * S * nq * 4
+
+
+def check_query_kernels(cfg, spec, state, qi, dev, tag) -> dict:
+    """Phase 6: the edge-probe and vertex-scan kernels against their plain
+    versions on the main path's planes and 1,024-query inputs."""
+    planes = skt.query_planes(spec, state, None)
+    S = planes.key.shape[0]
+    t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    pr = edge_probes(cfg, precompute(cfg, t(qi["src"]), t(qi["src_label"])),
+                     precompute(cfg, t(qi["dst"]), t(qi["dst_label"])))
+    le = hsh.edge_label_bucket(t(qi["le"]), cfg.c, cfg.seed)
+    q_args = (pr.rows.contiguous(), pr.cols.contiguous(),
+              pr.keys.contiguous(), le, planes.key, planes.cw, planes.pw)
+    got = sketch_query_kernel_sharded(*q_args)
+    want = sketch_query_plain(*q_args)
+    _sync()
+    mism, err = diff([(a.int(), b.int()) for a, b in zip(got, want)])
+    ms = event_ms(lambda: sketch_query_kernel_sharded(*q_args), 50)
+    plain_ms = event_ms(lambda: sketch_query_plain(*q_args), 5)
+    # bytes the walk needs, each read once: the probe triples and label per
+    # query, the distinct key cells the walks visit (up to and including
+    # each one's stop), cw of each distinct hit cell and pw of each
+    # distinct (hit cell, label); three outputs
+    rows, cols = pr.rows.long(), pr.cols.long()
+    cur = planes.key[:, :, rows, cols].movedim(1, -1)  # [S, nq, s, 2]
+    match = (cur == pr.keys[None, :, :, None]).reshape(S, N_QUERIES, -1)
+    stop = match | (cur == -1).reshape(S, N_QUERIES, -1)
+    first = stop.to(torch.uint8).argmax(-1, keepdim=True)
+    visited = torch.where(stop.any(-1, keepdim=True), first + 1,
+                          stop.shape[-1])
+    sh = torch.arange(S, device=dev)[:, None, None, None]
+    ids = (((sh * 2 + torch.arange(2, device=dev)) * cfg.d +
+            rows[None, :, :, None]) * cfg.d + cols[None, :, :, None]
+           ).reshape(S, N_QUERIES, -1)  # cells of the planes [S, 2, d, d]
+    seen = torch.arange(stop.shape[-1], device=dev) < visited
+    hit = stop.any(-1) & match.gather(-1, first)[..., 0]
+    hit_ids = ids.gather(-1, first)[..., 0][hit]
+    hit_le = le[None, :].expand(S, -1)[hit]
+    n_hit = n_distinct(hit_ids)
+    nbytes = N_QUERIES * (3 * cfg.s * 4 + 4) + n_distinct(ids[seen]) * 4 + \
+        n_hit * 4 + n_distinct(hit_ids * cfg.c + hit_le) * 4 + \
+        3 * S * N_QUERIES * 4
+    _log(f"phase 6 sketch_query kernel vs plain: mismatches={mism}; "
+         f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms {tag}")
+    out = {"sketch_query_kernel_sharded": dict(
+        mismatches=mism, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        nbytes=nbytes, shape=f"S={S} nq={N_QUERIES} hit_cells={n_hit}")}
+
+    pre = precompute(cfg, t(qi["v"]), t(qi["lv"]))
+    lines = (pre.start[:, None] + torch.remainder(
+        pre.s[:, None] + pre.offs, pre.width[:, None])).to(torch.int32)
+    v_args = (lines.contiguous(), pre.f.contiguous(), le, planes.key,
+              planes.cw, planes.pw)
+    res = {}
+    for direction in ("out", "in"):
+        kw = dict(r=cfg.r, F=cfg.F, direction=direction)
+        got = vertex_scan_kernel_sharded(*v_args, **kw)
+        want = vertex_scan_plain(*v_args, **kw)
+        _sync()
+        v_mism, v_err = diff(zip(got, want))
+        v_ms = event_ms(lambda: vertex_scan_kernel_sharded(*v_args, **kw),
+                        20)
+        v_plain = event_ms(lambda: vertex_scan_plain(*v_args, **kw), 3)
+        v_bytes = scan_nbytes(cfg, lines, pre.f, le, planes.key, direction)
+        res[direction] = (v_mism, v_err, v_ms, v_plain, v_bytes)
+        _log(f"phase 6 vertex_scan[{direction}] kernel vs plain: mismatches="
+             f"{v_mism}; kernel {v_ms:.4f} ms, plain {v_plain:.3f} ms {tag}")
+    vo, vn = res["out"], res["in"]
+    out["vertex_scan_kernel_sharded"] = dict(
+        mismatches=vo[0] + vn[0], max_abs_err=max(vo[1], vn[1]), ms=vo[2],
+        plain_ms=vo[3], nbytes=vo[4], direction="out", ms_in=vn[2],
+        plain_ms_in=vn[3], bound_ms_in=1e3 * vn[4] / HBM_BYTES_PER_S,
+        shape=f"S={S} nq={N_QUERIES}")
+    if any(v["mismatches"] for v in out.values()):
+        raise AssertionError("a query kernel disagrees with its plain "
+                             "version")
+    return out
+
+
+def profile_ingest(spec, state, stream, flushes, tag):
+    """Phase 7: a profiler trace over a replay of the last two flushes (the
+    same subwindow, so the ring does not move); the ``lsketch.*`` ranges
+    split a flush by stage."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _sync()
+        t0 = time.perf_counter()
+        for a, z in flushes[-2:]:
+            state = skt.ingest(spec, state, stream.slice(a, z), path="cuda")
+        _sync()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    # device time as the profiler's own table sums it: CUDA-side events
+    # that are not user annotations (a range's device-side twin spans its
+    # whole window and would count idle time as busy)
+    dev_us = sum(e.self_device_time_total for e in events
+                 if e.device_type.name == "CUDA"
+                 and not getattr(e, "is_user_annotation", False))
+    stages = {e.key: e.cpu_time_total / 1e3 for e in events
+              if e.key.startswith("lsketch.") and e.device_type.name == "CPU"}
+    _log(f"phase 7 profile of 2 replayed flushes: wall {1e3 * wall:.1f} ms, "
+         f"device kernels {dev_us / 1e3:.1f} ms (busy share "
+         f"{dev_us / 1e6 / wall:.4f}), host ms by stage "
+         f"{json.dumps(stages)} {tag}")
+    _log(events.table(sort_by="self_cpu_time_total", row_limit=12))
+    return state
+
+
+def deployment():
+    """The spec, the seeded stream and its flushes ``[(a, z)]``, with the
+    index of the boundary-spanning flush."""
+    spec = skt.make_spec("lsketch", n_shards=N_SHARDS, config=CFG)
+    stream = generate(dataclasses.replace(COMFS, n_edges=N_EDGES), seed=SEED,
+                      weighted=True)
+    cuts, span_i = flush_cuts(stream.time, CFG.subwindow_size)
+    return spec, stream, list(zip(cuts[:-1], cuts[1:])), span_i
+
+
+def kernel_entries(results: dict, launches: dict) -> list:
+    """The ``kernels`` list of the JSON line, bounds computed from the
+    bytes each check counted."""
+    return [dict(name=kname, route="cuda", **KERNELS[kname],
+                 launches=launches[kname],
+                 **{k: v for k, v in r.items() if k != "nbytes"},
+                 bound_ms=1e3 * r["nbytes"] / HBM_BYTES_PER_S,
+                 bound_by="bytes", library_ms=None)
+            for kname, r in results.items()]
+
+
+def main() -> int:
+    """The smoke run: the full deployment, on the card only."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this smoke "
+              "run needs a CUDA card", file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    card = card_line()  # phase 1
+    name = torch.cuda.get_device_name(0)
+    _log(f"card: {card} | torch.cuda.get_device_name(0)={name} | "
+         f"torch {torch.__version__} cuda {torch.version.cuda}")
+    tag = f"[{card}]"
+
+    t0 = time.perf_counter()  # phase 2
+    build.build(force=True)
+    build.load_library()
+    _log(f"build: {len(build.PTXAS_LOG)} sources compiled in parallel and "
+         f"linked in {time.perf_counter() - t0:.1f} s")
+    for src, log in build.PTXAS_LOG.items():
+        _log(f"--- nvcc -Xptxas -v {src}\n{log.strip()}")
+
+    cfg = CFG
+    spec, stream, flushes, span_i = deployment()
+    _log(f"deployment: {cfg} x {spec.n_shards} shards; stream COMFS analog, "
+         f"{N_EDGES} edges (cut from the real stream's {FULL_STREAM_EDGES} "
+         f"for the time limit), {len(flushes)} flushes, subwindow "
+         f"{cfg.subwindow_size} time units")
+
+    results = {"sketch_insert_kernel_sharded": check_insert_kernel(
+        cfg, spec, stream.slice(*flushes[0]), dev, tag)}
+    torch.cuda.empty_cache()
+
+    # the main path: every launch count from 0 just before, read just after
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    state, edges_per_s = ingest_stream(cfg, spec, stream, flushes, span_i,
+                                       dev, tag)
+    qi = query_inputs(cfg, stream)
+    answers = run_queries(spec, state, qi, tag)
+    launches = {n: fn.launches for n, fn in WRAPPERS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    _log(f"phase 5 main-path launches: {launches}; peak device memory "
+         f"{peak} bytes {tag}")
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel of the path never launched: "
+                             f"{launches}")
+
+    check_scan_path(spec, state, qi, answers)
+    results.update(check_query_kernels(cfg, spec, state, qi, dev, tag))
+    profile_ingest(spec, state, stream, flushes, tag)
+
+    seconds = time.perf_counter() - t_start
+    _log(f"total {seconds:.1f} s")
+    print(json.dumps({"kernels": kernel_entries(results, launches),
+                      "card": card, "peak_memory_bytes": peak,
+                      "ingest_edges_per_s": edges_per_s,
+                      "seconds": seconds}), flush=True)
+    print(card_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

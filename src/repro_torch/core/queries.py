@@ -1,0 +1,268 @@
+"""Window-reduced query planes and the dense reference queries
+(port of ``repro.core.queries``: ``QueryPlanes``, ``build_query_planes``,
+``edge_query``, ``vertex_query``, ``vertex_label_aggregate``).
+
+The dense queries are the port's ``"scan"`` path and the oracle of the
+plane kernels. They take one (unstacked) state. Two rules keep them at
+full width on the card: nothing materialises ``P * mask`` (each reduction
+accumulates the in-window ring slots one at a time), and the vertex scan
+runs over query chunks, because its ``[B, r, d, 2, k]`` gather is about a
+megabyte per query at d=2048.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import torch
+
+from . import hashing as hsh
+from .lsketch import VertexAddressing, edge_probes, precompute, valid_slot_mask
+from .types import EMPTY, LSketchConfig, LSketchState
+
+_I32 = torch.int32
+
+
+def _sum32(x, dim) -> torch.Tensor:
+    """int32 sum with int32 wrap (torch sums integers in int64)."""
+    return x.sum(dim=dim, dtype=torch.int64).to(_I32)
+
+
+@dataclass
+class QueryPlanes:
+    """Window-reduced planes of a shard-stacked state.
+
+    key     : [S, 2, d, d]     packed keys, twin-leading (kernel layout)
+    cw      : [S, 2, d, d]     sum of C over in-window ring slots
+    pw      : [S, 2, d, d, c]  sum of P over in-window ring slots
+    pool_key: [S, Q, 2]
+    pool_cw : [S, Q]
+    pool_pw : [S, Q, c]
+    """
+
+    key: torch.Tensor
+    cw: torch.Tensor
+    pw: torch.Tensor
+    pool_key: torch.Tensor
+    pool_cw: torch.Tensor
+    pool_pw: torch.Tensor
+
+
+def _masked_slot_sum(x: torch.Tensor, axis: int, mask: torch.Tensor,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
+    """Sum of ``x`` over the slots of ``axis`` that ``mask`` ([k] bool, on
+    the host) admits, accumulated one slot at a time into ``out`` (which
+    may be a strided view of the caller's output)."""
+    if out is None:
+        shape = list(x.shape)
+        del shape[axis]
+        out = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    for j in torch.nonzero(mask).flatten().tolist():
+        out.add_(x.select(axis, j))
+    return out
+
+
+def build_query_planes(cfg: LSketchConfig, state: LSketchState,
+                       last: int | None = None) -> QueryPlanes:
+    """Reduce a shard-stacked state to its window-reduced planes.
+    ``cur_widx`` must already carry the fleet-global window."""
+    S, d = state.key.shape[0], cfg.d
+    mask = valid_slot_mask(cfg, state, last).cpu()  # [S, k]
+    dev, ct = state.C.device, state.C.dtype
+    cw = torch.zeros((S, 2, d, d), dtype=ct, device=dev)
+    pw = torch.zeros((S, 2, d, d, cfg.c), dtype=ct, device=dev)
+    pool_cw = torch.zeros(state.pool_C.shape[:2], dtype=ct, device=dev)
+    pool_pw = torch.zeros(state.pool_C.shape[:2] + (cfg.c,), dtype=ct,
+                          device=dev)
+    for s in range(S):
+        # accumulate straight into the twin-leading outputs through
+        # [d, d, 2(, c)] views: no permuted copy of the 2 GiB pw plane
+        _masked_slot_sum(state.C[s], 3, mask[s], cw[s].permute(1, 2, 0))
+        _masked_slot_sum(state.P[s], 3, mask[s], pw[s].permute(1, 2, 0, 3))
+        _masked_slot_sum(state.pool_C[s], 1, mask[s], pool_cw[s])
+        _masked_slot_sum(state.pool_P[s], 1, mask[s], pool_pw[s])
+    return QueryPlanes(key=state.key.permute(0, 3, 1, 2).contiguous(),
+                       cw=cw, pw=pw, pool_key=state.pool_key,
+                       pool_cw=pool_cw, pool_pw=pool_pw)
+
+
+def _first(stop: torch.Tensor) -> torch.Tensor:
+    """Index of the first True along the last axis (0 if none), as
+    ``jnp.argmax`` of a boolean array."""
+    return torch.argmax(stop.to(torch.uint8), dim=-1)
+
+
+def _win_weights(C_slots, P_slots, le_idx, mask):
+    """GETWEIGHTSINM: C_slots [..., k]; P_slots [..., k, c]; mask [k]."""
+    w = _sum32(torch.where(mask, C_slots, 0), -1)
+    if le_idx is None:
+        return w, torch.zeros_like(w)
+    le = le_idx.long()[..., None, None].expand(P_slots.shape[:-1] + (1,))
+    pl = torch.gather(P_slots, -1, le)[..., 0]
+    return w, _sum32(torch.where(mask, pl, 0), -1)
+
+
+def edge_query(cfg: LSketchConfig, state: LSketchState, edge_src, edge_dst,
+               labels, with_edge_label: bool = False,
+               last: int | None = None):
+    """Weight of edge (A,B) [optionally restricted to edge label l_e] on
+    one state. Returns (w, w_l) int32 [B] (w_l = w without a label)."""
+    la, lb, le = labels
+    pa = precompute(cfg, edge_src, la)
+    pb = precompute(cfg, edge_dst, lb)
+    pr = edge_probes(cfg, pa, pb)
+    le_idx = hsh.edge_label_bucket(le, cfg.c, cfg.seed) \
+        if with_edge_label else None
+    mask = valid_slot_mask(cfg, state, last)
+    B = pr.rows.shape[0]
+    tz2 = torch.arange(2, device=pr.rows.device)
+    cur = state.key[pr.rows.long()[..., None], pr.cols.long()[..., None],
+                    tz2[None, None, :]]  # [B, s, 2]
+    is_match = (cur == pr.keys[..., None]).reshape(B, -1)
+    is_empty = (cur == EMPTY).reshape(B, -1)
+    stop = is_match | is_empty
+    any_stop = stop.any(-1)
+    first = _first(stop)
+    hit = torch.gather(is_match, 1, first[:, None])[:, 0] & any_stop
+    pi, tz = first // 2, first % 2
+    rr = torch.gather(pr.rows, 1, pi[:, None])[:, 0].long()
+    cc = torch.gather(pr.cols, 1, pi[:, None])[:, 0].long()
+    w_m, wl_m = _win_weights(state.C[rr, cc, tz], state.P[rr, cc, tz],
+                             le_idx, mask)
+    w_m = torch.where(hit, w_m, 0)
+    wl_m = torch.where(hit, wl_m, 0)
+
+    go_pool = ~any_stop
+    ps = hsh.pool_slot_seq(pr.pid_src, pr.pid_dst, cfg.pool_capacity,
+                           cfg.pool_probes, cfg.seed).long()
+    pk = state.pool_key[ps]  # [B, probes, 2]
+    pmatch = (pk[..., 0] == pr.pid_src[:, None]) & \
+        (pk[..., 1] == pr.pid_dst[:, None])
+    pany = pmatch.any(-1)
+    pslot = torch.gather(ps, 1, _first(pmatch)[:, None])[:, 0]
+    w_p, wl_p = _win_weights(state.pool_C[pslot], state.pool_P[pslot],
+                             le_idx, mask)
+    sel = go_pool & pany
+    w = (w_m + torch.where(sel, w_p, 0)).to(_I32)
+    wl = (wl_m + torch.where(sel, wl_p, 0)).to(_I32)
+    return (w, wl) if with_edge_label else (w, w)
+
+
+class _RowScan(NamedTuple):
+    w: torch.Tensor
+    wl: torch.Tensor
+
+
+def _scan_candidate_lines(cfg, state, pre: VertexAddressing, le_idx, mask,
+                          axis: str, chunk: int | None = None):
+    """Sum weights over all cells in v's r candidate rows (axis='out') or
+    columns (axis='in') whose stored index+fingerprint match v. Runs over
+    chunks of queries; the label plane is gathered at the query's own
+    label only (never the whole ``c`` axis)."""
+    pos = torch.remainder(pre.s[:, None] + pre.offs, pre.width[:, None])
+    lines = (pre.start[:, None] + pos).long()  # [B, r]
+    B, r, d = lines.shape[0], cfg.r, cfg.d
+    k = state.C.shape[-1]
+    if chunk is None:
+        chunk = max(1, (1 << 28) // (r * d * 2 * k * 4))
+    dev = lines.device
+    jj = torch.arange(d, device=dev)[None, None, :, None]
+    tz = torch.arange(2, device=dev)[None, None, None, :]
+    want_i = torch.arange(r, dtype=_I32, device=dev)[None, :, None, None]
+    ws, wls = [], []
+    for a in range(0, B, chunk):
+        ll = lines[a:a + chunk][:, :, None, None]
+        ij = (ll, jj) if axis == "out" else (jj, ll)
+        keys = state.key[ij[0], ij[1], tz]  # [b, r, d, 2]
+        ia, ib, fa, fb = hsh.unpack_key(keys, cfg.F)
+        idx, fp = (ia, fa) if axis == "out" else (ib, fb)
+        match = (keys != EMPTY) & (idx == want_i) & \
+            (fp == pre.f[a:a + chunk, None, None, None])
+        Cs = state.C[ij[0], ij[1], tz]  # [b, r, d, 2, k]
+        tot = _sum32(torch.where(mask, Cs, 0), -1)
+        ws.append(_sum32(torch.where(match, tot, 0), (1, 2, 3)))
+        if le_idx is not None:
+            le = le_idx[a:a + chunk].long()[:, None, None, None, None]
+            kk = torch.arange(k, device=dev)
+            Pl = state.P[ij[0][..., None], ij[1][..., None], tz[..., None],
+                         kk, le]  # [b, r, d, 2, k]
+            ptot = _sum32(torch.where(mask, Pl, 0), -1)
+            wls.append(_sum32(torch.where(match, ptot, 0), (1, 2, 3)))
+    w = torch.cat(ws)
+    return _RowScan(w, torch.cat(wls) if le_idx is not None
+                    else torch.zeros_like(w))
+
+
+def _pool_vertex_scan(cfg, state, pre: VertexAddressing, le_idx, mask,
+                      axis: str):
+    """Pool contribution to a vertex query: match the stored endpoint id."""
+    col = 0 if axis == "out" else 1
+    pm = state.pool_key[:, col][None, :] == pre.vid[:, None]  # [B, Q]
+    tot = _sum32(torch.where(mask, state.pool_C, 0), -1)  # [Q]
+    w = _sum32(torch.where(pm, tot[None, :], 0), -1)
+    if le_idx is None:
+        return _RowScan(w, torch.zeros_like(w))
+    plw = _masked_slot_sum(state.pool_P, 1, mask.cpu())  # [Q, c]
+    lw = plw[:, le_idx.long()].T  # [B, Q]
+    return _RowScan(w, _sum32(torch.where(pm, lw, 0), -1))
+
+
+def vertex_query(cfg: LSketchConfig, state: LSketchState, vertex, labels,
+                 direction: str = "out", with_edge_label: bool = False,
+                 last: int | None = None, chunk: int | None = None):
+    """Outgoing/incoming edge-weight of a vertex on one state (paper Alg.
+    4, lines 2-9). Returns (w, w_l) int32 [B]."""
+    lv, le = labels
+    pre = precompute(cfg, vertex, lv)
+    le_idx = hsh.edge_label_bucket(le, cfg.c, cfg.seed) \
+        if with_edge_label else None
+    mask = valid_slot_mask(cfg, state, last)
+    m = _scan_candidate_lines(cfg, state, pre, le_idx, mask, direction,
+                              chunk)
+    p = _pool_vertex_scan(cfg, state, pre, le_idx, mask, direction)
+    w, wl = (m.w + p.w).to(_I32), (m.wl + p.wl).to(_I32)
+    return (w, wl) if with_edge_label else (w, w)
+
+
+def vertex_label_aggregate(cfg: LSketchConfig, state: LSketchState, vlabel,
+                           direction: str = "out",
+                           with_edge_label: bool = False,
+                           last: int | None = None, edge_label=None):
+    """Aggregate weight of all vertices with label lA on one state (Alg. 4
+    lines 10-14): every occupied cell in the label's block rows (out) /
+    columns (in), plus pool entries whose endpoint block matches."""
+    vlabel = torch.as_tensor(vlabel).to(_I32)
+    dev = vlabel.device
+    starts, widths = cfg.block_start_width(dev)
+    m = hsh.vertex_label_block(vlabel, cfg.n_blocks, cfg.seed).long()
+    mask = valid_slot_mask(cfg, state, last)
+    mask_h = mask.cpu()
+    rows = torch.arange(cfg.d, dtype=_I32, device=dev)
+    in_block = (rows[None, :] >= starts[m][:, None]) & (
+        rows[None, :] < (starts[m] + widths[m])[:, None])  # [B, d]
+    occ = state.key != EMPTY  # [d, d, 2]
+    sum_dims = (1, 2) if direction == "out" else (0, 2)
+    cell_tot = _masked_slot_sum(state.C, 3, mask_h).masked_fill_(~occ, 0)
+    axis_tot = _sum32(cell_tot, sum_dims)  # [d]
+    w = _sum32(torch.where(in_block, axis_tot[None, :], 0), -1)
+    wl = w
+    if with_edge_label:
+        le_idx = hsh.edge_label_bucket(edge_label, cfg.c, cfg.seed).long()
+        Pc = _masked_slot_sum(state.P, 3, mask_h).masked_fill_(
+            ~occ[..., None], 0)  # [d, d, 2, c]
+        per_lbl = _sum32(Pc, sum_dims)  # [d, c]
+        del Pc
+        lw = per_lbl[:, le_idx].T  # [B, d]
+        wl = _sum32(torch.where(in_block, lw, 0), -1)
+    col = 0 if direction == "out" else 1
+    pm_blocks, _, _ = hsh.unpack_vertex_id(state.pool_key[:, col], cfg.F)
+    pocc = state.pool_key[:, col] != EMPTY
+    pmatch = pocc[None, :] & (pm_blocks[None, :] == m[:, None])
+    ptot = _sum32(torch.where(mask, state.pool_C, 0), -1)
+    w = (w + _sum32(torch.where(pmatch, ptot[None, :], 0), -1)).to(_I32)
+    if with_edge_label:
+        plw = _masked_slot_sum(state.pool_P, 1, mask_h)  # [Q, c]
+        lw = plw[:, le_idx].T  # [B, Q]
+        wl = (wl + _sum32(torch.where(pmatch, lw, 0), -1)).to(_I32)
+    return w, wl

@@ -1,0 +1,237 @@
+"""Batched queries over a sharded handle (port of ``repro.sketch.query``
+for single-horizon queries).
+
+``query(spec, state, QueryBatch, path=...)`` answers a batch against every
+shard and sums the shard partials (hash partitioning makes them disjoint):
+
+  * ``path="scan"`` — the dense reference (``core/queries.py``) on each
+    shard, re-reducing the counter planes under the window mask per call;
+  * ``path="cuda"`` — the kernel route (the counterpart of JAX's
+    ``"pallas"``): the edge-probe and vertex-scan CUDA kernels on cached
+    window-reduced ``QueryPlanes``; label aggregates reduce the same planes
+    in plain PyTorch. On a CPU state the same wrappers take each kernel's
+    plain version.
+  * ``"auto"`` is ``"cuda"`` for a CUDA state and ``"scan"`` for a CPU one.
+
+Every shard queries under the fleet-wide newest subwindow index (a
+lagging shard must not count ring slots the combined stream expired).
+The planes are memoized on the handle object, keyed by the clamped
+horizon ``min(last or k, k)``, in a small LRU (``PLANES_CACHE_CAP``);
+ingest returns a new handle, so the cache is never stale. Query batches
+are padded to power-of-two buckets with the ``EMPTY`` sentinel; pad rows
+are sliced off. A list ``last`` (multi-horizon sweep) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections import OrderedDict
+from dataclasses import dataclass
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core import queries as _q
+from repro_torch.core.types import EMPTY, LSketchState
+from repro_torch.engine.window import bucket_size
+
+from .spec import SketchSpec
+from .state import ShardedState
+
+PLANES_CACHE_CAP = 8
+_PLANES_ATTR = "_query_planes_cache"
+
+
+@dataclass(frozen=True)
+class QueryBatch:
+    """One homogeneous batch of queries (one kind / window / direction)."""
+
+    kind: str  # "edge" | "vertex" | "label"
+    src: Any = None
+    src_label: Any = None
+    dst: Any = None
+    dst_label: Any = None
+    vertex: Any = None
+    vertex_label: Any = None
+    edge_label: Any = None
+    direction: str = "out"
+    last: Any = None
+
+    @classmethod
+    def edges(cls, src, src_label, dst, dst_label, edge_label=None,
+              last=None) -> "QueryBatch":
+        return cls(kind="edge", src=src, src_label=src_label, dst=dst,
+                   dst_label=dst_label, edge_label=edge_label, last=last)
+
+    @classmethod
+    def vertices(cls, vertex, vertex_label, edge_label=None,
+                 direction: str = "out", last=None) -> "QueryBatch":
+        return cls(kind="vertex", vertex=vertex, vertex_label=vertex_label,
+                   edge_label=edge_label, direction=direction, last=last)
+
+    @classmethod
+    def labels(cls, vertex_label, edge_label=None, direction: str = "out",
+               last=None) -> "QueryBatch":
+        return cls(kind="label", vertex_label=vertex_label,
+                   edge_label=edge_label, direction=direction, last=last)
+
+
+def resolve_query_path(path: str = "auto", device=None) -> str:
+    """Normalize a query path name to "scan" | "cuda"."""
+    if path == "auto":
+        path = "cuda" if torch.device(device or "cpu").type == "cuda" \
+            else "scan"
+    if path not in ("scan", "cuda"):
+        raise ValueError(f"unknown query path {path!r}")
+    return path
+
+
+def as_i32(x, n: int | None = None, device=None) -> torch.Tensor:
+    """int32 1-D tensor on ``device``, broadcast to length ``n``."""
+    a = torch.as_tensor(np.atleast_1d(np.asarray(
+        x.cpu() if isinstance(x, torch.Tensor) else x, np.int32)))
+    if n is not None and a.shape[0] != n:
+        a = a.expand(n)
+    return a.contiguous().to(device)
+
+
+def pad_all(n: int, *arrays, floor: int = 32):
+    """Pad every [n] tensor to the common bucket size with ``EMPTY``."""
+    to = bucket_size(n, floor=floor)
+    if to == n:
+        return arrays
+    return tuple(torch.cat([a, torch.full((to - a.shape[0],), EMPTY,
+                                          dtype=a.dtype, device=a.device)])
+                 for a in arrays)
+
+
+def normalize_query(q: QueryBatch, device=None):
+    """int32 tensors on ``device``, broadcast and bucket-padded. Returns
+    ``(arrays, with_le, last, n)``: ``(src, dst, la, lb, les)`` for edges,
+    ``(v, lv, les)`` for vertices, ``(lv, les)`` for labels; ``n`` is the
+    unpadded row count."""
+    with_le = q.edge_label is not None
+    if q.kind == "edge":
+        src, dst = as_i32(q.src), as_i32(q.dst)
+        n = max(src.shape[0], dst.shape[0])
+        src, dst = as_i32(src, n, device), as_i32(dst, n, device)
+        la = as_i32(q.src_label, n, device)
+        lb = as_i32(q.dst_label, n, device)
+        les = as_i32(q.edge_label, n, device) if with_le \
+            else torch.zeros_like(src)
+        return pad_all(n, src, dst, la, lb, les), with_le, q.last, n
+    if q.kind == "vertex":
+        v = as_i32(q.vertex, None, device)
+        n = v.shape[0]
+        lv = as_i32(q.vertex_label, n, device)
+        les = as_i32(q.edge_label, n, device) if with_le \
+            else torch.zeros_like(v)
+        return pad_all(n, v, lv, les), with_le, q.last, n
+    if q.kind == "label":
+        lv = as_i32(q.vertex_label, None, device)
+        n = lv.shape[0]
+        les = as_i32(q.edge_label, n, device) if with_le \
+            else torch.zeros_like(lv)
+        return pad_all(n, lv, les), with_le, q.last, n
+    raise ValueError(f"unknown query kind {q.kind!r}")
+
+
+def _with_global_window(shards: LSketchState) -> LSketchState:
+    """A view of the stack in which every shard carries the fleet-wide
+    newest subwindow index (the handle's own tensors are not touched)."""
+    g = shards.cur_widx.max().expand(shards.cur_widx.shape)
+    return dataclasses.replace(shards, cur_widx=g)
+
+
+def query_planes(spec: SketchSpec, state: ShardedState, last=None):
+    """The window-reduced ``QueryPlanes`` for ``(state, last)``, memoized on
+    the handle object in an LRU of ``PLANES_CACHE_CAP`` entries keyed by
+    the clamped horizon (``last=None`` and ``last>=k`` share one entry)."""
+    shards = state.live()
+    k = spec.config.effective_k
+    horizon = k if last is None else min(int(last), k)
+    cache = getattr(state, _PLANES_ATTR, None)
+    if cache is None:
+        cache = OrderedDict()
+        setattr(state, _PLANES_ATTR, cache)
+    if horizon in cache:
+        cache.move_to_end(horizon)
+        return cache[horizon]
+    while len(cache) >= PLANES_CACHE_CAP:
+        cache.popitem(last=False)
+    planes = _q.build_query_planes(spec.config, _with_global_window(shards),
+                                   horizon)
+    cache[horizon] = planes
+    return planes
+
+
+def _per_shard(shards: LSketchState, fn):
+    """Sum of ``fn(one shard's state)`` over the stack (the scan path)."""
+    S = shards.key.shape[0]
+    total = None
+    for s in range(S):
+        part = fn(shards.map(lambda x: x[s])).to(torch.int64)
+        total = part if total is None else total + part
+    return total.to(torch.int32)
+
+
+def query(spec: SketchSpec, state: ShardedState, q: QueryBatch,
+          path: str = "auto") -> torch.Tensor:
+    """Answer a QueryBatch against a sharded handle: int32 [B] on the
+    state's device."""
+    if isinstance(q.last, (list, tuple)):
+        raise NotImplementedError("multi-horizon queries are not ported "
+                                  "to repro_torch yet")
+    shards = state.live()
+    cfg = spec.config
+    path = resolve_query_path(path, state.device)
+    arrays, with_le, last, n = normalize_query(q, state.device)
+
+    if path == "cuda":
+        from repro_torch.kernels.sketch_query.ops import edge_query_planes
+        from repro_torch.kernels.vertex_scan.ops import (
+            label_aggregate_planes, vertex_query_planes)
+        planes = query_planes(spec, state, last)
+        if q.kind == "edge":
+            src, dst, la, lb, les = arrays
+            w, wl = edge_query_planes(cfg, planes, src, dst, (la, lb, les),
+                                      with_le=with_le)
+        elif q.kind == "vertex":
+            v, lv, les = arrays
+            w, wl = vertex_query_planes(cfg, planes, v, (lv, les),
+                                        direction=q.direction,
+                                        with_le=with_le)
+        else:
+            lv, les = arrays
+            w, wl = label_aggregate_planes(cfg, planes, lv, edge_label=les,
+                                           direction=q.direction,
+                                           with_le=with_le)
+        out = (wl if with_le else w).sum(0, dtype=torch.int64)
+        return out.to(torch.int32)[:n]
+
+    glob = _with_global_window(shards)
+    if q.kind == "edge":
+        src, dst, la, lb, les = arrays
+
+        def one(st):
+            w, wl = _q.edge_query(cfg, st, src, dst, (la, lb, les),
+                                  with_le, last)
+            return wl if with_le else w
+    elif q.kind == "vertex":
+        v, lv, les = arrays
+
+        def one(st):
+            w, wl = _q.vertex_query(cfg, st, v, (lv, les),
+                                    direction=q.direction,
+                                    with_edge_label=with_le, last=last)
+            return wl if with_le else w
+    else:
+        lv, les = arrays
+
+        def one(st):
+            w, wl = _q.vertex_label_aggregate(
+                cfg, st, lv, direction=q.direction, with_edge_label=with_le,
+                last=last, edge_label=les if with_le else None)
+            return wl if with_le else w
+    return _per_shard(glob, one)[:n]

@@ -1,0 +1,157 @@
+"""Each CUDA kernel of the port against its plain PyTorch version, on the
+card (exact int32 equality). Imports neither JAX nor ``repro``, so it runs
+where only PyTorch is installed:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
+
+Without a card every test skips (inside the test, never at collection)."""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import sketch as skt
+from repro_torch.core import hashing as th
+from repro_torch.core.lsketch import edge_probes, precompute
+from repro_torch.core.types import EdgeBatch, LSketchConfig, init_leaves
+from repro_torch.kernels.sketch_insert.kernel import (
+    sketch_insert_kernel_sharded, sketch_insert_plain)
+from repro_torch.kernels.sketch_insert.ops import _bin_plan
+from repro_torch.kernels.sketch_query.kernel import (
+    sketch_query_kernel_sharded, sketch_query_plain)
+from repro_torch.kernels.vertex_scan.kernel import (
+    vertex_scan_kernel_sharded, vertex_scan_plain)
+
+CFG = LSketchConfig(d=32, n_blocks=2, F=256, r=4, s=4, c=4, k=4,
+                    window_size=100, pool_capacity=32, pool_probes=4)
+# s = 20: 2s = 40 candidates > 32 lanes, the insert kernel's lane-group loop
+WIDE = LSketchConfig(d=64, n_blocks=2, F=1024, r=8, s=20, c=4, k=2,
+                     window_size=100, pool_capacity=32, pool_probes=4)
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run on the card with "
+                    "-m gpu tests/test_torch_gpu.py")
+
+
+def _t(x):
+    return torch.from_numpy(np.asarray(x).astype(np.int32))
+
+
+def _planes(seed=7, S=2):
+    """Window-reduced planes of a port-built state (CPU)."""
+    rng = np.random.default_rng(seed)
+    spec = skt.make_spec("lsketch", n_shards=S, config=CFG)
+    st = skt.create(spec, device="cpu")
+    for t in (10, 60, 120, 180):
+        n = 300
+        st = skt.ingest(spec, st, EdgeBatch.from_arrays(
+            rng.integers(0, 90, n), rng.integers(0, 90, n),
+            rng.integers(0, 3, n), rng.integers(0, 3, n),
+            rng.integers(0, 6, n), rng.integers(1, 4, n), np.full(n, t)))
+    return skt.query_planes(spec, st), rng
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", [CFG, WIDE], ids=["s4", "s20"])
+def test_cuda_insert_kernel_matches_plain(cfg):
+    _need_card()
+    rng = np.random.default_rng(3)
+    S, B = 3, 512
+    src, dst = rng.integers(0, 80, (S, B)), rng.integers(0, 80, (S, B))
+    tp = edge_probes(cfg, precompute(cfg, _t(src), _t(src % 3)),
+                     precompute(cfg, _t(dst), _t(dst % 3)))
+    w = _t(rng.integers(0, 3, (S, B)))
+    le = th.edge_label_bucket(_t(rng.integers(0, 9, (S, B))), cfg.c,
+                              cfg.seed)
+    slot = _t(rng.integers(0, cfg.k, S))
+    _, _, order, counts, offs = _bin_plan(cfg, tp, w)
+    args = (tp.rows.contiguous(), tp.cols.contiguous(), tp.keys.contiguous(),
+            w, le, slot, order, offs, counts)
+    for max_bin in (B, 5):
+        ref = init_leaves(cfg, (S,), "cpu")
+        ins_ref = sketch_insert_plain(*args, ref.key, ref.C, ref.P, max_bin)
+        st = init_leaves(cfg, (S,), "cuda")
+        before = sketch_insert_kernel_sharded.launches
+        ins = sketch_insert_kernel_sharded(*[a.cuda() for a in args],
+                                           st.key, st.C, st.P, max_bin)
+        torch.cuda.synchronize()
+        assert sketch_insert_kernel_sharded.launches == before + 1
+        assert torch.equal(ins.cpu(), ins_ref)
+        for a, b in zip((ref.key, ref.C, ref.P), (st.key, st.C, st.P)):
+            assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.gpu
+def test_cuda_edge_query_kernel_matches_plain():
+    _need_card()
+    planes, rng = _planes()
+    nq, s = 300, CFG.s
+    rows = _t(rng.integers(0, CFG.d, (nq, s)))
+    cols = _t(rng.integers(0, CFG.d, (nq, s)))
+    keys = planes.key[0, 0, rows.long(), cols.long()].contiguous()
+    keys[::3] += 1  # some mismatches, some walks to the pool
+    le = _t(rng.integers(0, CFG.c, nq))
+    g = lambda x: None if x is None else x.cuda()
+    pl = (planes.key, planes.cw, planes.pw)
+    for lab in (None, le):
+        ref = sketch_query_plain(rows, cols, keys, lab, *pl)
+        got = sketch_query_kernel_sharded(g(rows), g(cols), g(keys), g(lab),
+                                          *map(g, pl))
+        torch.cuda.synchronize()
+        for a, b in zip(ref, got):
+            assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("direction", ["out", "in"])
+def test_cuda_vertex_scan_kernel_matches_plain(direction):
+    _need_card()
+    planes, rng = _planes(9)
+    nq = 200
+    lines = _t(rng.integers(0, CFG.d, (nq, CFG.r)))
+    f = _t(rng.integers(0, CFG.F, nq))
+    le = _t(rng.integers(0, CFG.c, nq))
+    neg = planes.key.clone()  # negative non-EMPTY keys: floor decode
+    neg[..., ::5] = -_t(rng.integers(2, 3000, neg[..., ::5].shape))
+    g = lambda x: None if x is None else x.cuda()
+    for kp in (planes.key, neg):
+        for lab in (None, le):
+            kw = dict(r=CFG.r, F=CFG.F, direction=direction)
+            ref = vertex_scan_plain(lines, f, lab, kp, planes.cw, planes.pw,
+                                    **kw)
+            got = vertex_scan_kernel_sharded(g(lines), g(f), g(lab), g(kp),
+                                             g(planes.cw), g(planes.pw), **kw)
+            torch.cuda.synchronize()
+            for a, b in zip(ref, got):
+                assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.gpu
+def test_cuda_end_to_end_equals_cpu():
+    """The whole port on the card (kernel route, both query paths) equals
+    the same stream through the plain versions on the CPU."""
+    _need_card()
+    rng = np.random.default_rng(11)
+    n = 3000
+    b = EdgeBatch.from_arrays(
+        rng.integers(0, 300, n), rng.integers(0, 300, n),
+        rng.integers(0, 3, n), rng.integers(0, 3, n), rng.integers(0, 6, n),
+        rng.integers(1, 4, n), np.sort(rng.integers(0, 300, n)))
+    spec = skt.make_spec("lsketch", n_shards=4, config=CFG)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        st = skt.create(spec, device=dev)
+        for a in range(0, n, 700):
+            st = skt.ingest(spec, st, b.slice(a, a + 700), path="cuda")
+        qs = [skt.QueryBatch.edges(b.src[:99], b.src_label[:99], b.dst[:99],
+                                   b.dst_label[:99], b.edge_label[:99]),
+              skt.QueryBatch.vertices(b.src[:50], b.src_label[:50],
+                                      direction="in", last=2),
+              skt.QueryBatch.labels(np.arange(3), np.arange(3), last=1)]
+        out[dev] = list(skt.to_numpy(st)) + [
+            skt.query(spec, st, q, path=p).cpu().numpy()
+            for q in qs for p in ("scan", "cuda")]
+    for a, b in zip(out["cpu"], out["cuda"]):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

@@ -1,0 +1,174 @@
+"""The port stands alone (no JAX, nothing of ``repro``) and keeps the
+device and handle rules of its entry points."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import sketch as tskt
+from repro_torch.core.types import EdgeBatch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import repro_torch
+mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for m in mods:
+    importlib.import_module(m)
+import chip_smoke  # does its work only under __main__
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro"
+             or m.startswith("repro."))
+print(len(mods), bad)
+assert not bad, bad
+"""
+
+
+def test_port_and_chip_smoke_import_neither_jax_nor_repro():
+    env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT}")
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    n_mods = int(out.stdout.split()[0])
+    assert n_mods >= 20
+
+
+SPEC = dict(d=16, n_blocks=2, F=256, r=4, s=4, c=4, k=4, window_size=100,
+            pool_capacity=8, pool_probes=2)
+
+
+def test_entry_points_default_to_the_card():
+    spec = tskt.make_spec("lsketch", n_shards=2, **SPEC)
+    if torch.cuda.is_available():
+        assert tskt.create(spec).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tskt.create(spec)
+    assert tskt.create(spec, device="cpu").device.type == "cpu"
+
+
+def test_ingest_spends_the_old_handle_and_starts_a_cold_cache():
+    spec = tskt.make_spec("lsketch", n_shards=2, **SPEC)
+    st = tskt.create(spec, device="cpu")
+    rng = np.random.default_rng(0)
+    b = EdgeBatch.from_arrays(rng.integers(0, 40, 64), rng.integers(0, 40, 64),
+                              weight=rng.integers(1, 3, 64),
+                              time=np.full(64, 3))
+    q = tskt.QueryBatch.vertices(np.arange(8), np.zeros(8, np.int32))
+    st1 = tskt.ingest(spec, st, b.slice(0, 32), path="cuda")
+    w1 = tskt.query(spec, st1, q, path="cuda")
+    assert tskt.query_planes(spec, st1) is tskt.query_planes(spec, st1, 9)
+    st2 = tskt.ingest(spec, st1, b.slice(32, 64), path="cuda")
+    assert st2 is not st1 and st2.shards is st1.shards
+    with pytest.raises(RuntimeError, match="consumed by ingest"):
+        tskt.query(spec, st1, q)
+    with pytest.raises(RuntimeError, match="consumed by ingest"):
+        tskt.ingest(spec, st1, b)
+    w2 = tskt.query(spec, st2, q, path="cuda")
+    assert int(w2.sum()) > int(w1.sum())  # no stale planes
+    np.testing.assert_array_equal(
+        w2.numpy(), tskt.query(spec, st2, q, path="scan").numpy())
+
+
+@pytest.mark.parametrize("kind", ["gss", "lgs"])
+def test_unported_kinds_raise(kind):
+    with pytest.raises(NotImplementedError):
+        tskt.make_spec(kind, n_shards=1)
+
+
+def test_dense_vertex_scan_is_independent_of_its_query_chunk():
+    from repro_torch.core.queries import vertex_query
+
+    spec = tskt.make_spec("lsketch", n_shards=1, **SPEC)
+    st = tskt.create(spec, device="cpu")
+    rng = np.random.default_rng(2)
+    b = EdgeBatch.from_arrays(rng.integers(0, 30, 400),
+                              rng.integers(0, 30, 400), weight=np.ones(400),
+                              edge_label=rng.integers(0, 4, 400),
+                              time=np.sort(rng.integers(0, 90, 400)))
+    st = tskt.ingest(spec, st, b, path="scan")
+    one = st.shards.map(lambda x: x[0])
+    v = torch.arange(-1, 30, dtype=torch.int32)
+    labels = (torch.zeros_like(v), torch.remainder(v, 4))
+    for direction in ("out", "in"):
+        whole = vertex_query(spec.config, one, v, labels, direction, True)
+        for chunk in (1, 7):
+            part = vertex_query(spec.config, one, v, labels, direction, True,
+                                chunk=chunk)
+            for a, c in zip(whole, part):
+                assert torch.equal(a, c)
+
+
+def test_chip_smoke_rehearses_on_the_cpu(monkeypatch, capsys):
+    """``chip_smoke``'s phases in ``main``'s order at a tiny size on the
+    CPU, with the card's timers stubbed: every comparison must hold and
+    every bound must count no more bytes than its inputs and outputs hold.
+    ``main`` itself runs on the card only: without one it exits non-zero
+    and prints no result."""
+    import json
+    import time
+
+    monkeypatch.syspath_prepend(str(ROOT))
+    import chip_smoke
+    from repro_torch.core.types import LSketchConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert chip_smoke.main() != 0
+    assert '"ok"' not in capsys.readouterr().out
+
+    class _Event:
+        def __init__(self, enable_timing=True):
+            self.t = 0.0
+
+        def record(self):
+            self.t = time.perf_counter()
+
+        def elapsed_time(self, other):
+            return 1e3 * (other.t - self.t)
+
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    cfg = LSketchConfig(d=32, n_blocks=4, F=1024, r=8, s=8, c=16, k=8,
+                        window_size=1440, pool_capacity=128, pool_probes=16)
+    for name, value in (("CFG", cfg), ("N_EDGES", 8000), ("N_QUERIES", 96),
+                        ("MAX_FLUSH", 1200)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    dev, tag = torch.device("cpu"), "[cpu]"
+    spec, stream, flushes, span_i = chip_smoke.deployment()
+    results = {"sketch_insert_kernel_sharded": chip_smoke.check_insert_kernel(
+        cfg, spec, stream.slice(*flushes[0]), dev, tag)}
+    state, _ = chip_smoke.ingest_stream(cfg, spec, stream, flushes, span_i,
+                                        dev, tag)
+    qi = chip_smoke.query_inputs(cfg, stream)
+    answers = chip_smoke.run_queries(spec, state, qi, tag)
+    chip_smoke.check_scan_path(spec, state, qi, answers)
+    results.update(chip_smoke.check_query_kernels(cfg, spec, state, qi, dev,
+                                                  tag))
+    chip_smoke.profile_ingest(spec, state, stream, flushes, tag)
+    kernels = chip_smoke.kernel_entries(
+        results, {n: 0 for n in chip_smoke.WRAPPERS})
+    json.dumps(kernels)
+    assert [k["mismatches"] for k in kernels] == [0, 0, 0]
+    # no bound may count more than its inputs and outputs hold: key, cw
+    # and pw planes read once (the insert: key, C and P at one slot read
+    # and written once) plus the per-item inputs and outputs
+    S, d = spec.n_shards, cfg.d
+    plane = S * 2 * d * d * 4 * (2 + cfg.c)
+    most = {"sketch_insert_kernel_sharded": 2 * plane +
+            8000 * ((3 * cfg.s + 4) * 4 + 1),
+            "sketch_query_kernel_sharded": plane +
+            96 * ((3 * cfg.s + 1) * 4 + 3 * S * 4),
+            "vertex_scan_kernel_sharded": plane +
+            96 * ((cfg.r + 2) * 4 + 2 * S * 4)}
+    for k in kernels:
+        for bound in ("bound_ms", "bound_ms_in"):
+            if bound in k:
+                nbytes = k[bound] * chip_smoke.HBM_BYTES_PER_S / 1e3
+                assert 0 < nbytes <= most[k["name"]], (bound, k)

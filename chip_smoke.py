@@ -24,10 +24,21 @@ Phases (any failure raises, so the exit code is non-zero):
      sampled answers must equal the dense scan path's;
   6. the query kernels against their plain versions at the main path's
      shapes, exactly; timings by CUDA events;
+  6b. the analytics path on the same handle: heavy vertices (k=16, out
+     and in), heavy edges (k=16) and top labels (k=4, out and in) at last
+     in {None, 1} and one horizons=[None, 1, 8] sweep on the "cuda" path,
+     each equal to the "scan" path; list-``last`` queries of every kind,
+     row for row equal to phase 5's answers; reachability of 64 pairs
+     sampled from the newest subwindow's positive edge answers, all True;
+     then the cell-decode kernel against its plain version on the main
+     path's key plane, exactly, timed by CUDA events;
   7. a profiler trace of two replayed flushes (where ingest time goes);
   8. one JSON line of the kernels, the card line, and the result line.
 
-The main path whose kernel launches are counted is phases 4 and 5.
+Two paths count kernel launches, each from 0 just before it: the main
+path (phases 4 and 5) and the analytics path (phase 6b, before its
+comparisons). Each kernel's ``launches`` in the JSON line is from the path
+it was ported for.
 Exits non-zero without printing a result when no card is present, or when
 the repository's ``src`` is missing.
 """
@@ -55,6 +66,9 @@ from repro_torch.data.stream import COMFS, generate  # noqa: E402
 from repro_torch.engine import insert as eng  # noqa: E402
 from repro_torch.engine.window import WindowRing  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.heavy_hitters.kernel import (  # noqa: E402
+    cell_decode_kernel_sharded, cell_decode_plain)
+from repro_torch.kernels.heavy_hitters.ops import _static_blocks  # noqa: E402
 from repro_torch.kernels.sketch_insert.kernel import (  # noqa: E402
     sketch_insert_kernel_sharded, sketch_insert_plain)
 from repro_torch.kernels.sketch_insert.ops import _bin_plan  # noqa: E402
@@ -78,12 +92,25 @@ N_SCAN_SAMPLE = 64
 HORIZONS = (None, 1, 8)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, published peak
 SEED = 0
+# phase 6b: (entry point, k, arguments) of each analytics call
+ANALYTICS = (("heavy_vertices", 16, {"direction": "out"}),
+             ("heavy_vertices", 16, {"direction": "in"}),
+             ("heavy_edges", 16, {}),
+             ("top_labels", 4, {"direction": "out"}),
+             ("top_labels", 4, {"direction": "in"}))
+N_REACH = 64
+REACH_HOPS = 4
 
 WRAPPERS = {
     "sketch_insert_kernel_sharded": sketch_insert_kernel_sharded,
     "sketch_query_kernel_sharded": sketch_query_kernel_sharded,
     "vertex_scan_kernel_sharded": vertex_scan_kernel_sharded,
+    "cell_decode_kernel_sharded": cell_decode_kernel_sharded,
 }
+MAIN_PATH = ("sketch_insert_kernel_sharded", "sketch_query_kernel_sharded",
+             "vertex_scan_kernel_sharded")
+ANALYTICS_PATH = ("cell_decode_kernel_sharded",
+                  "sketch_query_kernel_sharded", "vertex_scan_kernel_sharded")
 KERNELS = {
     "sketch_insert_kernel_sharded": dict(
         source="src/repro_torch/csrc/sketch_insert.cu",
@@ -94,6 +121,9 @@ KERNELS = {
     "vertex_scan_kernel_sharded": dict(
         source="src/repro_torch/csrc/vertex_scan.cu",
         replaces="src/repro/kernels/vertex_scan/kernel.py:99"),
+    "cell_decode_kernel_sharded": dict(
+        source="src/repro_torch/csrc/cell_decode.cu",
+        replaces="src/repro/kernels/heavy_hitters/kernel.py:97"),
 }
 
 
@@ -288,6 +318,7 @@ def query_inputs(cfg, stream):
     vi = rng.integers(0, len(stream), N_QUERIES)
     even = np.arange(N_QUERIES) % 2 == 0
     return dict(
+        etime=stream.time[ei],
         src=stream.src[ei], src_label=stream.src_label[ei],
         dst=stream.dst[ei], dst_label=stream.dst_label[ei],
         le=stream.edge_label[ei],
@@ -464,6 +495,129 @@ def check_query_kernels(cfg, spec, state, qi, dev, tag) -> dict:
     return out
 
 
+def count_launches(names, fn):
+    """Run ``fn`` with every wrapper's launch count from 0; returns
+    (``fn``'s result, the counts). Raises if a kernel of ``names`` never
+    launched."""
+    for w in WRAPPERS.values():
+        w.launches = 0
+    out = fn()
+    launches = {n: w.launches for n, w in WRAPPERS.items()}
+    if not all(launches[n] for n in names):
+        raise AssertionError(f"a kernel of the path never launched: "
+                             f"{launches}")
+    return out, launches
+
+
+def _timed(fn):
+    _sync()
+    t0 = time.perf_counter()
+    out = fn()
+    _sync()
+    return out, time.perf_counter() - t0
+
+
+def _analytics_calls():
+    """(label, entry point, k, arguments) of every phase-6b analytics
+    call: each of ANALYTICS at last in {None, 1}, and one sweep."""
+    def label(name, kw):
+        return f"{name}({', '.join(f'{a}={v}' for a, v in kw.items())})"
+
+    calls = [(name, k, dict(kw, last=last))
+             for name, k, kw in ANALYTICS for last in (None, 1)]
+    calls.append(("heavy_vertices", 16,
+                  {"direction": "out", "horizons": list(HORIZONS)}))
+    return [(label(name, kw), name, k, kw) for name, k, kw in calls]
+
+
+def analytics_path(cfg, spec, state, qi, answers, tag):
+    """Phase 6b, the counted analytics run on the "cuda" path: top-k calls,
+    list-``last`` queries (each row equal to phase 5's single-horizon
+    answers) and reachability of sampled in-window edges (all True).
+    Returns the top-k answers by call label."""
+    plane_s = {}
+    for last in (None, 1):
+        _, plane_s[f"last={last}"] = _timed(
+            lambda: skt.query_planes(spec, state, last))
+    _, plane_s["multi" + str(list(HORIZONS))] = _timed(
+        lambda: skt.query_planes_multi(spec, state, list(HORIZONS)))
+    _log(f"phase 6b plane builds (s, host clock): {json.dumps(plane_s)} "
+         f"{tag}")
+    got = {}
+    for label, name, k, kw in _analytics_calls():
+        out, sec = _timed(lambda: getattr(skt, name)(spec, state, k,
+                                                     path="cuda", **kw))
+        got[label] = [x.cpu() for x in out]
+        _log(f"phase 6b cuda {label}: {1e3 * sec:.3f} ms {tag}")
+    for kind in KINDS:
+        for with_le in (False, True):
+            q = query_batch(qi, kind, with_le, list(HORIZONS))
+            out, sec = _timed(lambda: skt.query(spec, state, q, path="cuda"))
+            want = torch.stack([answers[(kind, with_le, h)]
+                                for h in HORIZONS])
+            if out.shape != want.shape or not torch.equal(out.cpu(), want):
+                raise AssertionError(f"list-last {kind} rows differ from "
+                                     f"the single-horizon answers")
+            _log(f"phase 6b list-last {kind} le={with_le} last="
+                 f"{list(HORIZONS)}: rows equal phase 5; "
+                 f"{1e6 * sec / N_QUERIES:.3f} us/query {tag}")
+    newest = qi["etime"] // cfg.subwindow_size == \
+        qi["etime"].max() // cfg.subwindow_size
+    cand = np.flatnonzero(newest & (answers[("edge", False, None)].numpy()
+                                    > 0))
+    if not len(cand):
+        raise AssertionError("no in-window edge answers to sample")
+    pick = np.random.default_rng(SEED + 2).choice(
+        cand, min(N_REACH, len(cand)), replace=False)
+    reach, sec = _timed(lambda: skt.reachable_many(
+        spec, state, qi["src"][pick], qi["src_label"][pick],
+        qi["dst"][pick], qi["dst_label"][pick], max_hops=REACH_HOPS))
+    _log(f"phase 6b reachable_many on {len(pick)} sampled in-window edges, "
+         f"max_hops={REACH_HOPS}: {int(reach.sum())} reachable, "
+         f"{1e3 * sec:.3f} ms {tag}")
+    if not reach.all():
+        raise AssertionError("a one-hop edge the sketch holds is not "
+                             "reachable")
+    return got
+
+
+def check_analytics(cfg, spec, state, got, tag) -> dict:
+    """Phase 6b comparisons: every "cuda" top-k equals the "scan" path's,
+    and the decode kernel equals its plain version on the main path's key
+    plane."""
+    for label, name, k, kw in _analytics_calls():
+        want, sec = _timed(lambda: getattr(skt, name)(spec, state, k,
+                                                      path="scan", **kw))
+        if not all(torch.equal(a, b.cpu()) for a, b in zip(got[label],
+                                                           want)):
+            raise AssertionError(f"cuda {label} differs from the scan path")
+        _log(f"phase 6b scan {label}: equal to cuda; {1e3 * sec:.3f} ms")
+    key = skt.query_planes(spec, state, None).key
+    top = got["heavy_edges(last=None)"]
+    _log(f"phase 6b top edge (src vid, dst vid, weight): "
+         f"{int(top[0][0])}, {int(top[1][0])}, {int(top[2][0])}; occupied "
+         f"cells {int((key != -1).sum())} of {key.numel()}")
+    starts, widths = _static_blocks(cfg)
+    kw = dict(starts=starts, widths=widths, r=cfg.r, F=cfg.F)
+    got_k = cell_decode_kernel_sharded(key, **kw)
+    want = cell_decode_plain(key, **kw)
+    _sync()
+    mism, err = diff(zip(got_k, want))
+    del got_k, want
+    ms = event_ms(lambda: cell_decode_kernel_sharded(key, **kw), 50)
+    plain_ms = event_ms(lambda: cell_decode_plain(key, **kw), 3)
+    nbytes = 3 * key.numel() * 4 + 2 * len(starts) * 4
+    _log(f"phase 6b cell_decode kernel vs plain on key {tuple(key.shape)}: "
+         f"mismatches={mism}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+         f"byte bound {1e3 * nbytes / HBM_BYTES_PER_S:.4f} ms {tag}")
+    if mism:
+        raise AssertionError("the decode kernel disagrees with its plain "
+                             "version")
+    return {"cell_decode_kernel_sharded": dict(
+        mismatches=mism, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        nbytes=nbytes, shape=f"key {list(key.shape)}")}
+
+
 def profile_ingest(spec, state, stream, flushes, tag):
     """Phase 7: a profiler trace over a replay of the last two flushes (the
     same subwindow, so the ring does not move); the ``lsketch.*`` ranges
@@ -550,29 +704,44 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # the main path: every launch count from 0 just before, read just after
-    for fn in WRAPPERS.values():
-        fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    state, edges_per_s = ingest_stream(cfg, spec, stream, flushes, span_i,
-                                       dev, tag)
     qi = query_inputs(cfg, stream)
-    answers = run_queries(spec, state, qi, tag)
-    launches = {n: fn.launches for n, fn in WRAPPERS.items()}
+
+    def main_path():
+        state, rate = ingest_stream(cfg, spec, stream, flushes, span_i, dev,
+                                    tag)
+        return state, rate, run_queries(spec, state, qi, tag)
+
+    (state, edges_per_s, answers), launches = count_launches(MAIN_PATH,
+                                                             main_path)
     peak = torch.cuda.max_memory_allocated()
     _log(f"phase 5 main-path launches: {launches}; peak device memory "
          f"{peak} bytes {tag}")
-    if not all(launches.values()):
-        raise AssertionError(f"a kernel of the path never launched: "
-                             f"{launches}")
 
     check_scan_path(spec, state, qi, answers)
     results.update(check_query_kernels(cfg, spec, state, qi, dev, tag))
+
+    skt.clear_plane_cache(state)  # phase 6b: the analytics path
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    got, a_launches = count_launches(ANALYTICS_PATH, lambda: analytics_path(
+        cfg, spec, state, qi, answers, tag))
+    _log(f"phase 6b analytics-path launches: {a_launches} {tag}")
+    results.update(check_analytics(cfg, spec, state, got, tag))
+    a_peak = torch.cuda.max_memory_allocated()
+    _log(f"phase 6b peak device memory {a_peak} bytes {tag}")
+    launches["cell_decode_kernel_sharded"] = \
+        a_launches["cell_decode_kernel_sharded"]
+    skt.clear_plane_cache(state)
+    torch.cuda.empty_cache()
+
     profile_ingest(spec, state, stream, flushes, tag)
 
     seconds = time.perf_counter() - t_start
     _log(f"total {seconds:.1f} s")
     print(json.dumps({"kernels": kernel_entries(results, launches),
                       "card": card, "peak_memory_bytes": peak,
+                      "analytics_peak_memory_bytes": a_peak,
                       "ingest_edges_per_s": edges_per_s,
                       "seconds": seconds}), flush=True)
     print(card_line(), flush=True)

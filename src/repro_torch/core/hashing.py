@@ -124,6 +124,41 @@ def unpack_vertex_id(vid: torch.Tensor, F: int):
     return _fdiv(rest, 2048), torch.remainder(rest, 2048), f
 
 
+def chain_select(f, idx, r: int) -> torch.Tensor:
+    """``candidate_offsets(f, r)[..., idx]`` without the ``[..., r]``
+    tensor: the LCG chain replayed ``r`` steps with the entry at ``idx``
+    latched (int64; 0 where ``idx`` is outside ``[0, r)``)."""
+    idx = torch.as_tensor(idx)
+    x = lcg_next(f)
+    sel = torch.zeros_like(x)
+    for i in range(r):
+        sel = torch.where(idx == i, x, sel)
+        x = lcg_next(x)
+    return sel
+
+
+def decode_line_vid(lines, idx, f, starts, widths, r: int, F: int
+                    ) -> torch.Tensor:
+    """Invert one stored key side back to its packed vertex identity (the
+    reversibility seam of ``repro.core.hashing.decode_line_vid``): a cell
+    on absolute line ``lines`` whose key stores candidate index ``idx``
+    and fingerprint ``f`` was addressed as
+    ``line = start_m + (s + offs(f)[idx]) % width_m``, so
+    ``s = (line - start_m - offs(f)[idx]) mod width_m``. The block is
+    ``searchsorted(starts, line, right) - 1``; the difference wraps in
+    int32 and the modulo is floor (``jnp`` semantics). Inputs broadcast;
+    ``idx`` outside ``[0, r)`` (only on EMPTY cells, which callers mask)
+    gives an unspecified identity."""
+    lines = torch.as_tensor(lines).to(torch.int32)
+    starts = torch.as_tensor(starts).to(torch.int32)
+    widths = torch.as_tensor(widths).to(torch.int32)
+    m = torch.searchsorted(starts, lines.contiguous(), right=True) - 1
+    off = chain_select(f, idx, r)
+    diff = _wrap32(lines.to(torch.int64) - starts[m].to(torch.int64) - off)
+    s = torch.remainder(diff, widths[m])
+    return pack_vertex_id(m, s, f, F)
+
+
 def vertex_label_block(label, n_blocks: int, seed: int) -> torch.Tensor:
     """m = H(l) % n  (paper Algorithm 1, line 2)."""
     return torch.remainder(hash31(label, seed ^ 0x5B1D), n_blocks).to(

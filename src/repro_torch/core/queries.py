@@ -1,6 +1,8 @@
 """Window-reduced query planes and the dense reference queries
 (port of ``repro.core.queries``: ``QueryPlanes``, ``build_query_planes``,
-``edge_query``, ``vertex_query``, ``vertex_label_aggregate``).
+``MultiPlanes``, ``build_query_planes_multi``, ``edge_query``,
+``vertex_query``, ``vertex_label_aggregate``, and the by-identity edge
+check and successor scan behind reachability).
 
 The dense queries are the port's ``"scan"`` path and the oracle of the
 plane kernels. They take one (unstacked) state. Two rules keep them at
@@ -84,6 +86,69 @@ def build_query_planes(cfg: LSketchConfig, state: LSketchState,
         _masked_slot_sum(state.pool_P[s], 1, mask[s], pool_pw[s])
     return QueryPlanes(key=state.key.permute(0, 3, 1, 2).contiguous(),
                        cw=cw, pw=pw, pool_key=state.pool_key,
+                       pool_cw=pool_cw, pool_pw=pool_pw)
+
+
+@dataclass
+class MultiPlanes(QueryPlanes):
+    """Horizon-stacked ``QueryPlanes``: the same six leaves with a leading
+    ``[H]`` horizon axis, row ``i`` equal to
+    ``build_query_planes(cfg, state, horizons[i])``. ``key`` and
+    ``pool_key`` do not depend on the horizon: they are views broadcast
+    over ``H`` (no copies)."""
+
+
+def slice_horizon(planes: MultiPlanes, i: int) -> QueryPlanes:
+    """Row ``i`` of a ``MultiPlanes`` as plain ``QueryPlanes`` (views; each
+    leaf is contiguous, as the kernels require)."""
+    return QueryPlanes(key=planes.key[i], cw=planes.cw[i], pw=planes.pw[i],
+                       pool_key=planes.pool_key[i],
+                       pool_cw=planes.pool_cw[i], pool_pw=planes.pool_pw[i])
+
+
+def build_query_planes_multi(cfg: LSketchConfig, state: LSketchState,
+                             horizons) -> MultiPlanes:
+    """Window-reduce a shard-stacked state for every horizon in one pass
+    over the ``k`` ring slots.
+
+    ``horizons`` is a strictly increasing sequence of already-clamped ints.
+    A slot is valid for horizon ``h`` iff its age ``cur_widx - slot_widx``
+    is ``< h``, so the masks nest: each slot's counters are read once and
+    added into the band of the smallest horizon that admits it
+    (``searchsorted(horizons, age, right)``; out-of-window slots fall off
+    the end), then a running sum over the horizon axis turns band totals
+    into per-horizon planes. int32 addition wraps, so the regrouping is
+    exact. The outputs are preallocated and filled slot by slot through
+    strided views: nothing of size ``P * mask`` or ``[k, ...]`` is made.
+    """
+    hs = tuple(int(h) for h in horizons)
+    if list(hs) != sorted(set(hs)):
+        raise ValueError(f"horizons must be strictly increasing, got {hs}")
+    H, S, d = len(hs), state.key.shape[0], cfg.d
+    age = (state.cur_widx[:, None] - state.slot_widx).cpu()  # [S, k] int32
+    band = torch.searchsorted(torch.tensor(hs, dtype=age.dtype),
+                              age.contiguous(), right=True)
+    dev, ct = state.C.device, state.C.dtype
+    Q = state.pool_C.shape[1]
+    cw = torch.zeros((H, S, 2, d, d), dtype=ct, device=dev)
+    pw = torch.zeros((H, S, 2, d, d, cfg.c), dtype=ct, device=dev)
+    pool_cw = torch.zeros((H, S, Q), dtype=ct, device=dev)
+    pool_pw = torch.zeros((H, S, Q, cfg.c), dtype=ct, device=dev)
+    for s in range(S):
+        for b in range(H):
+            in_band = band[s] == b
+            _masked_slot_sum(state.C[s], 3, in_band, cw[b, s].permute(1, 2, 0))
+            _masked_slot_sum(state.P[s], 3, in_band,
+                             pw[b, s].permute(1, 2, 0, 3))
+            _masked_slot_sum(state.pool_C[s], 1, in_band, pool_cw[b, s])
+            _masked_slot_sum(state.pool_P[s], 1, in_band, pool_pw[b, s])
+    for b in range(1, H):
+        for x in (cw, pw, pool_cw, pool_pw):
+            x[b].add_(x[b - 1])
+    key = state.key.permute(0, 3, 1, 2).contiguous()
+    return MultiPlanes(key=key.expand((H,) + key.shape), cw=cw, pw=pw,
+                       pool_key=state.pool_key.expand(
+                           (H,) + state.pool_key.shape),
                        pool_cw=pool_cw, pool_pw=pool_pw)
 
 
@@ -266,3 +331,70 @@ def vertex_label_aggregate(cfg: LSketchConfig, state: LSketchState, vlabel,
         lw = plw[:, le_idx].T  # [B, Q]
         wl = (wl + _sum32(torch.where(pmatch, lw, 0), -1)).to(_I32)
     return w, wl
+
+
+def _vid_addressing(cfg: LSketchConfig, vids) -> VertexAddressing:
+    """Algorithm 1's addressing of packed (m, s, f) identities."""
+    m, s, f = hsh.unpack_vertex_id(vids, cfg.F)
+    starts, widths = cfg.block_start_width(vids.device)
+    m = m.long()
+    return VertexAddressing(m, starts[m], widths[m], s, f,
+                            hsh.candidate_offsets(f, cfg.r), vids)
+
+
+def _edge_exists_by_vid(cfg: LSketchConfig, state: LSketchState, vid_pairs,
+                        last: int | None = None) -> torch.Tensor:
+    """bool [B]: the edge between packed identities ``vid_pairs`` [B, 2]
+    holds weight > 0 in the window on one state (matrix cell or pool)."""
+    mask = valid_slot_mask(cfg, state, last)
+    va, vb = vid_pairs[:, 0], vid_pairs[:, 1]
+    pr = edge_probes(cfg, _vid_addressing(cfg, va), _vid_addressing(cfg, vb))
+    B = va.shape[0]
+    tz2 = torch.arange(2, device=va.device)
+    cur = state.key[pr.rows.long()[..., None], pr.cols.long()[..., None],
+                    tz2[None, None, :]]
+    is_match = (cur == pr.keys[..., None]).reshape(B, -1)
+    stop = is_match | (cur == EMPTY).reshape(B, -1)
+    first = _first(stop)
+    hit = torch.gather(is_match, 1, first[:, None])[:, 0] & stop.any(-1)
+    pi, tz = first // 2, first % 2
+    rr = torch.gather(pr.rows, 1, pi[:, None])[:, 0].long()
+    cc = torch.gather(pr.cols, 1, pi[:, None])[:, 0].long()
+    wm = _sum32(torch.where(mask, state.C[rr, cc, tz], 0), -1)
+    ok_m = hit & (wm > 0)
+    ps = hsh.pool_slot_seq(va, vb, cfg.pool_capacity, cfg.pool_probes,
+                           cfg.seed).long()
+    pk = state.pool_key[ps]
+    pmatch = (pk[..., 0] == va[:, None]) & (pk[..., 1] == vb[:, None])
+    pw = _sum32(torch.where(mask, state.pool_C[ps], 0), -1)
+    ok_p = ~stop.any(-1) & (pmatch & (pw > 0)).any(-1)
+    return ok_m | ok_p
+
+
+def _successors_by_vid(cfg: LSketchConfig, state: LSketchState, vids,
+                       last: int | None = None):
+    """Successor identities of packed identities ``vids`` [U] on one
+    state: (vids [U, r*d*2 + Q], valid mask) — matrix successors decoded
+    from their column by key reversibility, then pool successors. The
+    gather is ``[U, r, d, 2, k]`` (about a megabyte per vertex at d=2048):
+    callers run large frontiers in chunks."""
+    pre = _vid_addressing(cfg, vids)
+    mask = valid_slot_mask(cfg, state, last)
+    pos = torch.remainder(pre.s[:, None] + pre.offs, pre.width[:, None])
+    lines = (pre.start[:, None] + pos).long()  # [U, r]
+    keys = state.key[lines]  # [U, r, d, 2]
+    ia, ib, fa, fb = hsh.unpack_key(keys, cfg.F)
+    want_i = torch.arange(cfg.r, dtype=_I32, device=vids.device)
+    live = _sum32(torch.where(mask, state.C[lines], 0), -1) > 0
+    match = (keys != EMPTY) & (ia == want_i[None, :, None, None]) & \
+        (fa == pre.f[:, None, None, None]) & live
+    starts, widths = cfg.block_start_width(vids.device)
+    cols = torch.arange(cfg.d, dtype=_I32, device=vids.device)
+    vid = hsh.decode_line_vid(cols[None, None, :, None], ib, fb, starts,
+                              widths, cfg.r, cfg.F)
+    U = vids.shape[0]
+    pm = state.pool_key[:, 0][None, :] == vids[:, None]
+    plive = _sum32(torch.where(mask, state.pool_C, 0), -1) > 0
+    vids_p = state.pool_key[:, 1][None, :].expand(pm.shape)
+    return (torch.cat([vid.reshape(U, -1), vids_p], -1),
+            torch.cat([match.reshape(U, -1), pm & plive[None, :]], -1))

@@ -1,5 +1,4 @@
-"""Batched queries over a sharded handle (port of ``repro.sketch.query``
-for single-horizon queries).
+"""Batched queries over a sharded handle (port of ``repro.sketch.query``).
 
 ``query(spec, state, QueryBatch, path=...)`` answers a batch against every
 shard and sums the shard partials (hash partitioning makes them disjoint):
@@ -19,7 +18,14 @@ The planes are memoized on the handle object, keyed by the clamped
 horizon ``min(last or k, k)``, in a small LRU (``PLANES_CACHE_CAP``);
 ingest returns a new handle, so the cache is never stale. Query batches
 are padded to power-of-two buckets with the ``EMPTY`` sentinel; pad rows
-are sliced off. A list ``last`` (multi-horizon sweep) is not ported yet.
+are sliced off.
+
+A list ``last`` is a horizon sweep: ``int32 [H, B]`` out, row ``i`` equal
+to ``last=lasts[i]``. ``"scan"`` loops the single-horizon reference;
+``"cuda"`` answers every row from one horizon-stacked ``MultiPlanes``
+build (one cache entry keyed ``("multi", horizons)``) through the same
+kernels. The reference's flush-delta plane maintenance is not ported:
+every new handle rebuilds its planes.
 """
 
 from __future__ import annotations
@@ -151,19 +157,50 @@ def query_planes(spec: SketchSpec, state: ShardedState, last=None):
     shards = state.live()
     k = spec.config.effective_k
     horizon = k if last is None else min(int(last), k)
+    return _cached(state, horizon, lambda: _q.build_query_planes(
+        spec.config, _with_global_window(shards), horizon))
+
+
+def _cached(state: ShardedState, ckey, build):
+    """The handle's LRU entry ``ckey``, made by ``build()`` on a miss."""
     cache = getattr(state, _PLANES_ATTR, None)
     if cache is None:
         cache = OrderedDict()
         setattr(state, _PLANES_ATTR, cache)
-    if horizon in cache:
-        cache.move_to_end(horizon)
-        return cache[horizon]
+    if ckey in cache:
+        cache.move_to_end(ckey)
+        return cache[ckey]
     while len(cache) >= PLANES_CACHE_CAP:
         cache.popitem(last=False)
-    planes = _q.build_query_planes(spec.config, _with_global_window(shards),
-                                   horizon)
-    cache[horizon] = planes
+    cache[ckey] = planes = build()
     return planes
+
+
+def _normalize_horizons(spec: SketchSpec, lasts):
+    """A horizon sweep's sorted unique clamped horizons (``None -> k``,
+    ``min(int(h), k)``) and, per user position, its row among them.
+    Returns ``(uniq, sel)``."""
+    k = spec.config.effective_k
+    hs = [k if h is None else min(int(h), k) for h in lasts]
+    uniq = tuple(sorted(set(hs)))
+    return uniq, [uniq.index(h) for h in hs]
+
+
+def query_planes_multi(spec: SketchSpec, state: ShardedState, lasts):
+    """The horizon-stacked ``MultiPlanes`` for every horizon in ``lasts``,
+    built in one pass over the ring and memoized as one LRU entry keyed
+    ``("multi", uniq)``. Returns ``(planes, uniq)``: row ``i`` is horizon
+    ``uniq[i]`` (``_normalize_horizons``)."""
+    shards = state.live()
+    uniq, _ = _normalize_horizons(spec, lasts)
+    return _cached(state, ("multi", uniq), lambda: _q.build_query_planes_multi(
+        spec.config, _with_global_window(shards), uniq)), uniq
+
+
+def clear_plane_cache(state: ShardedState) -> None:
+    """Drop the planes memoized on a handle (frees their device memory;
+    never needed for correctness)."""
+    setattr(state, _PLANES_ATTR, None)
 
 
 def _per_shard(shards: LSketchState, fn):
@@ -176,39 +213,63 @@ def _per_shard(shards: LSketchState, fn):
     return total.to(torch.int32)
 
 
+def _answer_planes(cfg, planes, q: QueryBatch, arrays, with_le: bool):
+    """The kernel route on one horizon's planes: int32 [B] (padded)."""
+    from repro_torch.kernels.sketch_query.ops import edge_query_planes
+    from repro_torch.kernels.vertex_scan.ops import (
+        label_aggregate_planes, vertex_query_planes)
+    if q.kind == "edge":
+        src, dst, la, lb, les = arrays
+        w, wl = edge_query_planes(cfg, planes, src, dst, (la, lb, les),
+                                  with_le=with_le)
+    elif q.kind == "vertex":
+        v, lv, les = arrays
+        w, wl = vertex_query_planes(cfg, planes, v, (lv, les),
+                                    direction=q.direction, with_le=with_le)
+    else:
+        lv, les = arrays
+        w, wl = label_aggregate_planes(cfg, planes, lv, edge_label=les,
+                                       direction=q.direction,
+                                       with_le=with_le)
+    return (wl if with_le else w).sum(0, dtype=torch.int64).to(torch.int32)
+
+
+def _query_multi(spec: SketchSpec, state: ShardedState, q: QueryBatch,
+                 path: str) -> torch.Tensor:
+    """A horizon sweep: int32 [H, B], rows in the order the user listed
+    the horizons (duplicates and ``None`` allowed)."""
+    lasts = list(q.last)
+    if not lasts:
+        raise ValueError("multi-horizon query needs at least one horizon")
+    path = resolve_query_path(path, state.device)
+    if path == "scan":
+        return torch.stack([query(spec, state, dataclasses.replace(
+            q, last=None if h is None else int(h)), path=path)
+            for h in lasts])
+    _, sel = _normalize_horizons(spec, lasts)
+    planes, uniq = query_planes_multi(spec, state, lasts)
+    arrays, with_le, _, n = normalize_query(
+        dataclasses.replace(q, last=None), state.device)
+    rows = [_answer_planes(spec.config, _q.slice_horizon(planes, i), q,
+                           arrays, with_le) for i in range(len(uniq))]
+    return torch.stack([rows[i][:n] for i in sel])
+
+
 def query(spec: SketchSpec, state: ShardedState, q: QueryBatch,
           path: str = "auto") -> torch.Tensor:
     """Answer a QueryBatch against a sharded handle: int32 [B] on the
-    state's device."""
+    state's device, or int32 [H, B] for a list ``last`` (row ``i`` equal
+    to ``last=q.last[i]``)."""
     if isinstance(q.last, (list, tuple)):
-        raise NotImplementedError("multi-horizon queries are not ported "
-                                  "to repro_torch yet")
+        return _query_multi(spec, state, q, path)
     shards = state.live()
     cfg = spec.config
     path = resolve_query_path(path, state.device)
     arrays, with_le, last, n = normalize_query(q, state.device)
 
     if path == "cuda":
-        from repro_torch.kernels.sketch_query.ops import edge_query_planes
-        from repro_torch.kernels.vertex_scan.ops import (
-            label_aggregate_planes, vertex_query_planes)
         planes = query_planes(spec, state, last)
-        if q.kind == "edge":
-            src, dst, la, lb, les = arrays
-            w, wl = edge_query_planes(cfg, planes, src, dst, (la, lb, les),
-                                      with_le=with_le)
-        elif q.kind == "vertex":
-            v, lv, les = arrays
-            w, wl = vertex_query_planes(cfg, planes, v, (lv, les),
-                                        direction=q.direction,
-                                        with_le=with_le)
-        else:
-            lv, les = arrays
-            w, wl = label_aggregate_planes(cfg, planes, lv, edge_label=les,
-                                           direction=q.direction,
-                                           with_le=with_le)
-        out = (wl if with_le else w).sum(0, dtype=torch.int64)
-        return out.to(torch.int32)[:n]
+        return _answer_planes(cfg, planes, q, arrays, with_le)[:n]
 
     glob = _with_global_window(shards)
     if q.kind == "edge":

@@ -6,6 +6,8 @@ where only PyTorch is installed:
 
 Without a card every test skips (inside the test, never at collection)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -14,6 +16,8 @@ from repro_torch import sketch as skt
 from repro_torch.core import hashing as th
 from repro_torch.core.lsketch import edge_probes, precompute
 from repro_torch.core.types import EdgeBatch, LSketchConfig, init_leaves
+from repro_torch.kernels.heavy_hitters.kernel import (
+    cell_decode_kernel_sharded, cell_decode_plain)
 from repro_torch.kernels.sketch_insert.kernel import (
     sketch_insert_kernel_sharded, sketch_insert_plain)
 from repro_torch.kernels.sketch_insert.ops import _bin_plan
@@ -129,9 +133,35 @@ def test_cuda_vertex_scan_kernel_matches_plain(direction):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d,bounds", [
+    (32, ((0, 8), (8, 8), (16, 8), (24, 8))),
+    (300, ((0, 100), (100, 77), (177, 123)))], ids=["uniform", "skewed"])
+def test_cuda_cell_decode_kernel_matches_plain(d, bounds):
+    """Random keys: packed ones, EMPTY and negative non-EMPTY values (the
+    floor decode), at a width below and above one 256-thread block."""
+    _need_card()
+    rng = np.random.default_rng(13)
+    r, F, shape = 8, 1024, (2, 2, d, d)
+    key = th.pack_key(*[_t(rng.integers(0, hi, shape))
+                        for hi in (r, r, F, F)], F)
+    key = torch.where(_t(rng.random(shape) < 0.3) > 0, -1, key)
+    key[..., ::7] = -_t(rng.integers(2, 3000, key[..., ::7].shape))
+    kw = dict(starts=tuple(s for s, _ in bounds),
+              widths=tuple(w for _, w in bounds), r=r, F=F)
+    ref = cell_decode_plain(key, **kw)
+    before = cell_decode_kernel_sharded.launches
+    got = cell_decode_kernel_sharded(key.cuda(), **kw)
+    torch.cuda.synchronize()
+    assert cell_decode_kernel_sharded.launches == before + 1
+    for a, b in zip(ref, got):
+        assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.gpu
 def test_cuda_end_to_end_equals_cpu():
-    """The whole port on the card (kernel route, both query paths) equals
-    the same stream through the plain versions on the CPU."""
+    """The whole port on the card (kernel route, both query paths, the
+    analytics and horizon sweeps) equals the same stream through the plain
+    versions on the CPU."""
     _need_card()
     rng = np.random.default_rng(11)
     n = 3000
@@ -152,6 +182,15 @@ def test_cuda_end_to_end_equals_cpu():
               skt.QueryBatch.labels(np.arange(3), np.arange(3), last=1)]
         out[dev] = list(skt.to_numpy(st)) + [
             skt.query(spec, st, q, path=p).cpu().numpy()
-            for q in qs for p in ("scan", "cuda")]
+            for q in qs for p in ("scan", "cuda")] + [
+            x.cpu().numpy() for p in ("scan", "cuda") for x in (
+                *skt.heavy_vertices(spec, st, 8, direction="in", path=p),
+                *skt.heavy_edges(spec, st, 8, horizons=[None, 1], path=p),
+                *skt.top_labels(spec, st, 2, last=2, path=p))] + [
+            skt.query(spec, st, dataclasses.replace(q, last=[None, 1, 2]),
+                      path="cuda").cpu().numpy() for q in qs] + [
+            skt.reachable_many(spec, st, b.src[:20], b.src_label[:20],
+                               b.dst[20:40], b.dst_label[20:40],
+                               max_hops=2, horizons=[None, 1])]
     for a, b in zip(out["cpu"], out["cuda"]):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

@@ -37,7 +37,7 @@ def test_port_and_chip_smoke_import_neither_jax_nor_repro():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     n_mods = int(out.stdout.split()[0])
-    assert n_mods >= 20
+    assert n_mods >= 25
 
 
 SPEC = dict(d=16, n_blocks=2, F=256, r=4, s=4, c=4, k=4, window_size=100,
@@ -144,18 +144,29 @@ def test_chip_smoke_rehearses_on_the_cpu(monkeypatch, capsys):
     spec, stream, flushes, span_i = chip_smoke.deployment()
     results = {"sketch_insert_kernel_sharded": chip_smoke.check_insert_kernel(
         cfg, spec, stream.slice(*flushes[0]), dev, tag)}
-    state, _ = chip_smoke.ingest_stream(cfg, spec, stream, flushes, span_i,
-                                        dev, tag)
     qi = chip_smoke.query_inputs(cfg, stream)
-    answers = chip_smoke.run_queries(spec, state, qi, tag)
+
+    def main_path():  # CPU tensors launch nothing: no kernel is required
+        state, _ = chip_smoke.ingest_stream(cfg, spec, stream, flushes,
+                                            span_i, dev, tag)
+        return state, chip_smoke.run_queries(spec, state, qi, tag)
+
+    (state, answers), launches = chip_smoke.count_launches((), main_path)
+    assert set(launches) == set(chip_smoke.WRAPPERS)
     chip_smoke.check_scan_path(spec, state, qi, answers)
     results.update(chip_smoke.check_query_kernels(cfg, spec, state, qi, dev,
                                                   tag))
+    tskt.clear_plane_cache(state)
+    got, _ = chip_smoke.count_launches((), lambda: chip_smoke.analytics_path(
+        cfg, spec, state, qi, answers, tag))
+    results.update(chip_smoke.check_analytics(cfg, spec, state, got, tag))
+    assert "reachable" in capsys.readouterr().out
     chip_smoke.profile_ingest(spec, state, stream, flushes, tag)
     kernels = chip_smoke.kernel_entries(
         results, {n: 0 for n in chip_smoke.WRAPPERS})
     json.dumps(kernels)
-    assert [k["mismatches"] for k in kernels] == [0, 0, 0]
+    assert [k["mismatches"] for k in kernels] == [0, 0, 0, 0]
+    assert {k["name"] for k in kernels} == set(chip_smoke.WRAPPERS)
     # no bound may count more than its inputs and outputs hold: key, cw
     # and pw planes read once (the insert: key, C and P at one slot read
     # and written once) plus the per-item inputs and outputs
@@ -166,7 +177,10 @@ def test_chip_smoke_rehearses_on_the_cpu(monkeypatch, capsys):
             "sketch_query_kernel_sharded": plane +
             96 * ((3 * cfg.s + 1) * 4 + 3 * S * 4),
             "vertex_scan_kernel_sharded": plane +
-            96 * ((cfg.r + 2) * 4 + 2 * S * 4)}
+            96 * ((cfg.r + 2) * 4 + 2 * S * 4),
+            # the key plane read once, two owner planes written once
+            "cell_decode_kernel_sharded": 3 * S * 2 * d * d * 4 +
+            2 * cfg.n_blocks * 4}
     for k in kernels:
         for bound in ("bound_ms", "bound_ms_in"):
             if bound in k:

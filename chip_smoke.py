@@ -2,19 +2,23 @@
 
     python3 chip_smoke.py
 
-Drives ``repro_torch``'s main path — create -> ingest -> query of the
+Drives ``repro_torch``'s sketch path — create -> ingest -> query of the
 ``lsketch`` kind — at the repo's paper-table deployment
 (``benchmarks/paper_tables.py`` ``_lsk_cfg(COMFS, d=2048, k=8,
 window=True)``: d=2048, 4 label blocks, F=1024, r=s=8, c=16, k=8, window
 1440, pool 16384 x 16 probes), 4 shards stacked on one card, over the
-com-Friendster analog stream cut to 2,000,000 edges for the time limit.
+com-Friendster analog stream cut to 2,000,000 edges for the time limit;
+then the LM substrate's serving path — prefill forward and the decode
+server — at Qwen3-8B's full width (36 layers, d_model 4096, 32 query heads
+on 8 KV heads, d_head 128, vocab 151,936; f32 weights from a seed).
 
 Phases (any failure raises, so the exit code is non-zero):
   1. card name and power limit;
   2. build every CUDA kernel from ``src/repro_torch/csrc`` (one nvcc per
      source, in parallel) and print each ``-Xptxas -v`` report;
   3. the insert kernel against its plain version at the first flush's
-     shapes, exactly;
+     shapes, exactly, timed over INSERT_REPS launches on a fresh state
+     each (median and spread);
   4. ingest in flushes cut at subwindow boundaries (<= 65,536 edges) plus
      one ~512-edge flush spanning a boundary (the scan route); the first
      two flushes are replayed on a CPU clone of shard 0 through the plain
@@ -33,12 +37,28 @@ Phases (any failure raises, so the exit code is non-zero):
      then the cell-decode kernel against its plain version on the main
      path's key plane, exactly, timed by CUDA events;
   7. a profiler trace of two replayed flushes (where ingest time goes);
-  8. one JSON line of the kernels, the card line, and the result line.
+  L1. (the sketch state freed) the flash-attention kernel against its
+     plain version on Qwen3-8B's and SmolLM-135M's prefill attention, a
+     ragged length and bf16; medians of CUDA-event times beside the plain
+     version, PyTorch's scaled_dot_product_attention and the bound;
+  L2. Qwen3-8B prefill of one 8,192-token prompt through ``lm.forward``
+     with the kernel (36 launches), against the same weights and tokens
+     through the plain attention; logits agree to LOGIT_TOL of the largest
+     logit, and with TF32 on they do not;
+  L3. ``DecodeServer`` (4 slots, 256 positions) answers 8 requests of 128
+     prompt tokens and 32 greedy new tokens; a profiler trace of 8 decode
+     steps at that batch (where a step's time goes); then the prompt's
+     first 128 tokens through ``serve_step`` on a 1-slot cache agree with
+     L2's forward logits at those positions;
+  8. one JSON line of the kernels and the end-to-end numbers, the card
+     line, and the result line.
 
-Two paths count kernel launches, each from 0 just before it: the main
-path (phases 4 and 5) and the analytics path (phase 6b, before its
-comparisons). Each kernel's ``launches`` in the JSON line is from the path
-it was ported for.
+Three paths count kernel launches, each from 0 just before it: the sketch
+path (phases 4 and 5), the analytics path (phase 6b, before its
+comparisons) and the prefill (L2, the kernel forward). Each kernel's
+``launches`` in the JSON line is from the path it was ported for.
+TF32 is off throughout (the models are f32), except in the one forward
+of L2 that shows the tolerance would catch it.
 Exits non-zero without printing a result when no card is present, or when
 the repository's ``src`` is missing.
 """
@@ -57,6 +77,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch import configs  # noqa: E402
 from repro_torch import sketch as skt  # noqa: E402
 from repro_torch.core import hashing as hsh  # noqa: E402
 from repro_torch.core.lsketch import edge_probes, precompute  # noqa: E402
@@ -66,6 +87,10 @@ from repro_torch.data.stream import COMFS, generate  # noqa: E402
 from repro_torch.engine import insert as eng  # noqa: E402
 from repro_torch.engine.window import WindowRing  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.flash_attention import \
+    ops as flash_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
+    flash_attention_kernel, flash_attention_plain)
 from repro_torch.kernels.heavy_hitters.kernel import (  # noqa: E402
     cell_decode_kernel_sharded, cell_decode_plain)
 from repro_torch.kernels.heavy_hitters.ops import _static_blocks  # noqa: E402
@@ -76,6 +101,9 @@ from repro_torch.kernels.sketch_query.kernel import (  # noqa: E402
     sketch_query_kernel_sharded, sketch_query_plain)
 from repro_torch.kernels.vertex_scan.kernel import (  # noqa: E402
     vertex_scan_kernel_sharded, vertex_scan_plain)
+from repro_torch.launch.serve import DecodeServer, Request  # noqa: E402
+from repro_torch.models import attention as tattn  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
 from repro_torch.sketch.ingest import (StackedBatch,  # noqa: E402
                                        _partition_stack)
 
@@ -91,7 +119,9 @@ N_QUERIES = 1024
 N_SCAN_SAMPLE = 64
 HORIZONS = (None, 1, 8)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, published peak
+F32_FLOPS_PER_S = 67e12  # H100 SXM f32 without tensor cores, published peak
 SEED = 0
+INSERT_REPS = 5
 # phase 6b: (entry point, k, arguments) of each analytics call
 ANALYTICS = (("heavy_vertices", 16, {"direction": "out"}),
              ("heavy_vertices", 16, {"direction": "in"}),
@@ -101,11 +131,37 @@ ANALYTICS = (("heavy_vertices", 16, {"direction": "out"}),
 N_REACH = 64
 REACH_HOPS = 4
 
+# the LM phases: Qwen3-8B at full width (configs/qwen3_8b.py)
+LM_ARCH = "qwen3-8b"
+LM_REDUCED = False
+PREFILL_LEN = 8192
+DECODE_CHECK = 128  # decode-vs-prefill positions
+SERVE = dict(batch_slots=4, max_seq=256, requests=8, prompt=128, max_new=32)
+# the plain forward's query-chunk threshold: the same function's chunked
+# branch, so no [1, 32, 8192, 8192] f32 score tensor (8.6 GB) is held
+PLAIN_CHUNK_THRESHOLD = 1024
+# logits: max |kernel - plain| / max |plain| over the prompt. Two f32
+# forwards that differ only in the order of their sums agree to ~1e-6 of
+# the largest logit; TF32 rounds every matmul input to 10 bits (~5e-4
+# relative) and lands near 1e-3. 1e-4 sits between, under the 1e-3 bound
+# of tests/test_models.py::test_decode_matches_prefill.
+LOGIT_TOL = 1e-4
+# (label, B, Hq, Hkv, L, dh, dtype) of the L1 checks; the first is the
+# prefill's own launch shape and gives the kernel row's numbers
+FLASH_CASES = (
+    ("qwen3-8b prefill", 1, 32, 8, 8192, 128, torch.float32),
+    ("smollm-135m prefill", 4, 9, 3, 2048, 64, torch.float32),
+    ("ragged L=1000", 2, 32, 8, 1000, 128, torch.float32),
+    ("bf16", 2, 32, 8, 2048, 128, torch.bfloat16),
+)
+FLASH_REPS = 10
+
 WRAPPERS = {
     "sketch_insert_kernel_sharded": sketch_insert_kernel_sharded,
     "sketch_query_kernel_sharded": sketch_query_kernel_sharded,
     "vertex_scan_kernel_sharded": vertex_scan_kernel_sharded,
     "cell_decode_kernel_sharded": cell_decode_kernel_sharded,
+    "flash_attention_kernel": flash_attention_kernel,
 }
 MAIN_PATH = ("sketch_insert_kernel_sharded", "sketch_query_kernel_sharded",
              "vertex_scan_kernel_sharded")
@@ -124,6 +180,9 @@ KERNELS = {
     "cell_decode_kernel_sharded": dict(
         source="src/repro_torch/csrc/cell_decode.cu",
         replaces="src/repro/kernels/heavy_hitters/kernel.py:97"),
+    "flash_attention_kernel": dict(
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:67"),
 }
 
 
@@ -154,6 +213,21 @@ def event_ms(fn, reps: int = 1) -> float:
     end.record()
     _sync()
     return start.elapsed_time(end) / reps
+
+
+def event_times(fn, reps: int) -> list:
+    """Milliseconds of each of ``reps`` runs of ``fn``, by CUDA events."""
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        _sync()
+        start.record()
+        fn()
+        end.record()
+        _sync()
+        times.append(start.elapsed_time(end))
+    return times
 
 
 def n_distinct(ids: torch.Tensor) -> int:
@@ -216,9 +290,17 @@ def check_insert_kernel(cfg, spec, batch, dev, tag) -> dict:
             probes.keys.contiguous(), w, le_idx, slot, order, offs, bcounts)
     walked = int(bcounts.clamp(max=B).sum())
     flags = {}
-    ms = event_ms(lambda: flags.__setitem__(
-        "kernel", sketch_insert_kernel_sharded(*args, kern.key, kern.C,
-                                               kern.P, B)))
+
+    def fresh_launch():  # the state reset before each launch, untimed
+        kern.key.fill_(-1)
+        kern.C.zero_()
+        kern.P.zero_()
+        return event_ms(lambda: flags.__setitem__(
+            "kernel", sketch_insert_kernel_sharded(*args, kern.key, kern.C,
+                                                   kern.P, B)))
+
+    runs = [fresh_launch() for _ in range(INSERT_REPS)]
+    ms = float(np.median(runs))
     plain_ms = event_ms(lambda: flags.__setitem__(
         "plain", sketch_insert_plain(*args, plain.key, plain.C, plain.P, B)))
     mism, err = diff([(flags["kernel"].int(), flags["plain"].int()),
@@ -244,11 +326,14 @@ def check_insert_kernel(cfg, spec, batch, dev, tag) -> dict:
         n_cand * 4 + n_win * (4 + 8) + n_win_le * 8 + S * B
     _log(f"phase 3 insert kernel vs plain at flush-1 shapes [S={S}, B={B}], "
          f"{walked} edges walked: mismatches={mism} max_abs_err={err}; "
-         f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms {tag}")
+         f"kernel median {ms:.3f} ms over {INSERT_REPS} launches on a fresh "
+         f"state each (first {runs[0]:.3f}, min {min(runs):.3f}, max "
+         f"{max(runs):.3f}: {[round(r, 3) for r in runs]}), plain "
+         f"{plain_ms:.1f} ms {tag}")
     if mism:
         raise AssertionError("insert kernel disagrees with its plain version")
-    return dict(mismatches=mism, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                nbytes=nbytes, shape=f"S={S} B={B} walked={walked} "
+    return dict(mismatches=mism, max_abs_err=err, ms=ms, ms_runs=runs,
+                plain_ms=plain_ms, nbytes=nbytes, shape=f"S={S} B={B} walked={walked} "
                 f"candidate_cells={n_cand} winning_cells={n_win}")
 
 
@@ -649,6 +734,321 @@ def profile_ingest(spec, state, stream, flushes, tag):
     return state
 
 
+def flash_inputs(B, Hq, Hkv, L, dh, dtype, dev):
+    """q, k, v of one L1 case, drawn with numpy from SEED."""
+    rng = np.random.default_rng(SEED + L + dh)
+    return [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                             ).to(dev, dtype)
+            for shape in ((B, Hq, L, dh), (B, Hkv, L, dh), (B, Hkv, L, dh))]
+
+
+def flash_flops(B, Hq, L, dh) -> int:
+    """Operations a causal call needs: 4 dh (a multiply-add for q.k and
+    one for p.v) per (query, key) pair the mask keeps, L (L + 1) / 2 pairs
+    per head."""
+    return 4 * dh * B * Hq * L * (L + 1) // 2
+
+
+def flash_check(got, want):
+    """(max |got - want|, elements out of tolerance, the tolerance). f32:
+    |d| < 2e-5 (the same f32 sums in another order move an output ~1e-6);
+    bf16: one bf16 rounding of the output, |d| <= 2**-7 max(|want|, 1)."""
+    d = (got.float() - want.float()).abs()
+    if got.dtype == torch.bfloat16:
+        bad = d > 2.0 ** -7 * want.float().abs().clamp_min(1)
+        tol = "|d| <= 2**-7 max(|plain|, 1)"
+    else:
+        bad = d >= 2e-5
+        tol = "|d| < 2e-5"
+    return float(d.max()), int(bad.sum()), tol
+
+
+def sdpa(q, k, v):
+    """PyTorch's fused attention on the same inputs: the yardstick of L1,
+    timed here and called nowhere in the port."""
+    F = torch.nn.functional
+    try:
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+    except TypeError:  # a PyTorch without enable_gqa: repeat the KV heads
+        g = q.shape[1] // k.shape[1]
+        return F.scaled_dot_product_attention(
+            q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1),
+            is_causal=True)
+
+
+def check_flash_kernel(dev, tag) -> dict:
+    """L1: the flash kernel against its plain version on every case;
+    CUDA-event medians of the kernel, the plain version and SDPA."""
+    cases = []
+    for label, B, Hq, Hkv, L, dh, dtype in FLASH_CASES:
+        q, k, v = flash_inputs(B, Hq, Hkv, L, dh, dtype, dev)
+        got = flash_attention_kernel(q, k, v, True)
+        want = flash_attention_plain(q, k, v, True)
+        _sync()
+        err, n_bad, tol = flash_check(got, want)
+        lib_err = float((sdpa(q, k, v).float() - want.float()).abs().max())
+        del got, want
+        ms = float(np.median(event_times(
+            lambda: flash_attention_kernel(q, k, v, True), FLASH_REPS)))
+        plain_ms = float(np.median(event_times(
+            lambda: flash_attention_plain(q, k, v, True), FLASH_REPS)))
+        library_ms = float(np.median(event_times(lambda: sdpa(q, k, v),
+                                                 FLASH_REPS)))
+        nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+        flops = flash_flops(B, Hq, L, dh)
+        bound = 1e3 * max(flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S)
+        cases.append(dict(label=label, shape=f"q {list(q.shape)} k "
+                          f"{list(k.shape)} {str(dtype)[6:]}",
+                          max_abs_err=err, out_of_tolerance=n_bad,
+                          tolerance=tol, ms=ms, plain_ms=plain_ms,
+                          library_ms=library_ms, nbytes=nbytes, flops=flops))
+        _log(f"L1 flash {label} {cases[-1]['shape']}: max_abs_err={err:.3g} "
+             f"({tol}; {n_bad} out), sdpa vs plain {lib_err:.3g}; kernel "
+             f"{ms:.3f} ms ({flops / ms / 1e9:.2f} TFLOP/s), plain "
+             f"{plain_ms:.3f} ms, sdpa {library_ms:.3f} ms, bound "
+             f"{bound:.3f} ms (medians of {FLASH_REPS}) {tag}")
+        del q, k, v
+    torch.cuda.empty_cache()
+    if any(c["out_of_tolerance"] for c in cases):
+        raise AssertionError("the flash kernel disagrees with its plain "
+                             "version")
+    main = cases[0]
+    return {"flash_attention_kernel": dict(
+        mismatches=0, max_abs_err=main["max_abs_err"], ms=main["ms"],
+        plain_ms=main["plain_ms"], library_ms=main["library_ms"],
+        nbytes=main["nbytes"], flops=main["flops"], shape=main["shape"],
+        tolerance=main["tolerance"],
+        cases=[{k: v for k, v in c.items() if k not in ("nbytes", "flops")}
+               for c in cases])}
+
+
+def lm_model(dev, tag):
+    """The LM config (f32) and its seeded weights, drawn on the card."""
+    cfg = configs.get(LM_ARCH, reduced=LM_REDUCED)
+    params, sec = _timed(lambda: lm.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), dev))
+    nbytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    _log(f"L2 {cfg.name}: {cfg.param_count()} parameters by "
+         f"ModelConfig.param_count(), {nbytes} bytes of f32 weights on the "
+         f"card, drawn in {sec:.2f} s {tag}")
+    return cfg, params
+
+
+def logit_err(got, ref_cpu, scale: float) -> float:
+    """max |got - ref| / scale, ``ref`` brought to the card in row chunks."""
+    err = 0.0
+    for a in range(0, ref_cpu.shape[1], 1024):
+        ref = ref_cpu[:, a:a + 1024].to(got.device)
+        err = max(err, float((got[:, a:a + 1024] - ref).abs().max()))
+    return err / scale
+
+
+class _LaunchTimer:
+    """CUDA events around each flash launch of one forward: wraps the
+    kernel where ``ops.attention`` calls it (the wrapper still counts its
+    own launches)."""
+
+    def __init__(self):
+        self.events = []
+
+    def __enter__(self):
+        inner = flash_ops.flash_attention_kernel
+
+        def timed(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = inner(*a, **kw)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        self._inner = inner
+        flash_ops.flash_attention_kernel = timed
+        return self
+
+    def __exit__(self, *exc):
+        flash_ops.flash_attention_kernel = self._inner
+
+    def ms(self) -> float:
+        _sync()
+        return sum(s.elapsed_time(e) for s, e in self.events)
+
+
+def prefill_phase(cfg, params, dev, tag):
+    """L2: one prompt through the plain forward (the reference), the
+    counted kernel forward, and the kernel forward with TF32 on. Returns
+    (metrics, the prompt tokens, the kernel forward's first DECODE_CHECK
+    logits rows)."""
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 3).integers(
+        0, cfg.vocab_size, (1, PREFILL_LEN)).astype(np.int32)).to(dev)
+    batch = {"tokens": tokens}
+    saved = tattn.CHUNKED_ATTN_THRESHOLD
+    tattn.CHUNKED_ATTN_THRESHOLD = min(saved, PLAIN_CHUNK_THRESHOLD)
+    try:
+        ref, plain_s = _timed(lambda: lm.forward(
+            cfg.replace(attn_impl="plain"), params, batch))
+    finally:
+        tattn.CHUNKED_ATTN_THRESHOLD = saved
+    ref_cpu = ref.cpu()  # one forward's logits on the card at a time
+    scale = float(ref.abs().max())
+    if not bool(torch.isfinite(ref).all()):
+        raise AssertionError("the plain forward's logits are not finite")
+    del ref
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with _LaunchTimer() as timer:
+        (logits, sec), launches = count_launches(
+            (), lambda: _timed(lambda: lm.forward(cfg, params, batch)))
+    kernel_ms = timer.ms()
+    peak = torch.cuda.max_memory_allocated()
+    n = launches["flash_attention_kernel"]
+    V = cfg.vocab_size
+    if tuple(logits.shape) != (1, PREFILL_LEN, V) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"bad prefill logits {tuple(logits.shape)}")
+    err = logit_err(logits, ref_cpu, scale)
+    head = logits[0, :DECODE_CHECK].clone()
+    del logits
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = lm.forward(cfg, params, batch)
+        err_tf32 = logit_err(tf32, ref_cpu, scale)
+        del tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    D, L = cfg.d_model, PREFILL_LEN
+    mm_flops = 2 * L * (cfg.param_count() - V * D)  # the table is a gather
+    attn_flops = cfg.n_layers * flash_flops(1, cfg.n_heads, L, cfg.head_dim)
+    out = dict(prefill_tokens_per_s=L / sec, prefill_s=sec,
+               plain_prefill_s=plain_s, prefill_flash_ms=kernel_ms,
+               prefill_flash_share=kernel_ms / (1e3 * sec),
+               prefill_flash_launches=n, lm_peak_memory_bytes=peak,
+               prefill_logit_rel_err=err, prefill_logit_rel_err_tf32=err_tf32,
+               logit_scale=scale, logit_tol=LOGIT_TOL,
+               prefill_matmul_flops=mm_flops, prefill_attention_flops=attn_flops)
+    _log(f"L2 prefill of {L} tokens, {cfg.name}: kernel forward {sec:.3f} s "
+         f"= {L / sec:.1f} tokens/s ({(mm_flops + attn_flops) / sec / 1e12:.2f}"
+         f" TFLOP/s over {mm_flops:.4g} matmul + {attn_flops:.4g} attention "
+         f"flops), {n} flash launches taking {kernel_ms:.1f} ms by CUDA "
+         f"events ({kernel_ms / (1e3 * sec):.4f} of the forward); plain "
+         f"forward {plain_s:.3f} s; peak device memory {peak} bytes {tag}")
+    _log(f"L2 logits: max|kernel - plain| / max|plain| = {err:.3g} (max "
+         f"|plain| {scale:.4g}; tolerance {LOGIT_TOL}); the same with TF32 "
+         f"on: {err_tf32:.3g}")
+    if not err <= LOGIT_TOL:
+        raise AssertionError("kernel-forward logits disagree with the plain "
+                             "forward")
+    return out, tokens, head
+
+
+def check_prefill_on_the_card(cfg, out) -> None:
+    """L2's card-only checks: one flash launch per layer, and TF32 fails
+    the logit tolerance that the f32 kernel forward meets."""
+    if out["prefill_flash_launches"] != cfg.n_layers:
+        raise AssertionError(f"{out['prefill_flash_launches']} flash "
+                             f"launches in a {cfg.n_layers}-layer forward")
+    if not out["prefill_logit_rel_err_tf32"] > LOGIT_TOL:
+        raise AssertionError("the logit tolerance does not catch TF32")
+
+
+def profile_decode(cfg, params, dev, tag, steps: int = 8) -> dict:
+    """L3: a profiler trace of ``steps`` decode steps at the server's
+    batch, each ending in the logits' copy to the host as the server's
+    does: wall and device-kernel time per step (where a step's time
+    goes)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    B = SERVE["batch_slots"]
+    caches = lm.init_cache(cfg, B, SERVE["max_seq"], dev)
+    tok = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    lm.serve_step(cfg, params, caches, tok)[0].cpu()  # warm
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _sync()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            lm.serve_step(cfg, params, caches, tok)[0].cpu()
+        _sync()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type.name == "CUDA"
+               and not getattr(e, "is_user_annotation", False)]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    launches = sum(e.count for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    _log(f"L3 profile of {steps} decode steps at batch {B}: wall "
+         f"{1e3 * wall / steps:.3f} ms/step, device kernels {dev_ms / steps:.3f}"
+         f" ms/step (busy share {dev_ms / 1e3 / wall:.4f}), "
+         f"{launches / steps:.0f} kernels/step; top by device time "
+         f"(ms/step): " + json.dumps(
+             {e.key[:60]: round(e.self_device_time_total / 1e3 / steps, 3)
+              for e in top}) + f" {tag}")
+    return dict(decode_profile_wall_ms_per_step=1e3 * wall / steps,
+                decode_profile_device_ms_per_step=dev_ms / steps,
+                decode_profile_busy_share=dev_ms / 1e3 / wall)
+
+
+def serve_phase(cfg, params, tokens, head, dev, tag) -> dict:
+    """L3: the decode server on SERVE's requests, then the prompt's first
+    DECODE_CHECK tokens through ``serve_step`` on a 1-slot cache against
+    the prefill logits at those positions."""
+    rng = np.random.default_rng(SEED + 4)
+    reqs = [Request(prompt=[int(t) for t in rng.integers(
+        0, cfg.vocab_size, SERVE["prompt"])], max_new=SERVE["max_new"])
+        for _ in range(SERVE["requests"])]
+    server = DecodeServer(cfg, params, batch_slots=SERVE["batch_slots"],
+                          max_seq=SERVE["max_seq"], device=dev)
+    steps = [0]
+    inner_step = server.step
+
+    def step():
+        steps[0] += 1
+        inner_step()
+
+    server.step = step
+    (_, sec), launches = count_launches((), lambda: _timed(
+        lambda: server.run(reqs)))
+    n_new = [len(r.out) for r in reqs]
+    if not all(r.done for r in reqs) or n_new != [SERVE["max_new"]] * len(
+            reqs):
+        raise AssertionError(f"requests unfinished: new tokens {n_new}")
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in params.parameters())
+    if not cfg.tie_embeddings:  # a step gathers B rows of the input table
+        weight_bytes -= params["embed"]["tok"].numel() * 4
+    step_bound_ms = 1e3 * weight_bytes / HBM_BYTES_PER_S
+    out = dict(decode_tokens_per_s=sum(n_new) / sec, decode_steps=steps[0],
+               decode_ms_per_step=1e3 * sec / steps[0],
+               decode_step_bound_ms=step_bound_ms,
+               decode_tokens_processed_per_s=steps[0] * SERVE["batch_slots"]
+               / sec)
+    _log(f"L3 DecodeServer {SERVE}: {len(reqs)} of {len(reqs)} requests done, "
+         f"{sum(n_new)} new tokens in {sec:.3f} s = "
+         f"{out['decode_tokens_per_s']:.2f} tokens/s; {steps[0]} steps, "
+         f"{out['decode_ms_per_step']:.3f} ms/step against a {step_bound_ms:.3f}"
+         f" ms byte bound (weights read once a step); flash launches "
+         f"{launches['flash_attention_kernel']} (decode never runs it); "
+         f"first request's tokens {reqs[0].out[:8]} {tag}")
+    out.update(profile_decode(cfg, params, dev, tag))
+    caches = lm.init_cache(cfg, 1, DECODE_CHECK, dev)
+    err = 0.0
+    for i in range(DECODE_CHECK):
+        lg, caches = lm.serve_step(cfg, params, caches, tokens[:, i:i + 1])
+        err = max(err, float((lg[0, 0] - head[i]).abs().max()))
+    rel = err / float(head.abs().max())
+    out["decode_logit_rel_err"] = rel
+    _log(f"L3 decode vs prefill over {DECODE_CHECK} positions: max|decode - "
+         f"prefill| / max|prefill| = {rel:.3g} (tolerance {LOGIT_TOL})")
+    if not rel <= LOGIT_TOL:
+        raise AssertionError("decode through the cache disagrees with the "
+                             "prefill")
+    return out
+
+
 def deployment():
     """The spec, the seeded stream and its flushes ``[(a, z)]``, with the
     index of the boundary-spanning flush."""
@@ -660,14 +1060,24 @@ def deployment():
 
 
 def kernel_entries(results: dict, launches: dict) -> list:
-    """The ``kernels`` list of the JSON line, bounds computed from the
-    bytes each check counted."""
-    return [dict(name=kname, route="cuda", **KERNELS[kname],
-                 launches=launches[kname],
-                 **{k: v for k, v in r.items() if k != "nbytes"},
-                 bound_ms=1e3 * r["nbytes"] / HBM_BYTES_PER_S,
-                 bound_by="bytes", library_ms=None)
-            for kname, r in results.items()]
+    """The ``kernels`` list of the JSON line. Each bound is the larger of
+    the bytes the check counted over HBM_BYTES_PER_S and the f32
+    operations it counted (where it counted any) over F32_FLOPS_PER_S;
+    ``library_ms`` is null where no single PyTorch call computes the
+    kernel's function."""
+    out = []
+    for kname, r in results.items():
+        bytes_ms = 1e3 * r["nbytes"] / HBM_BYTES_PER_S
+        ops_ms = 1e3 * r.get("flops", 0) / F32_FLOPS_PER_S
+        out.append(dict(
+            name=kname, route="cuda", **KERNELS[kname],
+            launches=launches[kname],
+            **{k: v for k, v in r.items()
+               if k not in ("nbytes", "flops", "library_ms")},
+            bound_ms=max(bytes_ms, ops_ms),
+            bound_by="operations" if ops_ms > bytes_ms else "bytes",
+            library_ms=r.get("library_ms")))
+    return out
 
 
 def main() -> int:
@@ -676,6 +1086,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "run needs a CUDA card", file=sys.stderr)
         return 2
+    torch.backends.cuda.matmul.allow_tf32 = False  # the models are f32
+    torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     card = card_line()  # phase 1
@@ -736,13 +1148,24 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     profile_ingest(spec, state, stream, flushes, tag)
+    del state  # the LM phases start from an empty card
+    torch.cuda.empty_cache()
+
+    results.update(check_flash_kernel(dev, tag))  # L1
+    cfg_lm, params = lm_model(dev, tag)  # L2
+    lm_out, tokens, head = prefill_phase(cfg_lm, params, dev, tag)
+    check_prefill_on_the_card(cfg_lm, lm_out)
+    launches["flash_attention_kernel"] = lm_out["prefill_flash_launches"]
+    lm_out.update(serve_phase(cfg_lm, params, tokens, head, dev, tag))  # L3
+    del params, head
+    torch.cuda.empty_cache()
 
     seconds = time.perf_counter() - t_start
     _log(f"total {seconds:.1f} s")
     print(json.dumps({"kernels": kernel_entries(results, launches),
                       "card": card, "peak_memory_bytes": peak,
                       "analytics_peak_memory_bytes": a_peak,
-                      "ingest_edges_per_s": edges_per_s,
+                      "ingest_edges_per_s": edges_per_s, **lm_out,
                       "seconds": seconds}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -31,6 +31,7 @@ SIGNATURES = {
     "lsk_sketch_query": [_P] * 10 + [_I] * 5 + [_P],
     "lsk_vertex_scan": [_P] * 8 + [_I] * 7 + [_P],
     "lsk_cell_decode": [_P] * 5 + [_I] * 5 + [_P],
+    "lsk_flash_attention": [_P] * 4 + [_I] * 8 + [_P],
 }
 
 _lib = None

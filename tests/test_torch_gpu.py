@@ -1,5 +1,6 @@
 """Each CUDA kernel of the port against its plain PyTorch version, on the
-card (exact int32 equality). Imports neither JAX nor ``repro``, so it runs
+card (exact int32 equality for the sketch kernels; the flash-attention
+kernel to a stated float tolerance). Imports neither JAX nor ``repro``, so it runs
 where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
@@ -16,6 +17,8 @@ from repro_torch import sketch as skt
 from repro_torch.core import hashing as th
 from repro_torch.core.lsketch import edge_probes, precompute
 from repro_torch.core.types import EdgeBatch, LSketchConfig, init_leaves
+from repro_torch.kernels.flash_attention.kernel import (
+    flash_attention_kernel, flash_attention_plain)
 from repro_torch.kernels.heavy_hitters.kernel import (
     cell_decode_kernel_sharded, cell_decode_plain)
 from repro_torch.kernels.sketch_insert.kernel import (
@@ -194,3 +197,101 @@ def test_cuda_end_to_end_equals_cpu():
                                max_hops=2, horizons=[None, 1])]
     for a, b in zip(out["cpu"], out["cuda"]):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+# flash attention: (B, Hq, Hkv, L, dh, dtype) — Qwen3-8B's and SmolLM-135M's
+# prefill attention, a ragged length, bf16, and the other head dims
+FLASH_SHAPES = [
+    (1, 32, 8, 8192, 128, torch.float32),
+    (4, 9, 3, 2048, 64, torch.float32),
+    (2, 32, 8, 1000, 128, torch.float32),
+    (2, 32, 8, 2048, 128, torch.bfloat16),
+    (3, 4, 1, 77, 16, torch.float32),
+    (1, 6, 2, 130, 32, torch.bfloat16),
+]
+FLASH_IDS = ["qwen3-8k", "smollm-2k", "ragged-1000", "bf16", "dh16", "dh32"]
+# every shape causal; the shapes of at most 2,048 rows also non-causal
+FLASH_CASES = [pytest.param(*s, True, id=f"{i}-causal")
+               for s, i in zip(FLASH_SHAPES, FLASH_IDS)] + [
+    pytest.param(*s, False, id=f"{i}-full")
+    for s, i in zip(FLASH_SHAPES, FLASH_IDS) if s[3] <= 2048]
+
+
+def flash_close(got, want):
+    """f32: |got - want| < 2e-5 (the same f32 sums in another order move an
+    output ~1e-6); bf16: within one bf16 rounding of the output,
+    |got - want| <= 2**-7 max(|want|, 1)."""
+    d = (got.float() - want.float()).abs()
+    if got.dtype == torch.bfloat16:
+        return bool((d <= 2.0 ** -7 * want.float().abs().clamp_min(1)).all())
+    return float(d.max()) < 2e-5
+
+
+@pytest.fixture
+def no_tf32():
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Hq,Hkv,L,dh,dtype,causal", FLASH_CASES)
+def test_cuda_flash_attention_matches_plain(no_tf32, B, Hq, Hkv, L, dh, dtype,
+                                            causal):
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(L + dh)
+    q, k, v = [torch.randn(s, generator=g, device="cuda").to(dtype)
+               for s in ((B, Hq, L, dh), (B, Hkv, L, dh), (B, Hkv, L, dh))]
+    before = flash_attention_kernel.launches
+    got = flash_attention_kernel(q, k, v, causal)
+    want = flash_attention_plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert flash_attention_kernel.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert flash_close(got, want)
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_raises_on_what_it_does_not_take():
+    _need_card()
+    q = torch.zeros(1, 4, 64, 48, device="cuda")
+    with pytest.raises(ValueError, match="head dim 48"):
+        flash_attention_kernel(q, q[:, :2], q[:, :2])
+    q = torch.zeros(1, 4, 64, 32, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_kernel(q.transpose(1, 2), q, q)
+    with pytest.raises(ValueError, match="bad shapes"):
+        flash_attention_kernel(q, q[:, :3], q[:, :3])
+
+
+@pytest.mark.gpu
+def test_cuda_prefill_and_decode_match_the_cpu(no_tf32):
+    """The reduced Qwen3 forward with the kernel on the card against the
+    plain version on the CPU, and the card's decode against its prefill."""
+    _need_card()
+    from repro_torch import configs
+    from repro_torch.models import lm
+
+    cfg = configs.get("qwen3-8b", reduced=True)
+    params = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 96)).astype(np.int32))
+    before = flash_attention_kernel.launches
+    got = lm.forward(cfg, params, {"tokens": toks.cuda()})
+    assert flash_attention_kernel.launches == before + cfg.n_layers
+    params_cpu = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                                device="cpu")
+    params_cpu.load_state_dict({n: t.cpu() for n, t in
+                                params.state_dict().items()})
+    want = lm.forward(cfg, params_cpu, {"tokens": toks})
+    scale = float(want.abs().max())
+    assert float((got.cpu() - want).abs().max()) / scale < 1e-5
+    caches = lm.init_cache(cfg, 2, 96)
+    steps = [lm.serve_step(cfg, params, caches, toks[:, i:i + 1].cuda())[0]
+             for i in range(96)]
+    dec = torch.cat(steps, 1).cpu()
+    assert float((dec - got.cpu()).abs().max()) / scale < 1e-5

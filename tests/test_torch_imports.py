@@ -37,7 +37,7 @@ def test_port_and_chip_smoke_import_neither_jax_nor_repro():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     n_mods = int(out.stdout.split()[0])
-    assert n_mods >= 25
+    assert n_mods >= 47
 
 
 SPEC = dict(d=16, n_blocks=2, F=256, r=4, s=4, c=4, k=4, window_size=100,
@@ -45,13 +45,29 @@ SPEC = dict(d=16, n_blocks=2, F=256, r=4, s=4, c=4, k=4, window_size=100,
 
 
 def test_entry_points_default_to_the_card():
+    from repro_torch import configs
+    from repro_torch.launch.serve import DecodeServer
+    from repro_torch.models import lm
+
     spec = tskt.make_spec("lsketch", n_shards=2, **SPEC)
+    cfg = configs.get("smollm-135m", reduced=True)
+    params = lm.init_params(cfg, device="cpu")
     if torch.cuda.is_available():
         assert tskt.create(spec).device.type == "cuda"
+        assert lm.init_params(cfg).device.type == "cuda"
+        assert lm.init_cache(cfg, 1, 8)[0]["mixer"]["k"].device.type == "cuda"
+        with pytest.raises(ValueError, match="parameters lie on cpu"):
+            DecodeServer(cfg, params)
     else:
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            tskt.create(spec)
+        for entry in (lambda: tskt.create(spec), lambda: lm.init_params(cfg),
+                      lambda: lm.init_cache(cfg, 1, 8),
+                      lambda: DecodeServer(cfg, params)):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                entry()
     assert tskt.create(spec, device="cpu").device.type == "cpu"
+    assert params.device.type == "cpu"
+    assert DecodeServer(cfg, params, device="cpu").caches[0]["mixer"][
+        "k"].device.type == "cpu"
 
 
 def test_ingest_spends_the_old_handle_and_starts_a_cold_cache():
@@ -162,11 +178,49 @@ def test_chip_smoke_rehearses_on_the_cpu(monkeypatch, capsys):
     results.update(chip_smoke.check_analytics(cfg, spec, state, got, tag))
     assert "reachable" in capsys.readouterr().out
     chip_smoke.profile_ingest(spec, state, stream, flushes, tag)
+
+    # L1-L3 at the reduced Qwen3 config: the kernel's plain version on the
+    # CPU, so the card-only launch and TF32 checks are not run
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda: None)
+    flash_cases = (("small", 1, 4, 2, 96, 16, torch.float32),
+                   ("bf16", 1, 4, 2, 70, 32, torch.bfloat16))
+    for name, value in (("LM_REDUCED", True), ("PREFILL_LEN", 64),
+                        ("DECODE_CHECK", 16), ("PLAIN_CHUNK_THRESHOLD", 16),
+                        ("SERVE", dict(batch_slots=2, max_seq=32, requests=3,
+                                       prompt=6, max_new=4)),
+                        ("FLASH_CASES", flash_cases), ("FLASH_REPS", 2)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    results.update(chip_smoke.check_flash_kernel(dev, tag))
+    cfg_lm, params = chip_smoke.lm_model(dev, tag)
+    lm_out, tokens, head = chip_smoke.prefill_phase(cfg_lm, params, dev, tag)
+    assert lm_out["prefill_flash_launches"] == 0  # CPU tensors: plain
+    assert lm_out["prefill_logit_rel_err"] <= chip_smoke.LOGIT_TOL
+    with pytest.raises(AssertionError, match="flash launches"):
+        chip_smoke.check_prefill_on_the_card(cfg_lm, lm_out)
+    lm_out.update(chip_smoke.serve_phase(cfg_lm, params, tokens, head, dev,
+                                         tag))
+    assert lm_out["decode_steps"] > 0
+    assert lm_out["decode_logit_rel_err"] <= chip_smoke.LOGIT_TOL
+    assert "3 of 3 requests done" in capsys.readouterr().out
+
     kernels = chip_smoke.kernel_entries(
         results, {n: 0 for n in chip_smoke.WRAPPERS})
-    json.dumps(kernels)
-    assert [k["mismatches"] for k in kernels] == [0, 0, 0, 0]
+    json.dumps({"kernels": kernels, **lm_out})
+    assert [k["mismatches"] for k in kernels] == [0, 0, 0, 0, 0]
     assert {k["name"] for k in kernels} == set(chip_smoke.WRAPPERS)
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    assert all(keys <= set(k) for k in kernels)
+    flash = next(k for k in kernels if k["name"] == "flash_attention_kernel")
+    assert flash["library_ms"] is not None
+    # the first case: 4 dh operations per kept (query, key) pair; q, k, v
+    # and out read or written once
+    ops_ms = 1e3 * 4 * 16 * 4 * 96 * 97 / 2 / chip_smoke.F32_FLOPS_PER_S
+    bytes_ms = 1e3 * 4 * 96 * 16 * (4 + 2 + 2 + 4) / \
+        chip_smoke.HBM_BYTES_PER_S
+    assert flash["bound_ms"] == pytest.approx(max(ops_ms, bytes_ms))
+    assert flash["bound_by"] == ("operations" if ops_ms > bytes_ms
+                                 else "bytes")
     # no bound may count more than its inputs and outputs hold: key, cw
     # and pw planes read once (the insert: key, C and P at one slot read
     # and written once) plus the per-item inputs and outputs
@@ -182,6 +236,8 @@ def test_chip_smoke_rehearses_on_the_cpu(monkeypatch, capsys):
             "cell_decode_kernel_sharded": 3 * S * 2 * d * d * 4 +
             2 * cfg.n_blocks * 4}
     for k in kernels:
+        if k["name"] == "flash_attention_kernel":
+            continue  # operations bound, checked above
         for bound in ("bound_ms", "bound_ms_in"):
             if bound in k:
                 nbytes = k[bound] * chip_smoke.HBM_BYTES_PER_S / 1e3

@@ -15,7 +15,9 @@ on 8 KV heads, d_head 128, vocab 151,936; f32 weights from a seed).
 Phases (any failure raises, so the exit code is non-zero):
   1. card name and power limit;
   2. build every CUDA kernel from ``src/repro_torch/csrc`` (one nvcc per
-     source, in parallel) and print each ``-Xptxas -v`` report;
+     source, in parallel) and print each ``-Xptxas -v`` report; the flash
+     kernel's instances must each hold tensor-core MMAs (``cuobjdump
+     -sass``), their registers and spills are logged;
   3. the insert kernel against its plain version at the first flush's
      shapes, exactly, timed over INSERT_REPS launches on a fresh state
      each (median and spread);
@@ -40,7 +42,10 @@ Phases (any failure raises, so the exit code is non-zero):
   L1. (the sketch state freed) the flash-attention kernel against its
      plain version on Qwen3-8B's and SmolLM-135M's prefill attention, a
      ragged length and bf16; medians of CUDA-event times beside the plain
-     version, PyTorch's scaled_dot_product_attention and the bound;
+     version, PyTorch's scaled_dot_product_attention and the bound (the
+     tensor-core rate of each variant: bf16, or split-TF32's three MMAs a
+     product in f32), with each case's kernel/SDPA ratio and share of
+     the bound;
   L2. Qwen3-8B prefill of one 8,192-token prompt through ``lm.forward``
      with the kernel (36 launches), against the same weights and tokens
      through the plain attention; logits agree to LOGIT_TOL of the largest
@@ -67,6 +72,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -119,7 +126,11 @@ N_QUERIES = 1024
 N_SCAN_SAMPLE = 64
 HORIZONS = (None, 1, 8)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, published peak
-F32_FLOPS_PER_S = 67e12  # H100 SXM f32 without tensor cores, published peak
+# H100 SXM dense tensor-core rates, published peaks: bf16, and TF32, which
+# the f32 flash kernel runs three times a product (split-TF32, the
+# cheapest way the card has to f32 accuracy)
+BF16_FLOPS_PER_S = 989e12
+TF32_FLOPS_PER_S = 495e12
 SEED = 0
 INSERT_REPS = 5
 # phase 6b: (entry point, k, arguments) of each analytics call
@@ -749,6 +760,72 @@ def flash_flops(B, Hq, L, dh) -> int:
     return 4 * dh * B * Hq * L * (L + 1) // 2
 
 
+def flash_ptxas(log: str) -> dict:
+    """{(type, dh): (registers, spill store bytes, spill load bytes)} of
+    the flash kernel's template instances, from its ``-Xptxas -v``
+    report."""
+    out, inst, spills = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"lsk_flash_attention_kernelI(\w+?)Li(\d+)E",
+                          m.group(1))
+            inst = (("bf16" if "bfloat16" in k.group(1) else "f32"),
+                    int(k.group(2))) if k else None
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and inst:
+            out[inst] = (int(m.group(1)), *spills)
+            inst = None
+    return out
+
+
+def flash_sass_hmma(obj: Path) -> dict:
+    """{function: tensor-core MMA (HMMA) instructions} in the flash
+    kernel's object, by ``cuobjdump -sass``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(obj)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn and "HMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
+def flash_build_report() -> dict:
+    """Phase 2's check that the flash kernel is built for the tensor cores:
+    each instance's registers and spills, and its HMMA count."""
+    regs = flash_ptxas(build.PTXAS_LOG["flash_attention.cu"])
+    hmma = flash_sass_hmma(build.BUILD_DIR / "flash_attention.o")
+    _log(f"flash kernel instances (type, dh): registers, spill store / "
+         f"load bytes {regs}; HMMA instructions by cuobjdump -sass "
+         f"{hmma}")
+    if len(regs) != 8 or len(hmma) != 8 or min(hmma.values()) == 0:
+        raise AssertionError("the flash kernel's eight instances are not "
+                             "all built with tensor-core MMAs")
+    return dict(registers={f"{t} dh{d}": r for (t, d), r in regs.items()},
+                hmma=sum(hmma.values()))
+
+
+def flash_ops_ms(flops: int, dtype) -> tuple:
+    """(ms, the rate's name) of ``flops`` at the tensor-core rate the
+    kernel's variant for ``dtype`` runs at: bf16 MMAs, or three TF32 MMAs
+    a product in f32."""
+    if dtype == torch.bfloat16:
+        return 1e3 * flops / BF16_FLOPS_PER_S, \
+            f"bf16 flops over {BF16_FLOPS_PER_S / 1e12:g} TFLOP/s"
+    return 1e3 * 3 * flops / TF32_FLOPS_PER_S, \
+        f"split-TF32 3 x flops over {TF32_FLOPS_PER_S / 1e12:g} TFLOP/s"
+
+
 def flash_check(got, want):
     """(max |got - want|, elements out of tolerance, the tolerance). f32:
     |d| < 2e-5 (the same f32 sums in another order move an output ~1e-6);
@@ -797,17 +874,23 @@ def check_flash_kernel(dev, tag) -> dict:
                                                  FLASH_REPS)))
         nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
         flops = flash_flops(B, Hq, L, dh)
-        bound = 1e3 * max(flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S)
+        ops_ms, rate = flash_ops_ms(flops, dtype)
+        bound = max(ops_ms, 1e3 * nbytes / HBM_BYTES_PER_S)
         cases.append(dict(label=label, shape=f"q {list(q.shape)} k "
                           f"{list(k.shape)} {str(dtype)[6:]}",
                           max_abs_err=err, out_of_tolerance=n_bad,
                           tolerance=tol, ms=ms, plain_ms=plain_ms,
-                          library_ms=library_ms, nbytes=nbytes, flops=flops))
+                          library_ms=library_ms, nbytes=nbytes,
+                          ops_ms=ops_ms, ops_rate=rate,
+                          sdpa_ratio=ms / library_ms,
+                          bound_share=bound / ms))
         _log(f"L1 flash {label} {cases[-1]['shape']}: max_abs_err={err:.3g} "
              f"({tol}; {n_bad} out), sdpa vs plain {lib_err:.3g}; kernel "
              f"{ms:.3f} ms ({flops / ms / 1e9:.2f} TFLOP/s), plain "
-             f"{plain_ms:.3f} ms, sdpa {library_ms:.3f} ms, bound "
-             f"{bound:.3f} ms (medians of {FLASH_REPS}) {tag}")
+             f"{plain_ms:.3f} ms, sdpa {library_ms:.3f} ms, kernel/sdpa "
+             f"{ms / library_ms:.3f}; bound {bound:.4f} ms ({rate} against "
+             f"bytes over {HBM_BYTES_PER_S / 1e12:g} TB/s), {bound / ms:.3f} "
+             f"of it reached (medians of {FLASH_REPS}) {tag}")
         del q, k, v
     torch.cuda.empty_cache()
     if any(c["out_of_tolerance"] for c in cases):
@@ -817,9 +900,10 @@ def check_flash_kernel(dev, tag) -> dict:
     return {"flash_attention_kernel": dict(
         mismatches=0, max_abs_err=main["max_abs_err"], ms=main["ms"],
         plain_ms=main["plain_ms"], library_ms=main["library_ms"],
-        nbytes=main["nbytes"], flops=main["flops"], shape=main["shape"],
+        nbytes=main["nbytes"], ops_ms=main["ops_ms"],
+        ops_rate=main["ops_rate"], shape=main["shape"],
         tolerance=main["tolerance"],
-        cases=[{k: v for k, v in c.items() if k not in ("nbytes", "flops")}
+        cases=[{k: v for k, v in c.items() if k != "nbytes"}
                for c in cases])}
 
 
@@ -1061,19 +1145,19 @@ def deployment():
 
 def kernel_entries(results: dict, launches: dict) -> list:
     """The ``kernels`` list of the JSON line. Each bound is the larger of
-    the bytes the check counted over HBM_BYTES_PER_S and the f32
-    operations it counted (where it counted any) over F32_FLOPS_PER_S;
-    ``library_ms`` is null where no single PyTorch call computes the
-    kernel's function."""
+    the bytes the check counted over HBM_BYTES_PER_S and the time of the
+    operations it counted, where it counted any (``ops_ms``, at the rate
+    ``ops_rate`` names); ``library_ms`` is null where no single PyTorch
+    call computes the kernel's function."""
     out = []
     for kname, r in results.items():
         bytes_ms = 1e3 * r["nbytes"] / HBM_BYTES_PER_S
-        ops_ms = 1e3 * r.get("flops", 0) / F32_FLOPS_PER_S
+        ops_ms = r.get("ops_ms", 0.0)
         out.append(dict(
             name=kname, route="cuda", **KERNELS[kname],
             launches=launches[kname],
             **{k: v for k, v in r.items()
-               if k not in ("nbytes", "flops", "library_ms")},
+               if k not in ("nbytes", "ops_ms", "library_ms")},
             bound_ms=max(bytes_ms, ops_ms),
             bound_by="operations" if ops_ms > bytes_ms else "bytes",
             library_ms=r.get("library_ms")))
@@ -1103,6 +1187,7 @@ def main() -> int:
          f"linked in {time.perf_counter() - t0:.1f} s")
     for src, log in build.PTXAS_LOG.items():
         _log(f"--- nvcc -Xptxas -v {src}\n{log.strip()}")
+    flash_build = flash_build_report()
 
     cfg = CFG
     spec, stream, flushes, span_i = deployment()
@@ -1152,6 +1237,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     results.update(check_flash_kernel(dev, tag))  # L1
+    results["flash_attention_kernel"]["build"] = flash_build
     cfg_lm, params = lm_model(dev, tag)  # L2
     lm_out, tokens, head = prefill_phase(cfg_lm, params, dev, tag)
     check_prefill_on_the_card(cfg_lm, lm_out)

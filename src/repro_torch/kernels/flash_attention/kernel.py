@@ -2,18 +2,24 @@
 
 ``flash_attention_kernel`` replaces the TPU kernel
 ``repro/kernels/flash_attention/kernel.py::flash_attention_kernel`` (body
-``_flash_body``; source ``csrc/flash_attention.cu``, one block per
-(batch x query head, 64-row query tile); what bounds it is noted there).
-``flash_attention_plain`` computes the same function in plain PyTorch over
-blocks of query rows, so that a block's scores ``[B, Hq, bq, Lk]`` fit on
-the card at the main path's sizes. The wrapper takes the plain version
-only for CPU tensors; for CUDA tensors it launches the kernel or raises.
+``_flash_body``; source ``csrc/flash_attention.cu``: FlashAttention-2 on
+the tensor cores, one block of 4 warps per (batch x query head, 64-row
+query tile), bf16 MMAs for bf16 inputs and split-TF32 MMAs for f32 ones;
+what bounds it is noted there). ``flash_attention_plain`` computes the
+same function in plain PyTorch over blocks of query rows, so that a
+block's scores ``[B, Hq, bq, Lk]`` fit on the card at the main path's
+sizes. The wrapper takes the plain version only for CPU tensors; for CUDA
+tensors it launches the kernel or raises.
 
 Both compute what ``_flash_body`` computes: q scaled by 1/sqrt(dh) before
 the dot, the causal mask on absolute positions with the TPU kernel's
 top-left rule ``i >= j`` (masked scores -1e30), the result
-``acc / max(l, 1e-30)`` cast to q's dtype, every sum in f32 (bf16 inputs
-are widened on load). Query head h reads KV head ``h // (Hq // Hkv)``.
+``acc / max(l, 1e-30)`` cast to q's dtype, every sum in f32. Query head h
+reads KV head ``h // (Hq // Hkv)``. The plain version widens bf16 inputs
+to f32; the kernel's bf16 variant scales the f32 scores after the product
+and rounds the softmax weights to bf16 for the product with V, and its
+f32 variant keeps f32 accuracy by splitting every operand into two TF32
+parts (``tests/test_torch_flash_numerics.py`` emulates both on the CPU).
 
 q [B, Hq, Lq, dh]; k, v [B, Hkv, Lk, dh]; returns [B, Hq, Lq, dh].
 """
@@ -74,6 +80,9 @@ def _check(q, k, v):
     if dh not in HEAD_DIMS:
         raise ValueError(f"head dim {dh} has no kernel instance "
                          f"(one of {HEAD_DIMS})")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash attention takes 16-byte aligned tensors "
+                         "(the kernel copies 16 B at a time)")
 
 
 def flash_attention_kernel(q, k, v, causal: bool = True):

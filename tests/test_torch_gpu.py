@@ -200,7 +200,9 @@ def test_cuda_end_to_end_equals_cpu():
 
 
 # flash attention: (B, Hq, Hkv, L, dh, dtype) — Qwen3-8B's and SmolLM-135M's
-# prefill attention, a ragged length, bf16, and the other head dims
+# prefill attention, a ragged length, bf16, the other head dims, lengths
+# that cross the kernel's 16-row fragment and 64-row tile edges (1, 15, 65,
+# 129) in both types, bf16 at dh 64, and MHA (Hq == Hkv)
 FLASH_SHAPES = [
     (1, 32, 8, 8192, 128, torch.float32),
     (4, 9, 3, 2048, 64, torch.float32),
@@ -208,8 +210,21 @@ FLASH_SHAPES = [
     (2, 32, 8, 2048, 128, torch.bfloat16),
     (3, 4, 1, 77, 16, torch.float32),
     (1, 6, 2, 130, 32, torch.bfloat16),
+    (1, 8, 2, 1, 128, torch.float32),
+    (1, 8, 2, 1, 128, torch.bfloat16),
+    (2, 4, 2, 15, 64, torch.float32),
+    (2, 4, 2, 15, 32, torch.bfloat16),
+    (1, 8, 2, 65, 128, torch.float32),
+    (1, 8, 2, 65, 128, torch.bfloat16),
+    (2, 4, 1, 129, 16, torch.float32),
+    (2, 4, 1, 129, 128, torch.bfloat16),
+    (2, 16, 4, 1024, 64, torch.bfloat16),
+    (2, 8, 8, 300, 128, torch.float32),
+    (1, 12, 12, 257, 64, torch.bfloat16),
 ]
-FLASH_IDS = ["qwen3-8k", "smollm-2k", "ragged-1000", "bf16", "dh16", "dh32"]
+FLASH_IDS = ["qwen3-8k", "smollm-2k", "ragged-1000", "bf16", "dh16", "dh32",
+             "L1", "L1-bf16", "L15", "L15-bf16", "L65", "L65-bf16", "L129",
+             "L129-bf16", "bf16-dh64", "mha", "mha-bf16"]
 # every shape causal; the shapes of at most 2,048 rows also non-causal
 FLASH_CASES = [pytest.param(*s, True, id=f"{i}-causal")
                for s, i in zip(FLASH_SHAPES, FLASH_IDS)] + [
@@ -266,6 +281,9 @@ def test_cuda_flash_attention_raises_on_what_it_does_not_take():
         flash_attention_kernel(q.transpose(1, 2), q, q)
     with pytest.raises(ValueError, match="bad shapes"):
         flash_attention_kernel(q, q[:, :3], q[:, :3])
+    q = torch.zeros(4 * 64 * 32 + 1, device="cuda")[1:].view(1, 4, 64, 32)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_kernel(q, q, q)
 
 
 @pytest.mark.gpu

@@ -215,7 +215,9 @@ def test_chip_smoke_rehearses_on_the_cpu(monkeypatch, capsys):
     assert flash["library_ms"] is not None
     # the first case: 4 dh operations per kept (query, key) pair; q, k, v
     # and out read or written once
-    ops_ms = 1e3 * 4 * 16 * 4 * 96 * 97 / 2 / chip_smoke.F32_FLOPS_PER_S
+    # (f32: three TF32 MMAs a product, split-TF32)
+    ops_ms = 1e3 * 3 * 4 * 16 * 4 * 96 * 97 / 2 / \
+        chip_smoke.TF32_FLOPS_PER_S
     bytes_ms = 1e3 * 4 * 96 * 16 * (4 + 2 + 2 + 4) / \
         chip_smoke.HBM_BYTES_PER_S
     assert flash["bound_ms"] == pytest.approx(max(ops_ms, bytes_ms))
@@ -242,3 +244,28 @@ def test_chip_smoke_rehearses_on_the_cpu(monkeypatch, capsys):
             if bound in k:
                 nbytes = k[bound] * chip_smoke.HBM_BYTES_PER_S / 1e3
                 assert 0 < nbytes <= most[k["name"]], (bound, k)
+
+
+def test_chip_smoke_reads_the_flash_kernels_ptxas_report(monkeypatch):
+    """The phase-2 parser pairs each flash instance with its registers and
+    spills; the L1 bound takes each variant's tensor-core rate."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    import chip_smoke
+
+    fn = "_ZN12_GLOBAL__N_126lsk_flash_attention_kernelI{}Li{}EEEvPKT_S3_"
+    log = "\n".join(
+        f"ptxas info    : Compiling entry function '{fn.format(t, d)}' for "
+        f"'sm_90a'\nptxas info    : Function properties for "
+        f"{fn.format(t, d)}\n    0 bytes stack frame, {s} bytes spill "
+        f"stores, {s} bytes spill loads\nptxas info    : Used {r} "
+        f"registers, used 1 barriers, 400 bytes cmem[0]"
+        for t, d, r, s in (("f", 128, 168, 0), ("13__nv_bfloat16", 64, 96, 8)))
+    assert chip_smoke.flash_ptxas(log) == {("f32", 128): (168, 0, 0),
+                                           ("bf16", 64): (96, 8, 8)}
+    flops = chip_smoke.flash_flops(2, 32, 2048, 128)
+    assert flops == 68_753_031_168
+    ms, rate = chip_smoke.flash_ops_ms(flops, torch.bfloat16)
+    assert ms == pytest.approx(0.0695, abs=1e-4) and "bf16" in rate
+    ms, rate = chip_smoke.flash_ops_ms(
+        chip_smoke.flash_flops(1, 32, 8192, 128), torch.float32)
+    assert ms == pytest.approx(3.332, abs=1e-3) and "split-TF32" in rate

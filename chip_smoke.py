@@ -18,13 +18,23 @@ Phases (any failure raises, so the exit code is non-zero):
      source, in parallel) and print each ``-Xptxas -v`` report; the flash
      kernel's instances must each hold tensor-core MMAs (``cuobjdump
      -sass``), their registers and spills are logged;
-  3. the insert kernel against its plain version at the first flush's
-     shapes, exactly, timed over INSERT_REPS launches on a fresh state
-     each (median and spread);
+  3. after a tiny warm-up launch of the insert and pool kernels (the
+     first launch in a process loads the module), the insert kernel
+     against its plain version, exactly, on the stream's first flush into
+     fresh states and its second flush into the same, loaded states;
+     each timed over INSERT_REPS launches from its pre-flush key plane
+     (median, spread, the largest bin fill and the time per step of the
+     longest bin);
+  3b. (after phase 5, on what phase 4 captured) the pool kernel against
+     its plain version on the rejects of the last kernel-route flush,
+     from copies of the pool leaves as that flush found them: pool_key,
+     pool_C, pool_P and pool_lost exactly; CUDA-event median over
+     POOL_REPS launches, each on a fresh copy, and the byte bound;
   4. ingest in flushes cut at subwindow boundaries (<= 65,536 edges) plus
      one ~512-edge flush spanning a boundary (the scan route); the first
-     two flushes are replayed on a CPU clone of shard 0 through the plain
-     versions and must match leaf for leaf;
+     two flushes and the last kernel-route flush (the pool loaded) are
+     replayed on a CPU clone of shard 0 through the plain versions and
+     must match leaf for leaf; edges/s in all and on the kernel route;
   5. edge, vertex (out, in) and label batches of 1,024 queries, with and
      without the edge label, at last in {None, 1, 8} on the kernel path;
      sampled answers must equal the dense scan path's;
@@ -38,7 +48,9 @@ Phases (any failure raises, so the exit code is non-zero):
      sampled from the newest subwindow's positive edge answers, all True;
      then the cell-decode kernel against its plain version on the main
      path's key plane, exactly, timed by CUDA events;
-  7. a profiler trace of two replayed flushes (where ingest time goes);
+  7. a profiler trace of two replayed flushes (where ingest time goes:
+     host ms by stage, the pool pass's share of the trace's host time,
+     the card's busy share and the number of cudaLaunchKernel calls);
   L1. (the sketch state freed) the flash-attention kernel against its
      plain version on Qwen3-8B's and SmolLM-135M's prefill attention, a
      ragged length and bf16; medians of CUDA-event times beside the plain
@@ -70,6 +82,7 @@ the repository's ``src`` is missing.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -101,8 +114,11 @@ from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
 from repro_torch.kernels.heavy_hitters.kernel import (  # noqa: E402
     cell_decode_kernel_sharded, cell_decode_plain)
 from repro_torch.kernels.heavy_hitters.ops import _static_blocks  # noqa: E402
+from repro_torch.kernels.sketch_insert import \
+    ops as insert_ops  # noqa: E402
 from repro_torch.kernels.sketch_insert.kernel import (  # noqa: E402
-    sketch_insert_kernel_sharded, sketch_insert_plain)
+    pool_pass_kernel_sharded, pool_pass_plain, sketch_insert_kernel_sharded,
+    sketch_insert_plain)
 from repro_torch.kernels.sketch_insert.ops import _bin_plan  # noqa: E402
 from repro_torch.kernels.sketch_query.kernel import (  # noqa: E402
     sketch_query_kernel_sharded, sketch_query_plain)
@@ -133,6 +149,7 @@ BF16_FLOPS_PER_S = 989e12
 TF32_FLOPS_PER_S = 495e12
 SEED = 0
 INSERT_REPS = 5
+POOL_REPS = 7
 # phase 6b: (entry point, k, arguments) of each analytics call
 ANALYTICS = (("heavy_vertices", 16, {"direction": "out"}),
              ("heavy_vertices", 16, {"direction": "in"}),
@@ -169,19 +186,25 @@ FLASH_REPS = 10
 
 WRAPPERS = {
     "sketch_insert_kernel_sharded": sketch_insert_kernel_sharded,
+    "pool_pass_kernel_sharded": pool_pass_kernel_sharded,
     "sketch_query_kernel_sharded": sketch_query_kernel_sharded,
     "vertex_scan_kernel_sharded": vertex_scan_kernel_sharded,
     "cell_decode_kernel_sharded": cell_decode_kernel_sharded,
     "flash_attention_kernel": flash_attention_kernel,
 }
-MAIN_PATH = ("sketch_insert_kernel_sharded", "sketch_query_kernel_sharded",
-             "vertex_scan_kernel_sharded")
+MAIN_PATH = ("sketch_insert_kernel_sharded", "pool_pass_kernel_sharded",
+             "sketch_query_kernel_sharded", "vertex_scan_kernel_sharded")
 ANALYTICS_PATH = ("cell_decode_kernel_sharded",
                   "sketch_query_kernel_sharded", "vertex_scan_kernel_sharded")
 KERNELS = {
     "sketch_insert_kernel_sharded": dict(
         source="src/repro_torch/csrc/sketch_insert.cu",
         replaces="src/repro/kernels/sketch_insert/kernel.py:324"),
+    "pool_pass_kernel_sharded": dict(
+        source="src/repro_torch/csrc/pool_pass.cu",
+        replaces="src/repro/kernels/sketch_insert/ops.py:42",
+        replaces_note="_pool_pass: an XLA while_loop; no Pallas kernel "
+                      "computes it"),
     "sketch_query_kernel_sharded": dict(
         source="src/repro_torch/csrc/sketch_query.cu",
         replaces="src/repro/kernels/sketch_query/kernel.py:113"),
@@ -279,18 +302,25 @@ def flush_cuts(time_col: np.ndarray, subwindow: int):
     return cuts, cuts.index(lo)
 
 
-def check_insert_kernel(cfg, spec, batch, dev, tag) -> dict:
-    """Phase 3: the insert kernel and its plain version on two fresh
-    states, fed the first flush exactly as the engine would."""
+def insert_args(cfg, spec, batch, states, dev):
+    """The insert kernel's inputs for one flush, prepared as the engine
+    prepares them against the ring of ``states[0]``; the ring plan is
+    committed to every state of ``states`` (re-claimed slots zeroed).
+    Returns (the kernel's arguments before the state leaves, the probes,
+    the bin fills)."""
     cols, counts = _partition_stack(spec, batch)
     tb = {f: torch.from_numpy(v).to(dev) for f, v in cols.items()}
-    S, B = tb["src"].shape
+    B = tb["src"].shape[1]
     n_valid = torch.from_numpy(counts).to(dev)
     valid = torch.arange(B, device=dev)[None, :] < n_valid[:, None]
-    kern, plain = init_leaves(cfg, (S,), dev), init_leaves(cfg, (S,), dev)
     widx = torch.div(tb["time"], cfg.subwindow_size, rounding_mode="floor")
-    plan = WindowRing.for_config(cfg).plan(kern.slot_widx, kern.cur_widx,
-                                           widx, valid)
+    plan = WindowRing.for_config(cfg).plan(states[0].slot_widx,
+                                           states[0].cur_widx, widx, valid)
+    for st in states:
+        WindowRing.zero_reset_slots(st.C, 3, plan.reset)
+        WindowRing.zero_reset_slots(st.P, 3, plan.reset)
+        st.slot_widx.copy_(plan.slot_widx)
+        st.cur_widx.copy_(plan.cur_widx)
     probes = edge_probes(cfg, precompute(cfg, tb["src"], tb["src_label"]),
                          precompute(cfg, tb["dst"], tb["dst_label"]))
     le_idx = hsh.edge_label_bucket(tb["edge_label"], cfg.c, cfg.seed)
@@ -299,31 +329,107 @@ def check_insert_kernel(cfg, spec, batch, dev, tag) -> dict:
     slot = plan.slot[:, 0].to(torch.int32).contiguous()
     args = (probes.rows.contiguous(), probes.cols.contiguous(),
             probes.keys.contiguous(), w, le_idx, slot, order, offs, bcounts)
-    walked = int(bcounts.clamp(max=B).sum())
-    flags = {}
+    return args, probes, bcounts
 
-    def fresh_launch():  # the state reset before each launch, untimed
-        kern.key.fill_(-1)
-        kern.C.zero_()
-        kern.P.zero_()
-        return event_ms(lambda: flags.__setitem__(
+
+def warm_up(dev) -> dict:
+    """One tiny launch of the insert and pool kernels (a one-edge flush
+    into a 2 x 2 matrix, a one-item pass over a 2-slot pool): the
+    milliseconds of each, by CUDA events. Their first launch in a process
+    loads the module; this takes that cost before the timed runs."""
+    i32 = lambda *shape, v=0: torch.full(shape, v, dtype=torch.int32,  # noqa
+                                         device=dev)
+    st = [i32(1, 2, 2, 2, v=-1), i32(1, 2, 2, 2, 1), i32(1, 2, 2, 2, 1, 1)]
+    ins = event_ms(lambda: sketch_insert_kernel_sharded(
+        i32(1, 1, 1), i32(1, 1, 1), i32(1, 1, 1, v=5), i32(1, 1, v=1),
+        i32(1, 1), i32(1), i32(1, 1), i32(1, 1), i32(1, 1, v=1), *st, 1))
+    pool = [i32(1, 2, 2, v=-1), i32(1, 2, 1), i32(1, 2, 1, 1), i32(1)]
+    pp = event_ms(lambda: pool_pass_kernel_sharded(
+        i32(1, 1, v=3), i32(1, 1, v=4), i32(1, 1, v=1), i32(1, 1, v=1),
+        i32(1, 1), i32(1, 1), i32(1, 1, v=1), *pool, probes=2, seed=0))
+    return {"sketch_insert_kernel_sharded": ins,
+            "pool_pass_kernel_sharded": pp}
+
+
+def check_insert_kernel(cfg, spec, batches, dev, tag) -> dict:
+    """Phase 3: the insert kernel and its plain version on two states on
+    the card, fed the stream's first flush on fresh states and then its
+    second flush into the same, loaded states, exactly as the engine would;
+    then the kernel timed over INSERT_REPS launches of each flush, each on
+    its pre-flush key plane (after a warm-up launch)."""
+    kern, plain = init_leaves(cfg, (spec.n_shards,), dev), \
+        init_leaves(cfg, (spec.n_shards,), dev)
+    warm = warm_up(dev)
+    flags, cases = {}, []
+    for label, batch in (("fresh", batches[0]), ("loaded", batches[1])):
+        args, probes, bcounts = insert_args(cfg, spec, batch, (kern, plain),
+                                            dev)
+        S, B = args[3].shape
+        pre_key = kern.key.clone()
+        first = event_ms(lambda: flags.__setitem__(
             "kernel", sketch_insert_kernel_sharded(*args, kern.key, kern.C,
                                                    kern.P, B)))
+        plain_ms = event_ms(lambda: flags.__setitem__(
+            "plain", sketch_insert_plain(*args, plain.key, plain.C, plain.P,
+                                         B)))
+        mism, err = diff([(flags["kernel"].int(), flags["plain"].int()),
+                          (kern.key, plain.key), (kern.C, plain.C),
+                          (kern.P, plain.P)])
+        cases.append(dict(label=label, args=args, B=B, pre_key=pre_key,
+                          first=first, plain_ms=plain_ms, mismatches=mism,
+                          max_abs_err=err, fill=int(bcounts.max()),
+                          walked=int(bcounts.clamp(max=B).sum())))
+        _log(f"phase 3 insert kernel vs plain, {label} state [S={S}, B={B}"
+             f"], {cases[-1]['walked']} edges walked, largest bin "
+             f"{cases[-1]['fill']}: mismatches={mism} max_abs_err={err}; "
+             f"kernel first launch {first:.3f} ms, plain {plain_ms:.1f} ms "
+             f"{tag}")
+        if label == "fresh":
+            nbytes, shape = insert_nbytes(cfg, probes, args, bcounts, kern)
+    if any(c["mismatches"] for c in cases):
+        raise AssertionError("insert kernel disagrees with its plain version")
+    # the timed launches run on the plain state's tensors, each from its
+    # flush's pre-flush key plane (C and P only receive adds, which do not
+    # change the walk)
+    for c in cases:
+        def launch():
+            plain.key.copy_(c["pre_key"])
+            return event_ms(lambda: sketch_insert_kernel_sharded(
+                *c["args"], plain.key, plain.C, plain.P, c["B"]))
+        c["runs"] = [launch() for _ in range(INSERT_REPS)]
+        c["ms"] = float(np.median(c["runs"]))
+        _log(f"phase 3 insert kernel, {c['label']} state: median "
+             f"{c['ms']:.4f} ms over {INSERT_REPS} launches ("
+             f"{[round(r, 4) for r in c['runs']]}), "
+             f"{1e3 * c['ms'] / max(c['fill'], 1):.4f} us per step of the "
+             f"longest bin ({c['fill']} edges) {tag}")
+    fresh, loaded = cases
+    _log(f"phase 3 first-launch cost: warm-up launches {json.dumps(warm)} "
+         f"ms; then the first full launch {fresh['first']:.3f} ms against "
+         f"a median of {fresh['ms']:.4f} ms {tag}")
+    return dict(mismatches=fresh["mismatches"] + loaded["mismatches"],
+                max_abs_err=max(fresh["max_abs_err"], loaded["max_abs_err"]),
+                ms=fresh["ms"], ms_runs=fresh["runs"],
+                first_launch_ms=fresh["first"], warm_up_ms=warm,
+                ms_loaded=loaded["ms"], plain_ms=fresh["plain_ms"],
+                plain_ms_loaded=loaded["plain_ms"], nbytes=nbytes,
+                largest_bin=fresh["fill"], largest_bin_loaded=loaded["fill"],
+                us_per_step=1e3 * fresh["ms"] / max(fresh["fill"], 1),
+                shape=shape)
 
-    runs = [fresh_launch() for _ in range(INSERT_REPS)]
-    ms = float(np.median(runs))
-    plain_ms = event_ms(lambda: flags.__setitem__(
-        "plain", sketch_insert_plain(*args, plain.key, plain.C, plain.P, B)))
-    mism, err = diff([(flags["kernel"].int(), flags["plain"].int()),
-                      (kern.key, plain.key), (kern.C, plain.C),
-                      (kern.P, plain.P)])
-    # bytes the insert must move, each read once and written once: per
-    # walked edge its order entry, s probe coordinates and keys, weight and
-    # label; each (shard, bin)'s offset and count; the distinct candidate
-    # key cells of the walked edges; each distinct winning cell's key write
-    # and C read-modify-write, each distinct (cell, label) P read-modify-
-    # write (a fresh state: exactly the cells that received weight, at the
-    # shard's one slot); one flag per row
+
+def insert_nbytes(cfg, probes, args, bcounts, kern):
+    """Bytes the insert must move on a fresh state, each read once and
+    written once: per walked edge its order entry, s probe coordinates and
+    keys, weight and label; each (shard, bin)'s offset and count; the
+    distinct candidate key cells of the walked edges; each distinct
+    winning cell's key write and C read-modify-write, each distinct (cell,
+    label) P read-modify-write (a fresh state: exactly the cells that
+    received weight, at the shard's one slot); one flag per row."""
+    w, slot = args[3], args[5]
+    S, B = w.shape
+    dev = w.device
+    walked = int(bcounts.clamp(max=B).sum())
     live = w > 0
     sh = torch.arange(S, device=dev)[:, None, None]
     cells = (sh * cfg.d + probes.rows.long()) * cfg.d + probes.cols.long()
@@ -335,17 +441,111 @@ def check_insert_kernel(cfg, spec, batch, dev, tag) -> dict:
                    for i in range(S))
     nbytes = walked * (4 + 3 * cfg.s * 4 + 8) + 2 * bcounts.numel() * 4 + \
         n_cand * 4 + n_win * (4 + 8) + n_win_le * 8 + S * B
-    _log(f"phase 3 insert kernel vs plain at flush-1 shapes [S={S}, B={B}], "
-         f"{walked} edges walked: mismatches={mism} max_abs_err={err}; "
-         f"kernel median {ms:.3f} ms over {INSERT_REPS} launches on a fresh "
-         f"state each (first {runs[0]:.3f}, min {min(runs):.3f}, max "
-         f"{max(runs):.3f}: {[round(r, 3) for r in runs]}), plain "
-         f"{plain_ms:.1f} ms {tag}")
+    return nbytes, (f"S={S} B={B} walked={walked} candidate_cells={n_cand} "
+                    f"winning_cells={n_win}")
+
+
+class PoolCapture:
+    """Keeps a copy of the pool pass's inputs and of the pool leaves as
+    they stand before the call, for the flushes it is entered around:
+    wraps the wrapper where ``_pool_pass`` calls it (the wrapper still
+    counts its own launches)."""
+
+    def __init__(self):
+        self.items = self.leaves = self.kw = None
+
+    def __enter__(self):
+        inner = insert_ops.pool_pass_kernel_sharded
+
+        def capture(*args, **kw):
+            self.items = [a.clone() for a in args[:7]]
+            self.leaves = [a.clone() for a in args[7:]]
+            self.kw = kw
+            return inner(*args, **kw)
+
+        self._inner = inner
+        insert_ops.pool_pass_kernel_sharded = capture
+        return self
+
+    def __exit__(self, *exc):
+        insert_ops.pool_pass_kernel_sharded = self._inner
+
+
+def pool_nbytes(items, before, after, probes, seed) -> tuple:
+    """Bytes the pool pass must move for these inputs, each read once and
+    written once: the eligible flags; per eligible item its six scalars;
+    the distinct pool-key rows it reads up to its first fit (a host replay
+    of the walk) and those written; each pool_C and pool_P element that
+    changed (read and written); pool_lost. Returns (bytes, eligible
+    items)."""
+    ps = hsh.pool_slot_seq(items[0], items[1], before[0].shape[1], probes,
+                           seed).cpu().numpy()
+    pid_s, pid_d, _, w_key, _, _, elig = (x.cpu().numpy() for x in items)
+    pk0 = before[0].cpu().numpy()
+    S, B, _ = ps.shape
+    nbytes, n_items = S * B * 4, 0
+    for sh in range(S):
+        pk, read = pk0[sh].copy(), set()
+        for i in np.flatnonzero(elig[sh]):
+            n_items += 1
+            hit = -1
+            for q in ps[sh, i].tolist():
+                read.add(q)
+                if pk[q, 0] == -1 or (pk[q, 0] == pid_s[sh, i] and
+                                      pk[q, 1] == pid_d[sh, i]):
+                    hit = q
+                    break
+            nbytes += 6 * 4
+            if hit >= 0 and w_key[sh, i] > 0:
+                pk[hit] = (pid_s[sh, i], pid_d[sh, i])
+        nbytes += len(read) * 8 + int((pk != pk0[sh]).any(1).sum()) * 8
+    nbytes += sum(int((a != b).sum()) * 8 for a, b in zip(before[1:3],
+                                                          after[1:3]))
+    return nbytes + S * 8, n_items
+
+
+def check_pool_kernel(capture, tag) -> dict:
+    """Phase 3b: the pool kernel against its plain version on the rejects
+    of the main path's last kernel-route flush, each run on a fresh copy
+    of the pool leaves as that flush found them; CUDA-event median."""
+    items, leaves, kw = capture.items, capture.leaves, capture.kw
+    if items is None:
+        raise AssertionError("the pool pass of the captured flush never ran")
+    want = [x.clone() for x in leaves]
+    plain_ms = event_ms(lambda: pool_pass_plain(*items, *want, **kw))
+    got = [x.clone() for x in leaves]
+    pool_pass_kernel_sharded(*items, *got, **kw)
+    _sync()
+    mism, err = diff(zip(got, want))
+    del got
+
+    def launch():
+        fresh = [x.clone() for x in leaves]
+        return event_ms(lambda: pool_pass_kernel_sharded(*items, *fresh,
+                                                         **kw))
+
+    runs = [launch() for _ in range(POOL_REPS)]
+    ms = float(np.median(runs))
+    nbytes, n_items = pool_nbytes(items, leaves, want, **kw)
+    S, B = items[0].shape
+    probes = kw["probes"]
+    leaf_bytes = sum(x.numel() * 4 for x in leaves)
+    _log(f"phase 3b pool kernel vs plain on the last kernel-route flush's "
+         f"rejects [S={S}, B={B}, probes={probes}], {n_items} eligible "
+         f"items (per shard {items[6].sum(1).tolist()}), pool leaves "
+         f"{leaf_bytes} bytes a copy: mismatches={mism} max_abs_err={err}; "
+         f"kernel median {ms:.4f} ms over {POOL_REPS} launches on a fresh "
+         f"copy each ({[round(r, 4) for r in runs]}), plain {plain_ms:.1f} "
+         f"ms, byte bound {1e3 * nbytes / HBM_BYTES_PER_S:.5f} ms "
+         f"({nbytes} bytes) {tag}")
     if mism:
-        raise AssertionError("insert kernel disagrees with its plain version")
-    return dict(mismatches=mism, max_abs_err=err, ms=ms, ms_runs=runs,
-                plain_ms=plain_ms, nbytes=nbytes, shape=f"S={S} B={B} walked={walked} "
-                f"candidate_cells={n_cand} winning_cells={n_win}")
+        raise AssertionError("the pool kernel disagrees with its plain "
+                             "version")
+    return {"pool_pass_kernel_sharded": dict(
+        mismatches=mism, max_abs_err=err, ms=ms, ms_runs=runs,
+        plain_ms=plain_ms, nbytes=nbytes,
+        shape=f"S={S} B={B} probes={probes} eligible={n_items} "
+              f"pool_leaf_bytes={leaf_bytes}")}
 
 
 def clone_check(cfg, spec, state, clone, batch, i) -> None:
@@ -367,42 +567,54 @@ def clone_check(cfg, spec, state, clone, batch, i) -> None:
         raise AssertionError(f"shard-0 clone differs in {bad}")
 
 
-def ingest_stream(cfg, spec, stream, flushes, span_i, dev, tag):
-    """Phase 4: the stream through ``skt.ingest`` flush by flush."""
+def ingest_stream(cfg, spec, stream, flushes, span_i, dev, tag,
+                  capture=None):
+    """Phase 4: the stream through ``skt.ingest`` flush by flush. The
+    first two flushes and the last kernel-route flush are replayed on a
+    CPU clone of shard 0 (outside the timed calls); ``capture`` (a
+    ``PoolCapture``) is entered around the last kernel-route flush."""
     state = skt.create(spec, device=dev)
     routes = {"kernel": 0, "scan": 0}
+    last_k = max(i for i in range(len(flushes)) if i != span_i)
     flush_s = []
     for i, (a, z) in enumerate(flushes):
         batch = stream.slice(a, z)
-        clone = state.shards.map(lambda x: x[0:1].cpu()) if i < 2 else None
+        checked = i < 2 or i == last_k
+        clone = state.shards.map(lambda x: x[0:1].cpu()) if checked else None
         before = dict(eng.ROUTE_EDGES)
-        _sync()
-        t0 = time.perf_counter()
-        state = skt.ingest(spec, state, batch, path="cuda")
-        _sync()
-        flush_s.append(time.perf_counter() - t0)
+        with capture if capture is not None and i == last_k else \
+                contextlib.nullcontext():
+            _sync()
+            t0 = time.perf_counter()
+            state = skt.ingest(spec, state, batch, path="cuda")
+            _sync()
+            flush_s.append(time.perf_counter() - t0)
         for k in routes:
             routes[k] += eng.ROUTE_EDGES[k] - before[k]
-        if i == span_i and eng.ROUTE_EDGES["scan"] == before["scan"]:
-            raise AssertionError("the boundary-spanning flush did not take "
-                                 "the scan route")
+        if (eng.ROUTE_EDGES["scan"] != before["scan"]) != (i == span_i):
+            raise AssertionError(f"flush {i} took the wrong route (the "
+                                 f"boundary-spanning flush is {span_i})")
         if clone is not None:
             clone_check(cfg, spec, state, clone, batch, i)
     n_edges, total = len(stream), sum(routes.values())
     if total != n_edges or not routes["kernel"] or not routes["scan"]:
         raise AssertionError(f"route counts {routes} != {n_edges} edges")
     ingest_s = sum(flush_s)
+    kernel_s = ingest_s - flush_s[span_i]
     pool_used = int((state.shards.pool_key[..., 0] != -1).sum())
     _log(f"phase 4 ingest: {n_edges} edges in {len(flushes)} flushes, "
          f"{ingest_s:.3f} s of ingest calls = {n_edges / ingest_s:.0f} "
-         f"edges/s {tag}; route edges: kernel {routes['kernel']} "
+         f"edges/s; kernel route {routes['kernel']} edges in {kernel_s:.3f} "
+         f"s = {routes['kernel'] / kernel_s:.0f} edges/s {tag}; route "
+         f"edges: kernel {routes['kernel']} "
          f"({routes['kernel'] / total:.4%}), scan {routes['scan']} "
          f"({routes['scan'] / total:.4%}); pool entries {pool_used}, "
          f"pool_lost {state.shards.pool_lost.tolist()}; per flush: kernel "
          f"route median {1e3 * np.median(np.delete(flush_s, span_i)):.1f} "
-         f"ms, scan-route flush ({flushes[span_i][1] - flushes[span_i][0]} "
+         f"ms (first {1e3 * flush_s[0]:.1f}, last {1e3 * flush_s[last_k]:.1f}"
+         f"), scan-route flush ({flushes[span_i][1] - flushes[span_i][0]} "
          f"edges) {1e3 * flush_s[span_i]:.1f} ms")
-    return state, n_edges / ingest_s
+    return state, n_edges / ingest_s, routes["kernel"] / kernel_s
 
 
 def query_inputs(cfg, stream):
@@ -717,7 +929,7 @@ def check_analytics(cfg, spec, state, got, tag) -> dict:
 def profile_ingest(spec, state, stream, flushes, tag):
     """Phase 7: a profiler trace over a replay of the last two flushes (the
     same subwindow, so the ring does not move); the ``lsketch.*`` ranges
-    split a flush by stage."""
+    split a flush by stage. Returns the trace's metrics."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -737,12 +949,23 @@ def profile_ingest(spec, state, stream, flushes, tag):
                  and not getattr(e, "is_user_annotation", False))
     stages = {e.key: e.cpu_time_total / 1e3 for e in events
               if e.key.startswith("lsketch.") and e.device_type.name == "CPU"}
+    launches = sum(e.count for e in events
+                   if e.key.startswith("cudaLaunchKernel"))
+    host_ms = sum(e.self_cpu_time_total for e in events
+                  if e.device_type.name == "CPU") / 1e3
+    pool_ms = stages.get("lsketch.pool_pass", 0.0)
+    pool_share = pool_ms / host_ms if host_ms else 0.0
     _log(f"phase 7 profile of 2 replayed flushes: wall {1e3 * wall:.1f} ms, "
          f"device kernels {dev_us / 1e3:.1f} ms (busy share "
          f"{dev_us / 1e6 / wall:.4f}), host ms by stage "
-         f"{json.dumps(stages)} {tag}")
+         f"{json.dumps(stages)}; lsketch.pool_pass {pool_share:.4f} of the "
+         f"trace's host time ({host_ms:.1f} ms), {pool_ms / 1e3 / wall:.4f} "
+         f"of the wall; {launches} cudaLaunchKernel calls {tag}")
     _log(events.table(sort_by="self_cpu_time_total", row_limit=12))
-    return state
+    return dict(profile_wall_ms=1e3 * wall,
+                       profile_busy_share=dev_us / 1e6 / wall,
+                       profile_pool_pass_share=pool_share,
+                       profile_launches=launches)
 
 
 def flash_inputs(B, Hq, Hkv, L, dh, dtype, dev):
@@ -1197,23 +1420,27 @@ def main() -> int:
          f"{cfg.subwindow_size} time units")
 
     results = {"sketch_insert_kernel_sharded": check_insert_kernel(
-        cfg, spec, stream.slice(*flushes[0]), dev, tag)}
+        cfg, spec, [stream.slice(*f) for f in flushes[:2]], dev, tag)}
     torch.cuda.empty_cache()
 
     # the main path: every launch count from 0 just before, read just after
     torch.cuda.reset_peak_memory_stats()
     qi = query_inputs(cfg, stream)
 
-    def main_path():
-        state, rate = ingest_stream(cfg, spec, stream, flushes, span_i, dev,
-                                    tag)
-        return state, rate, run_queries(spec, state, qi, tag)
+    capture = PoolCapture()
 
-    (state, edges_per_s, answers), launches = count_launches(MAIN_PATH,
-                                                             main_path)
+    def main_path():
+        state, rate, k_rate = ingest_stream(cfg, spec, stream, flushes,
+                                            span_i, dev, tag, capture)
+        return state, rate, k_rate, run_queries(spec, state, qi, tag)
+
+    (state, edges_per_s, kernel_edges_per_s, answers), launches = \
+        count_launches(MAIN_PATH, main_path)
     peak = torch.cuda.max_memory_allocated()
     _log(f"phase 5 main-path launches: {launches}; peak device memory "
          f"{peak} bytes {tag}")
+    results.update(check_pool_kernel(capture, tag))  # phase 3b
+    del capture
 
     check_scan_path(spec, state, qi, answers)
     results.update(check_query_kernels(cfg, spec, state, qi, dev, tag))
@@ -1232,7 +1459,7 @@ def main() -> int:
     skt.clear_plane_cache(state)
     torch.cuda.empty_cache()
 
-    profile_ingest(spec, state, stream, flushes, tag)
+    profile = profile_ingest(spec, state, stream, flushes, tag)
     del state  # the LM phases start from an empty card
     torch.cuda.empty_cache()
 
@@ -1251,7 +1478,9 @@ def main() -> int:
     print(json.dumps({"kernels": kernel_entries(results, launches),
                       "card": card, "peak_memory_bytes": peak,
                       "analytics_peak_memory_bytes": a_peak,
-                      "ingest_edges_per_s": edges_per_s, **lm_out,
+                      "ingest_edges_per_s": edges_per_s,
+                      "ingest_kernel_route_edges_per_s": kernel_edges_per_s,
+                      **profile, **lm_out,
                       "seconds": seconds}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

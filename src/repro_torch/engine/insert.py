@@ -29,8 +29,9 @@ from torch.profiler import record_function
 from repro_torch.core import hashing as hsh
 from repro_torch.core.lsketch import EdgeProbes, edge_probes, precompute
 from repro_torch.core.types import EMPTY, LSketchConfig, LSketchState
-from repro_torch.kernels.sketch_insert.ops import (
-    _pool_step, matrix_insert_binned_sharded)
+from repro_torch.kernels.sketch_insert.kernel import _pool_step
+from repro_torch.kernels.sketch_insert.ops import \
+    matrix_insert_binned_sharded
 
 from .window import WindowRing
 
@@ -90,8 +91,10 @@ def _scan_insert(cfg: LSketchConfig, state: LSketchState, probes: EdgeProbes,
         state.C[sidx, rr, cc, tz, sl] += wm
         state.P[sidx, rr, cc, tz, sl, le] += wm
         # pool fallback (w_key > 0 only for valid items: the plan masks it)
-        _pool_step(state, sidx, pool_slots[:, t], probes.pid_src[:, t],
-                   probes.pid_dst[:, t], wc, wk, sl, le, ok_item & ~found)
+        _pool_step(state.pool_key, state.pool_C, state.pool_P,
+                   state.pool_lost, sidx, pool_slots[:, t],
+                   probes.pid_src[:, t], probes.pid_dst[:, t], wc, wk, sl,
+                   le, ok_item & ~found)
     return state
 
 

@@ -1,12 +1,19 @@
-"""Block-binned first-fit insert: CUDA kernel wrapper and plain version.
+"""Block-binned first-fit insert and the stream-order pool pass: CUDA
+kernel wrappers and plain versions.
 
 ``sketch_insert_kernel_sharded`` replaces the TPU kernel
 ``repro/kernels/sketch_insert/kernel.py::sketch_insert_kernel_sharded``
-(source: ``csrc/sketch_insert.cu``, one warp per (shard, bin); what bounds
-it is noted there). ``sketch_insert_plain`` is its vectorized PyTorch twin
-(the counterpart of ``sketch_insert_stream_walk``): one step walks edge
-``t`` of every bin at once. The wrapper takes the plain version only for
-CPU tensors; for CUDA tensors it launches the kernel or raises.
+(source: ``csrc/sketch_insert.cu``, a gather, a walk of one warp per
+(shard, bin) over a shared-memory claim table, and a counter pass; what
+bounds it is noted there). ``sketch_insert_plain`` is its vectorized
+PyTorch twin (the counterpart of ``sketch_insert_stream_walk``): one step
+walks edge ``t`` of every bin at once.
+
+``pool_pass_kernel_sharded`` replaces the XLA ``while_loop`` of
+``repro/kernels/sketch_insert/ops.py::_pool_pass`` (source:
+``csrc/pool_pass.cu``, one block per shard); ``pool_pass_plain`` is a loop
+over ``_pool_step``. Each wrapper takes its plain version only for CPU
+tensors; for CUDA tensors it launches the kernel or raises.
 
 Contract (both versions, in place on ``key``/``C``/``P``):
   rows/cols/keys [S, B, s] absolute probe coordinates in stream order;
@@ -15,14 +22,28 @@ Contract (both versions, in place on ``key``/``C``/``P``):
   key [S, d, d, 2], C [S, d, d, 2, k], P [S, d, d, 2, k, c].
   Bin ``(sh, nb)`` walks its first ``min(counts, max_bin)`` edges.
   Returns ``inserted`` bool [S, B] in stream order.
+
+Pool-pass contract (both versions, in place on the pool leaves
+``pool_key`` [S, Q, 2], ``pool_C`` [S, Q, k], ``pool_P`` [S, Q, k, c],
+``pool_lost`` [S]): ``pid_src``/``pid_dst``/``w_count``/``w_key``/``sl``/
+``le``/``eligible`` [S, B] in stream order (``sl`` the item's ring slot,
+``eligible`` 0/1); an item's pool probe slots are
+``hashing.pool_slot_seq(pid_src, pid_dst, Q, probes, seed)``. Each
+shard's eligible items are walked in stream order by ``_pool_step``'s
+rule.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import hashing as hsh
 from repro_torch.core.types import EMPTY
 from repro_torch.kernels import build
+
+# the walk's claim table holds at most 2^13 claims a bin (2^14 slots);
+# claims past it are read back from the key plane (csrc/sketch_insert.cu)
+TABLE_LOG2_MAX = 14
 
 
 def sketch_insert_plain(rows, cols, keys, w, le, slot, order, offs, counts,
@@ -67,6 +88,14 @@ def sketch_insert_plain(rows, cols, keys, w, le, slot, order, offs, counts,
     return inserted.reshape(S, B)
 
 
+def claim_table_log2(counts, max_bin: int) -> int:
+    """log2 of the walk's claim-table size: the smallest power of two at
+    least twice the flush's largest walked bin fill (one host read),
+    between 2 and 2^TABLE_LOG2_MAX."""
+    fill = int(counts.clamp(max=max_bin).max()) if counts.numel() else 0
+    return min(TABLE_LOG2_MAX, max(1, (2 * fill - 1).bit_length()))
+
+
 def sketch_insert_kernel_sharded(rows, cols, keys, w, le, slot, order, offs,
                                  counts, key, C, P, max_bin: int):
     if key.device.type == "cpu":
@@ -76,12 +105,93 @@ def sketch_insert_kernel_sharded(rows, cols, keys, w, le, slot, order, offs,
                      key, C, P)
     S, B, s = rows.shape
     d, k, c = key.shape[1], C.shape[-1], P.shape[-1]
-    inserted = torch.zeros((S, B), dtype=torch.int32, device=key.device)
+    dev = key.device
+    log2t = claim_table_log2(counts, max_bin)
+    inserted = torch.zeros((S, B), dtype=torch.int32, device=dev)
+    g_pre, g_cell, g_key = (torch.empty((S, B, 2 * s), dtype=torch.int32,
+                                        device=dev) for _ in range(3))
+    g_w, land = (torch.empty((S, B), dtype=torch.int32, device=dev)
+                 for _ in range(2))
     build.call("lsk_sketch_insert", rows, cols, keys, w, le, slot, order,
-               offs, counts, key, C, P, inserted, S, B, s, d,
-               counts.shape[1], k, c, max_bin)
+               offs, counts, key, C, P, inserted, g_pre, g_cell, g_key, g_w,
+               land, S, B, s, d, counts.shape[1], k, c, max_bin, log2t)
     sketch_insert_kernel_sharded.launches += 1
     return inserted.bool()
 
 
 sketch_insert_kernel_sharded.launches = 0
+
+
+def _first(ok: torch.Tensor) -> torch.Tensor:
+    return torch.argmax(ok.to(torch.uint8), dim=-1)
+
+
+def _pool_step(pool_key, pool_C, pool_P, pool_lost, sidx, ps, pid_s, pid_d,
+               w_count, w_key, sl, le, eligible) -> None:
+    """One stream-order item of the additional pool, every shard at once
+    and in place on the pool leaves (``ps`` [S, probes], the rest [S]): an
+    ``eligible`` item with ``w_key`` > 0 claims the first of its pool slots
+    that holds its key or is EMPTY and adds ``w_count`` there at ring slot
+    ``sl`` and label ``le``; with no such slot its ``w_key`` goes to
+    ``pool_lost``. Both insert routes walk their pool items by this rule."""
+    pk = pool_key[sidx[:, None], ps]  # [S, probes, 2]
+    pmatch = (pk[..., 0] == pid_s[:, None]) & (pk[..., 1] == pid_d[:, None])
+    pok = pmatch | (pk[..., 0] == EMPTY)
+    pany = pok.any(1)
+    pfound = pany & eligible & (w_key > 0)
+    pslot = torch.gather(ps, 1, _first(pok)[:, None])[:, 0]
+    pold = pool_key[sidx, pslot]  # [S, 2]
+    pool_key[sidx, pslot, 0] = torch.where(pfound, pid_s, pold[:, 0])
+    pool_key[sidx, pslot, 1] = torch.where(pfound, pid_d, pold[:, 1])
+    pw = torch.where(pfound, w_count, 0)
+    pool_C[sidx, pslot, sl] += pw
+    pool_P[sidx, pslot, sl, le] += pw
+    pool_lost += torch.where(eligible & ~pany, w_key, 0)
+
+
+def pool_pass_plain(pid_src, pid_dst, w_count, w_key, sl, le, eligible,
+                    pool_key, pool_C, pool_P, pool_lost, *, probes: int,
+                    seed: int) -> None:
+    """The pool pass as a host loop: a stable sort puts each shard's
+    eligible items first, in stream order; step ``t`` takes the ``t``-th
+    of every shard, and a step past a shard's last one is a no-op."""
+    eligible = eligible.bool()
+    n = int(eligible.sum(1).max()) if eligible.numel() else 0
+    if n == 0:
+        return
+    S = eligible.shape[0]
+    ps = hsh.pool_slot_seq(pid_src, pid_dst, pool_key.shape[1], probes,
+                           seed).long()
+    order = torch.argsort((~eligible).to(torch.uint8), dim=1, stable=True)
+    sidx = torch.arange(S, device=eligible.device)
+    for t in range(n):
+        i = order[:, t]
+        _pool_step(pool_key, pool_C, pool_P, pool_lost, sidx, ps[sidx, i],
+                   pid_src[sidx, i], pid_dst[sidx, i], w_count[sidx, i],
+                   w_key[sidx, i], sl[sidx, i].long(), le[sidx, i].long(),
+                   eligible[sidx, i])
+
+
+def pool_pass_kernel_sharded(pid_src, pid_dst, w_count, w_key, sl, le,
+                             eligible, pool_key, pool_C, pool_P, pool_lost,
+                             *, probes: int, seed: int) -> None:
+    if pool_key.device.type == "cpu":
+        return pool_pass_plain(pid_src, pid_dst, w_count, w_key, sl, le,
+                               eligible, pool_key, pool_C, pool_P, pool_lost,
+                               probes=probes, seed=seed)
+    items = (pid_src, pid_dst, w_count, w_key, sl, le, eligible)
+    build.check_cuda(*items, pool_key, pool_C, pool_P, pool_lost)
+    S, B = pid_src.shape
+    Q, k, c = pool_key.shape[1], pool_C.shape[-1], pool_P.shape[-1]
+    if any(tuple(x.shape) != (S, B) for x in items) or \
+            tuple(pool_key.shape) != (S, Q, 2) or \
+            tuple(pool_lost.shape) != (S,):
+        raise ValueError("pool pass: bad shapes")
+    rec = torch.empty((S, B, 7), dtype=torch.int32, device=pool_key.device)
+    seed32 = ((seed & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000  # as C's int
+    build.call("lsk_pool_pass", *items, pool_key, pool_C, pool_P, pool_lost,
+               rec, S, B, probes, Q, k, c, seed32)
+    pool_pass_kernel_sharded.launches += 1
+
+
+pool_pass_kernel_sharded.launches = 0

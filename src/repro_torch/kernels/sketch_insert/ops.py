@@ -4,8 +4,9 @@
 
 Pipeline for a shard-stacked, single-subwindow flush, all on the state's
 device and in place: stable binning of every shard's edges by their
-(row-block, col-block) tile; one launch of the insert kernel over every
-(shard, bin); a stream-order pool pass over the edges the matrix rejected.
+(row-block, col-block) tile; one call of the insert kernel over every
+(shard, bin); one call of the pool-pass kernel over the edges the matrix
+rejected, in stream order.
 """
 
 from __future__ import annotations
@@ -13,64 +14,25 @@ from __future__ import annotations
 import torch
 from torch.profiler import record_function
 
-from repro_torch.core import hashing as hsh
 from repro_torch.core.lsketch import EdgeProbes
-from repro_torch.core.types import EMPTY, LSketchConfig, LSketchState
+from repro_torch.core.types import LSketchConfig, LSketchState
 
-from .kernel import sketch_insert_kernel_sharded
-
-
-def _first(ok: torch.Tensor) -> torch.Tensor:
-    return torch.argmax(ok.to(torch.uint8), dim=-1)
-
-
-def _pool_step(state: LSketchState, sidx, ps, pid_s, pid_d, w_count, w_key,
-               sl, le, eligible) -> None:
-    """One stream-order item of the additional pool, every shard at once
-    and in place (``ps`` [S, probes], the rest [S]): an ``eligible`` item
-    with ``w_key`` > 0 claims the first of its pool slots that holds its
-    key or is EMPTY and adds ``w_count`` there at ring slot ``sl`` and
-    label ``le``; with no such slot its ``w_key`` goes to ``pool_lost``.
-    Both insert routes walk their pool items through this one step."""
-    pk = state.pool_key[sidx[:, None], ps]  # [S, probes, 2]
-    pmatch = (pk[..., 0] == pid_s[:, None]) & (pk[..., 1] == pid_d[:, None])
-    pok = pmatch | (pk[..., 0] == EMPTY)
-    pany = pok.any(1)
-    pfound = pany & eligible & (w_key > 0)
-    pslot = torch.gather(ps, 1, _first(pok)[:, None])[:, 0]
-    pold = state.pool_key[sidx, pslot]  # [S, 2]
-    state.pool_key[sidx, pslot, 0] = torch.where(pfound, pid_s, pold[:, 0])
-    state.pool_key[sidx, pslot, 1] = torch.where(pfound, pid_d, pold[:, 1])
-    pw = torch.where(pfound, w_count, 0)
-    state.pool_C[sidx, pslot, sl] += pw
-    state.pool_P[sidx, pslot, sl, le] += pw
-    state.pool_lost += torch.where(eligible & ~pany, w_key, 0)
+from .kernel import pool_pass_kernel_sharded, sketch_insert_kernel_sharded
 
 
 def _pool_pass(cfg: LSketchConfig, state: LSketchState, slot,
                probes: EdgeProbes, le_idx, weight, failed) -> LSketchState:
     """Additional-pool insertion for the edges the matrix rejected, in
     stream order, every shard at once (``state`` stacked; ``slot`` [S];
-    the rest [S, B]). A stable sort puts each shard's failed edges first;
-    step ``t`` handles the ``t``-th failed edge of every shard, and a step
-    past a shard's last one is a no-op (it is not eligible)."""
-    S = failed.shape[0]
-    n_failed = int(failed.sum(1).max()) if failed.numel() else 0
-    if n_failed == 0:
-        return state
-    dev = failed.device
-    order = torch.argsort((~failed).to(torch.uint8), dim=1, stable=True)
-    pool_slots = hsh.pool_slot_seq(probes.pid_src, probes.pid_dst,
-                                   cfg.pool_capacity, cfg.pool_probes,
-                                   cfg.seed).long()  # [S, B, probes]
-    sidx = torch.arange(S, device=dev)
-    sl = slot.long()
-    for t in range(n_failed):
-        i = order[:, t]
-        w = weight[sidx, i]
-        _pool_step(state, sidx, pool_slots[sidx, i], probes.pid_src[sidx, i],
-                   probes.pid_dst[sidx, i], w, w, sl, le_idx[sidx, i].long(),
-                   failed[sidx, i])
+    the rest [S, B]), through the pool-pass kernel: no host loop and no
+    host read."""
+    S, B = failed.shape
+    i32 = lambda x: x.to(torch.int32).contiguous()  # noqa: E731
+    pool_pass_kernel_sharded(
+        i32(probes.pid_src), i32(probes.pid_dst), i32(weight), i32(weight),
+        i32(slot[:, None].expand(S, B)), i32(le_idx), i32(failed),
+        state.pool_key, state.pool_C, state.pool_P, state.pool_lost,
+        probes=cfg.pool_probes, seed=cfg.seed)
     return state
 
 

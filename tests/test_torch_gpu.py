@@ -22,7 +22,8 @@ from repro_torch.kernels.flash_attention.kernel import (
 from repro_torch.kernels.heavy_hitters.kernel import (
     cell_decode_kernel_sharded, cell_decode_plain)
 from repro_torch.kernels.sketch_insert.kernel import (
-    sketch_insert_kernel_sharded, sketch_insert_plain)
+    pool_pass_kernel_sharded, pool_pass_plain, sketch_insert_kernel_sharded,
+    sketch_insert_plain)
 from repro_torch.kernels.sketch_insert.ops import _bin_plan
 from repro_torch.kernels.sketch_query.kernel import (
     sketch_query_kernel_sharded, sketch_query_plain)
@@ -60,13 +61,9 @@ def _planes(seed=7, S=2):
     return skt.query_planes(spec, st), rng
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("cfg", [CFG, WIDE], ids=["s4", "s20"])
-def test_cuda_insert_kernel_matches_plain(cfg):
-    _need_card()
-    rng = np.random.default_rng(3)
-    S, B = 3, 512
-    src, dst = rng.integers(0, 80, (S, B)), rng.integers(0, 80, (S, B))
+def _insert_args(cfg, rng, S, B, nv=80):
+    """One flush's insert-kernel inputs (CPU), binned as the engine bins."""
+    src, dst = rng.integers(0, nv, (S, B)), rng.integers(0, nv, (S, B))
     tp = edge_probes(cfg, precompute(cfg, _t(src), _t(src % 3)),
                      precompute(cfg, _t(dst), _t(dst % 3)))
     w = _t(rng.integers(0, 3, (S, B)))
@@ -74,20 +71,94 @@ def test_cuda_insert_kernel_matches_plain(cfg):
                               cfg.seed)
     slot = _t(rng.integers(0, cfg.k, S))
     _, _, order, counts, offs = _bin_plan(cfg, tp, w)
-    args = (tp.rows.contiguous(), tp.cols.contiguous(), tp.keys.contiguous(),
+    return (tp.rows.contiguous(), tp.cols.contiguous(), tp.keys.contiguous(),
             w, le, slot, order, offs, counts)
+
+
+def _insert_both(args, ref, st, max_bin):
+    """The plain version on ``ref`` (CPU) and the kernel on ``st`` (card),
+    compared exactly."""
+    ins_ref = sketch_insert_plain(*args, ref.key, ref.C, ref.P, max_bin)
+    before = sketch_insert_kernel_sharded.launches
+    ins = sketch_insert_kernel_sharded(*[a.cuda() for a in args], st.key,
+                                       st.C, st.P, max_bin)
+    torch.cuda.synchronize()
+    assert sketch_insert_kernel_sharded.launches == before + 1
+    assert torch.equal(ins.cpu(), ins_ref)
+    for a, b in zip((ref.key, ref.C, ref.P), (st.key, st.C, st.P)):
+        assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", [CFG, WIDE], ids=["s4", "s20"])
+def test_cuda_insert_kernel_matches_plain(cfg):
+    """Fresh states, then several flushes into one state (the walk's
+    pre-flush gather matters only on a loaded state), with and without
+    max_bin truncation."""
+    _need_card()
+    rng = np.random.default_rng(3)
+    S, B = 3, 512
+    args = _insert_args(cfg, rng, S, B)
     for max_bin in (B, 5):
-        ref = init_leaves(cfg, (S,), "cpu")
-        ins_ref = sketch_insert_plain(*args, ref.key, ref.C, ref.P, max_bin)
-        st = init_leaves(cfg, (S,), "cuda")
-        before = sketch_insert_kernel_sharded.launches
-        ins = sketch_insert_kernel_sharded(*[a.cuda() for a in args],
-                                           st.key, st.C, st.P, max_bin)
-        torch.cuda.synchronize()
-        assert sketch_insert_kernel_sharded.launches == before + 1
-        assert torch.equal(ins.cpu(), ins_ref)
-        for a, b in zip((ref.key, ref.C, ref.P), (st.key, st.C, st.P)):
-            assert torch.equal(a, b.cpu())
+        _insert_both(args, init_leaves(cfg, (S,), "cpu"),
+                     init_leaves(cfg, (S,), "cuda"), max_bin)
+    for max_bin in (B, 7):
+        ref, st = init_leaves(cfg, (S,), "cpu"), init_leaves(cfg, (S,),
+                                                             "cuda")
+        for nv in (80, 300, 80, 20, 300):
+            _insert_both(_insert_args(cfg, rng, S, B, nv), ref, st, max_bin)
+        assert int((ref.key != -1).sum()) > 0
+
+
+def _pool_case(rng, S, B, Q, probes, nv, rates, k=4, c=3):
+    """Pool-pass inputs [S, B] (separate w_count and w_key, zero weights,
+    per-item ring slots) and a pre-loaded pool, all on the CPU; the pool
+    probe sequences of probes slots from seed 1234."""
+    pid_s, pid_d = (_t(rng.integers(0, nv, (S, B))) for _ in range(2))
+    w_count = _t(rng.integers(0, 4, (S, B)))
+    w_key = torch.where(_t(rng.random((S, B)) < 0.2) > 0, 0, w_count)
+    elig = _t(rng.random((S, B)) < np.asarray(rates)[:, None])
+    sl, le = _t(rng.integers(0, k, (S, B))), _t(rng.integers(0, c, (S, B)))
+    pool_key = _t(rng.integers(0, nv, (S, Q, 2)))
+    pool_key[_t(rng.random((S, Q)) < 0.6) > 0] = -1
+    pool = [pool_key, _t(rng.integers(0, 5, (S, Q, k))),
+            _t(rng.integers(0, 5, (S, Q, k, c))), _t(rng.integers(0, 3, S))]
+    return (pid_s, pid_d, w_count, w_key, sl, le, elig), pool
+
+
+# (S, B, Q, probes, pid values, eligible share per shard): uneven shards
+# (one with nothing eligible), repeated pairs, a saturated pool, more
+# probes than lanes, and a pool plane too large for shared memory
+POOL_GPU_CASES = {
+    "uneven": (3, 700, 64, 4, 40, (0.5, 0.05, 0.0)),
+    "repeated-pairs": (2, 500, 32, 4, 5, (0.7, 0.4)),
+    "saturated": (2, 400, 8, 2, 60, (0.8, 0.6)),
+    "probes-40": (2, 300, 128, 40, 200, (0.9, 0.5)),
+    "deployment-width": (4, 3000, 16384, 16, 5000, (0.1, 0.2, 0.0, 0.3)),
+    "plane-in-global": (2, 3000, 65536, 16, 5000, (0.3, 0.1)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(POOL_GPU_CASES))
+def test_cuda_pool_pass_matches_plain(case):
+    _need_card()
+    S, B, Q, probes, nv, rates = POOL_GPU_CASES[case]
+    rng = np.random.default_rng(len(case))
+    items, pool = _pool_case(rng, S, B, Q, probes, nv, rates)
+    want = [x.clone() for x in pool]
+    kw = dict(probes=probes, seed=1234)
+    pool_pass_plain(*items, *want, **kw)
+    got = [x.cuda() for x in pool]
+    before = pool_pass_kernel_sharded.launches
+    pool_pass_kernel_sharded(*[x.cuda() for x in items], *got, **kw)
+    torch.cuda.synchronize()
+    assert pool_pass_kernel_sharded.launches == before + 1
+    for a, b in zip(want, got):
+        assert torch.equal(a, b.cpu())
+    assert not torch.equal(want[0], pool[0])
+    if case == "saturated":
+        assert bool((want[3] > pool[3]).any())
 
 
 @pytest.mark.gpu

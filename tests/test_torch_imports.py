@@ -159,16 +159,21 @@ def test_chip_smoke_rehearses_on_the_cpu(monkeypatch, capsys):
     dev, tag = torch.device("cpu"), "[cpu]"
     spec, stream, flushes, span_i = chip_smoke.deployment()
     results = {"sketch_insert_kernel_sharded": chip_smoke.check_insert_kernel(
-        cfg, spec, stream.slice(*flushes[0]), dev, tag)}
+        cfg, spec, [stream.slice(*f) for f in flushes[:2]], dev, tag)}
+    assert "loaded state" in capsys.readouterr().out
     qi = chip_smoke.query_inputs(cfg, stream)
+    capture = chip_smoke.PoolCapture()
 
     def main_path():  # CPU tensors launch nothing: no kernel is required
-        state, _ = chip_smoke.ingest_stream(cfg, spec, stream, flushes,
-                                            span_i, dev, tag)
+        state, _, _ = chip_smoke.ingest_stream(cfg, spec, stream, flushes,
+                                               span_i, dev, tag, capture)
         return state, chip_smoke.run_queries(spec, state, qi, tag)
 
     (state, answers), launches = chip_smoke.count_launches((), main_path)
     assert set(launches) == set(chip_smoke.WRAPPERS)
+    assert capsys.readouterr().out.count("CPU clone of shard 0") == 3
+    results.update(chip_smoke.check_pool_kernel(capture, tag))  # phase 3b
+    assert int(capture.items[6].sum()) > 0  # the flush had rejects
     chip_smoke.check_scan_path(spec, state, qi, answers)
     results.update(chip_smoke.check_query_kernels(cfg, spec, state, qi, dev,
                                                   tag))
@@ -177,7 +182,8 @@ def test_chip_smoke_rehearses_on_the_cpu(monkeypatch, capsys):
         cfg, spec, state, qi, answers, tag))
     results.update(chip_smoke.check_analytics(cfg, spec, state, got, tag))
     assert "reachable" in capsys.readouterr().out
-    chip_smoke.profile_ingest(spec, state, stream, flushes, tag)
+    profile = chip_smoke.profile_ingest(spec, state, stream, flushes, tag)
+    assert profile["profile_launches"] == 0  # the CPU launches nothing
 
     # L1-L3 at the reduced Qwen3 config: the kernel's plain version on the
     # CPU, so the card-only launch and TF32 checks are not run
@@ -206,7 +212,7 @@ def test_chip_smoke_rehearses_on_the_cpu(monkeypatch, capsys):
     kernels = chip_smoke.kernel_entries(
         results, {n: 0 for n in chip_smoke.WRAPPERS})
     json.dumps({"kernels": kernels, **lm_out})
-    assert [k["mismatches"] for k in kernels] == [0, 0, 0, 0, 0]
+    assert [k["mismatches"] for k in kernels] == [0] * 6
     assert {k["name"] for k in kernels} == set(chip_smoke.WRAPPERS)
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
@@ -225,11 +231,15 @@ def test_chip_smoke_rehearses_on_the_cpu(monkeypatch, capsys):
                                  else "bytes")
     # no bound may count more than its inputs and outputs hold: key, cw
     # and pw planes read once (the insert: key, C and P at one slot read
-    # and written once) plus the per-item inputs and outputs
+    # and written once; the pool pass: its pool leaves) plus the per-item
+    # inputs and outputs
     S, d = spec.n_shards, cfg.d
     plane = S * 2 * d * d * 4 * (2 + cfg.c)
+    pool_leaves = S * 4 * (cfg.pool_capacity * (2 + cfg.k + cfg.k * cfg.c)
+                           + 1)
     most = {"sketch_insert_kernel_sharded": 2 * plane +
             8000 * ((3 * cfg.s + 4) * 4 + 1),
+            "pool_pass_kernel_sharded": pool_leaves + 8000 * 7 * 4,
             "sketch_query_kernel_sharded": plane +
             96 * ((3 * cfg.s + 1) * 4 + 3 * S * 4),
             "vertex_scan_kernel_sharded": plane +

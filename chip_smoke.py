@@ -117,13 +117,15 @@ from repro_torch.kernels.heavy_hitters.ops import _static_blocks  # noqa: E402
 from repro_torch.kernels.sketch_insert import \
     ops as insert_ops  # noqa: E402
 from repro_torch.kernels.sketch_insert.kernel import (  # noqa: E402
-    pool_pass_kernel_sharded, pool_pass_plain, sketch_insert_kernel_sharded,
-    sketch_insert_plain)
+    pool_pass_kernel_sharded, pool_pass_plain, pool_stats_buffer,
+    pool_stats_split, sketch_insert_kernel_sharded, sketch_insert_plain)
 from repro_torch.kernels.sketch_insert.ops import _bin_plan  # noqa: E402
 from repro_torch.kernels.sketch_query.kernel import (  # noqa: E402
     sketch_query_kernel_sharded, sketch_query_plain)
 from repro_torch.kernels.vertex_scan.kernel import (  # noqa: E402
     vertex_scan_kernel_sharded, vertex_scan_plain)
+from repro_torch.kernels.vertex_scan.ops import (pool_lookup,  # noqa: E402
+                                                 scan_lines)
 from repro_torch.launch.serve import DecodeServer, Request  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
@@ -504,6 +506,32 @@ def pool_nbytes(items, before, after, probes, seed) -> tuple:
     return nbytes + S * 8, n_items
 
 
+def pool_split(items, leaves, kw, ms, tag) -> dict:
+    """Phase 3b's split: one launch on a fresh copy with the kernel's stats
+    buffer (per shard: rounds, rounds voided by a lane carrying its slot's
+    first claimer's pair and by another lane, ns per stage), and the
+    device time of POOL_REPS launches from a profiler trace beside the
+    event window ``ms`` (which holds the wrapper's host time too)."""
+    stats = pool_stats_buffer(items[0].shape[0], items[0].device)
+    fresh = [x.clone() for x in leaves]
+    pool_pass_kernel_sharded(*items, *fresh, **kw, stats=stats)
+    _sync()
+    split = pool_stats_split(stats.cpu())
+    del fresh
+    copies = iter([[x.clone() for x in leaves]
+                   for _ in range(POOL_REPS + 1)])  # one warms up
+    kernels = device_ms(lambda: pool_pass_kernel_sharded(
+        *items, *next(copies), **kw), POOL_REPS)
+    del copies
+    device = kernels.pop("total")
+    _log(f"phase 3b pool split (stats buffer, one launch): "
+         f"{json.dumps(split)}; device ms a launch by kernel (profiler, "
+         f"{POOL_REPS} launches) {json.dumps(kernels)} = {device:.4f} "
+         f"ms against the event window's {ms:.4f} ms (host share "
+         f"{1 - device / ms if ms else 0.0:.4f}) {tag}")
+    return dict(split, device_ms=device, device_ms_by_kernel=kernels)
+
+
 def check_pool_kernel(capture, tag) -> dict:
     """Phase 3b: the pool kernel against its plain version on the rejects
     of the main path's last kernel-route flush, each run on a fresh copy
@@ -541,9 +569,10 @@ def check_pool_kernel(capture, tag) -> dict:
     if mism:
         raise AssertionError("the pool kernel disagrees with its plain "
                              "version")
+    split = pool_split(items, leaves, kw, ms, tag)
     return {"pool_pass_kernel_sharded": dict(
         mismatches=mism, max_abs_err=err, ms=ms, ms_runs=runs,
-        plain_ms=plain_ms, nbytes=nbytes,
+        plain_ms=plain_ms, nbytes=nbytes, split=split,
         shape=f"S={S} B={B} probes={probes} eligible={n_items} "
               f"pool_leaf_bytes={leaf_bytes}")}
 
@@ -726,6 +755,57 @@ def scan_nbytes(cfg, lines, f, le, key_plane, direction) -> int:
         2 * S * nq * 4
 
 
+def device_ms(fn, reps: int) -> dict:
+    """Device milliseconds a call of ``fn`` by kernel (and memset), from a
+    profiler trace of ``reps`` calls, with their total."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    _sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        _sync()
+    out = {e.key[:40]: e.self_device_time_total / 1e3 / reps
+           for e in prof.key_averages()
+           if e.device_type.name == "CUDA" and e.self_device_time_total > 0
+           and not getattr(e, "is_user_annotation", False)}
+    out["total"] = sum(out.values())
+    return out
+
+
+def vertex_query_split(cfg, planes, qi, dev, direction, tag, reps=5):
+    """Phase 6: one 1,024-query vertex batch of
+    ``vertex_scan/ops.py::vertex_query_planes`` (with the edge label) in
+    its three stages, by CUDA events: addressing and lines, the scan
+    kernel, the dense [S, B, Q] pool lookup; medians of ``reps``."""
+    v, lv, le = (torch.from_numpy(qi[k]).to(dev) for k in ("v", "lv", "le"))
+    spans = []
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        _sync()
+        ev[0].record()
+        pre, lines = scan_lines(cfg, v, lv)
+        le_idx = hsh.edge_label_bucket(le, cfg.c, cfg.seed)
+        ev[1].record()
+        vertex_scan_kernel_sharded(lines, pre.f.contiguous(), le_idx,
+                                   planes.key, planes.cw, planes.pw, r=cfg.r,
+                                   F=cfg.F, direction=direction)
+        ev[2].record()
+        pool_lookup(planes, pre.vid, le_idx, direction)
+        ev[3].record()
+        _sync()
+        spans.append([a.elapsed_time(b) for a, b in zip(ev, ev[1:])])
+    addr, scan, pool = (float(np.median(x)) for x in zip(*spans))
+    Q = planes.pool_key.shape[1]
+    _log(f"phase 6 vertex-{direction} query split (one batch of "
+         f"{len(v)}, with the edge label, CUDA events, median of {reps}): "
+         f"addressing and lines {addr:.4f} ms, scan kernel {scan:.4f} ms, "
+         f"pool lookup [S, B, Q={Q}] {pool:.4f} ms; "
+         f"{1e3 * (addr + scan + pool) / len(v):.3f} us a query {tag}")
+
+
 def check_query_kernels(cfg, spec, state, qi, dev, tag) -> dict:
     """Phase 6: the edge-probe and vertex-scan kernels against their plain
     versions on the main path's planes and 1,024-query inputs."""
@@ -772,11 +852,14 @@ def check_query_kernels(cfg, spec, state, qi, dev, tag) -> dict:
         mismatches=mism, max_abs_err=err, ms=ms, plain_ms=plain_ms,
         nbytes=nbytes, shape=f"S={S} nq={N_QUERIES} hit_cells={n_hit}")}
 
-    pre = precompute(cfg, t(qi["v"]), t(qi["lv"]))
-    lines = (pre.start[:, None] + torch.remainder(
-        pre.s[:, None] + pre.offs, pre.width[:, None])).to(torch.int32)
-    v_args = (lines.contiguous(), pre.f.contiguous(), le, planes.key,
-              planes.cw, planes.pw)
+    pre, lines = scan_lines(cfg, t(qi["v"]), t(qi["lv"]))
+    v_args = (lines, pre.f.contiguous(), le, planes.key, planes.cw,
+              planes.pw)
+    _, per_line = torch.unique(lines, return_counts=True)
+    _, per_tile = torch.unique(torch.div(lines, 32, rounding_mode="floor"),
+                               return_counts=True)
+    groups = {"out": (len(per_line), int(per_line.max())),
+              "in": (len(per_tile), int(per_tile.max()))}
     res = {}
     for direction in ("out", "in"):
         kw = dict(r=cfg.r, F=cfg.F, direction=direction)
@@ -786,16 +869,31 @@ def check_query_kernels(cfg, spec, state, qi, dev, tag) -> dict:
         v_mism, v_err = diff(zip(got, want))
         v_ms = event_ms(lambda: vertex_scan_kernel_sharded(*v_args, **kw),
                         20)
+        v_dev = device_ms(lambda: vertex_scan_kernel_sharded(*v_args, **kw),
+                          20)
         v_plain = event_ms(lambda: vertex_scan_plain(*v_args, **kw), 3)
         v_bytes = scan_nbytes(cfg, lines, pre.f, le, planes.key, direction)
-        res[direction] = (v_mism, v_err, v_ms, v_plain, v_bytes)
+        res[direction] = (v_mism, v_err, v_ms, v_plain, v_bytes, v_dev)
+        n_groups, most = groups[direction]
         _log(f"phase 6 vertex_scan[{direction}] kernel vs plain: mismatches="
-             f"{v_mism}; kernel {v_ms:.4f} ms, plain {v_plain:.3f} ms {tag}")
+             f"{v_mism}; {N_QUERIES * cfg.r} references on "
+             f"{len(per_line)} distinct lines ({n_groups} "
+             f"{'lines' if direction == 'out' else '32-column tiles'} "
+             f"referenced, at most {most} references on one); kernel "
+             f"{v_ms:.4f} ms (CUDA events, 20 launches), device "
+             f"{v_dev['total']:.4f} ms a launch (profiler: "
+             f"{json.dumps(v_dev)}), byte bound "
+             f"{1e3 * v_bytes / HBM_BYTES_PER_S:.4f} ms, plain "
+             f"{v_plain:.3f} ms {tag}")
+        vertex_query_split(cfg, planes, qi, dev, direction, tag)
     vo, vn = res["out"], res["in"]
     out["vertex_scan_kernel_sharded"] = dict(
         mismatches=vo[0] + vn[0], max_abs_err=max(vo[1], vn[1]), ms=vo[2],
         plain_ms=vo[3], nbytes=vo[4], direction="out", ms_in=vn[2],
         plain_ms_in=vn[3], bound_ms_in=1e3 * vn[4] / HBM_BYTES_PER_S,
+        device_ms=vo[5]["total"], device_ms_in=vn[5]["total"],
+        distinct_lines=len(per_line), most_refs_on_a_line=groups["out"][1],
+        tiles=groups["in"][0], most_refs_in_a_tile=groups["in"][1],
         shape=f"S={S} nq={N_QUERIES}")
     if any(v["mismatches"] for v in out.values()):
         raise AssertionError("a query kernel disagrees with its plain "

@@ -28,9 +28,9 @@ _I = ctypes.c_int
 # C signatures: every pointer and the stream as c_void_p, every size as int
 SIGNATURES = {
     "lsk_sketch_insert": [_P] * 18 + [_I] * 9 + [_P],
-    "lsk_pool_pass": [_P] * 12 + [_I] * 7 + [_P],
+    "lsk_pool_pass": [_P] * 13 + [_I] * 7 + [_P],
     "lsk_sketch_query": [_P] * 10 + [_I] * 5 + [_P],
-    "lsk_vertex_scan": [_P] * 8 + [_I] * 7 + [_P],
+    "lsk_vertex_scan": [_P] * 9 + [_I] * 7 + [_P],
     "lsk_cell_decode": [_P] * 5 + [_I] * 5 + [_P],
     "lsk_flash_attention": [_P] * 4 + [_I] * 8 + [_P],
 }

@@ -11,8 +11,9 @@ walks edge ``t`` of every bin at once.
 
 ``pool_pass_kernel_sharded`` replaces the XLA ``while_loop`` of
 ``repro/kernels/sketch_insert/ops.py::_pool_pass`` (source:
-``csrc/pool_pass.cu``, one block per shard); ``pool_pass_plain`` is a loop
-over ``_pool_step``. Each wrapper takes its plain version only for CPU
+``csrc/pool_pass.cu``: a compaction across the card, then one walk block
+per shard in speculative rounds); ``pool_pass_plain`` is a loop over
+``_pool_step``. Each wrapper takes its plain version only for CPU
 tensors; for CUDA tensors it launches the kernel or raises.
 
 Contract (both versions, in place on ``key``/``C``/``P``):
@@ -172,9 +173,41 @@ def pool_pass_plain(pid_src, pid_dst, w_count, w_key, sl, le, eligible,
                    eligible[sidx, i])
 
 
+# the columns of the pool kernel's optional stats buffer [S, 11] int64
+# (csrc/pool_pass.cu): counts, then globaltimer ns stamps
+POOL_STATS = ("rounds", "voided_same_pair", "voided_other", "items",
+              "merged_same_pair", "t_compact0", "t_compact1", "t_walk0",
+              "t_staged", "t_walked", "t_written")
+
+
+def pool_stats_buffer(S: int, device) -> torch.Tensor:
+    """A fresh stats buffer for one pool-kernel launch: zeros, and the
+    compaction's start (a minimum over its blocks) at 2^62."""
+    st = torch.zeros((S, len(POOL_STATS)), dtype=torch.int64, device=device)
+    st[:, POOL_STATS.index("t_compact0")] = 1 << 62
+    return st
+
+
+def pool_stats_split(stats: torch.Tensor) -> dict:
+    """Per-shard lists of the counts and of each stage's ns: compaction,
+    the gap to the walk's start, the plane's staging, the walk and the
+    write-back."""
+    col = {n: stats[:, i].tolist() for i, n in enumerate(POOL_STATS)}
+    span = lambda a, b: [y - x for x, y in zip(col[a], col[b])]  # noqa
+    out = {n: col[n] for n in POOL_STATS[:5]}
+    out.update(compaction_ns=span("t_compact0", "t_compact1"),
+               gap_ns=span("t_compact1", "t_walk0"),
+               stage_ns=span("t_walk0", "t_staged"),
+               walk_ns=span("t_staged", "t_walked"),
+               writeback_ns=span("t_walked", "t_written"))
+    return out
+
+
 def pool_pass_kernel_sharded(pid_src, pid_dst, w_count, w_key, sl, le,
                              eligible, pool_key, pool_C, pool_P, pool_lost,
-                             *, probes: int, seed: int) -> None:
+                             *, probes: int, seed: int, stats=None) -> None:
+    """``stats``: None, or a ``pool_stats_buffer`` on the card that the
+    kernel fills (measurement only; the CPU path leaves it as it is)."""
     if pool_key.device.type == "cpu":
         return pool_pass_plain(pid_src, pid_dst, w_count, w_key, sl, le,
                                eligible, pool_key, pool_C, pool_P, pool_lost,
@@ -187,10 +220,16 @@ def pool_pass_kernel_sharded(pid_src, pid_dst, w_count, w_key, sl, le,
             tuple(pool_key.shape) != (S, Q, 2) or \
             tuple(pool_lost.shape) != (S,):
         raise ValueError("pool pass: bad shapes")
-    rec = torch.empty((S, B, 7), dtype=torch.int32, device=pool_key.device)
+    if stats is not None and (stats.device != pool_key.device or
+                              stats.dtype != torch.int64 or
+                              tuple(stats.shape) != (S, len(POOL_STATS))):
+        raise ValueError("pool pass: bad stats buffer")
+    # each item's 8-int record, then each 1024-item chunk's count
+    scratch = torch.empty(S * B * 8 + S * -(-B // 1024), dtype=torch.int32,
+                          device=pool_key.device)
     seed32 = ((seed & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000  # as C's int
     build.call("lsk_pool_pass", *items, pool_key, pool_C, pool_P, pool_lost,
-               rec, S, B, probes, Q, k, c, seed32)
+               scratch, stats, S, B, probes, Q, k, c, seed32)
     pool_pass_kernel_sharded.launches += 1
 
 

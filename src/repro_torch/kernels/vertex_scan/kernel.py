@@ -3,9 +3,11 @@ and plain version.
 
 ``vertex_scan_kernel_sharded`` replaces the TPU kernel
 ``repro/kernels/vertex_scan/kernel.py::vertex_scan_kernel_sharded``
-(source: ``csrc/vertex_scan.cu``, one block per (query, shard); what
-bounds it is noted there). ``vertex_scan_plain`` is the vectorized
-PyTorch twin (counterpart of ``vertex_scan_xla``), with the ``in``
+(source: ``csrc/vertex_scan.cu``, line-major: a counting sort groups the
+nq x r references by line on the card, then one block per (line, shard)
+for ``out`` and per (tile of 32 columns, shard) for ``in`` reads each
+line once; what bounds it is noted there). ``vertex_scan_plain`` is the
+vectorized PyTorch twin (counterpart of ``vertex_scan_xla``), with the ``in``
 direction read natively by columns. The wrapper takes the plain version
 only for CPU tensors; for CUDA tensors it launches the kernel or raises.
 
@@ -64,9 +66,19 @@ def vertex_scan_kernel_sharded(lines, f, le, key_plane, cw, pw, *, r: int,
     build.check_cuda(lines, f, le, key_plane, cw, pw)
     S, _, d, _ = key_plane.shape
     nq = lines.shape[0]
+    if tuple(lines.shape) != (nq, r) or tuple(f.shape) != (nq,) or \
+            (le is not None and tuple(le.shape) != (nq,)) or \
+            tuple(key_plane.shape) != (S, 2, d, d) or \
+            cw.shape != key_plane.shape or pw.shape[:4] != key_plane.shape:
+        raise ValueError("vertex scan: bad shapes")
     out = torch.empty((2, S, nq), dtype=torch.int32, device=key_plane.device)
+    # the references in line order (4-int records), then the line counts,
+    # offsets and each reference's rank in its line
+    scratch = torch.empty(5 * nq * r + 2 * d + 1, dtype=torch.int32,
+                          device=key_plane.device)
     build.call("lsk_vertex_scan", lines, f, le, key_plane, cw, pw, out[0],
-               out[1], S, nq, r, d, pw.shape[-1], F, int(direction == "in"))
+               out[1], scratch, S, nq, r, d, pw.shape[-1], F,
+               int(direction == "in"))
     vertex_scan_kernel_sharded.launches += 1
     return out[0], out[1]
 

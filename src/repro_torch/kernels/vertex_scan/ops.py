@@ -23,26 +23,41 @@ def _sum32(x, dim):
     return x.sum(dim=dim, dtype=torch.int64).to(torch.int32)
 
 
+def scan_lines(cfg: LSketchConfig, vertex, lv):
+    """The queries' addressing and their r absolute candidate lines
+    ``[B, r]`` int32 (rows for ``out``, columns for ``in``)."""
+    pre = precompute(cfg, vertex, lv)
+    pos = torch.remainder(pre.s[:, None] + pre.offs, pre.width[:, None])
+    return pre, (pre.start[:, None] + pos).to(torch.int32).contiguous()
+
+
+def pool_lookup(planes: QueryPlanes, vid, le_idx, direction: str = "out"):
+    """The pool's share of a vertex aggregate: every shard's pool entries
+    whose endpoint id on the query's side is ``vid``, a dense ``[S, B, Q]``
+    match. Returns (w, w_label or None), each [S, B]."""
+    col = 0 if direction == "out" else 1
+    pm = planes.pool_key[:, :, col][:, None, :] == vid[None, :, None]
+    w = _sum32(torch.where(pm, planes.pool_cw[:, None, :], 0), -1)
+    if le_idx is None:
+        return w, None
+    lw = planes.pool_pw[:, :, le_idx.long()].permute(0, 2, 1)  # [S, B, Q]
+    return w, _sum32(torch.where(pm, lw, 0), -1)
+
+
 def vertex_query_planes(cfg: LSketchConfig, planes: QueryPlanes, vertex,
                         labels, direction: str = "out", with_le: bool = True):
     """vertex: int32 [B]; labels: (lv, le). Returns (w, w_label), each
     [S, B] per-shard partials."""
     lv, le = labels
-    pre = precompute(cfg, vertex, lv)
+    pre, lines = scan_lines(cfg, vertex, lv)
     le_idx = hsh.edge_label_bucket(le, cfg.c, cfg.seed) if with_le else None
-    pos = torch.remainder(pre.s[:, None] + pre.offs, pre.width[:, None])
-    lines = (pre.start[:, None] + pos).to(torch.int32).contiguous()
-    S = planes.cw.shape[0]
     w, wl = vertex_scan_kernel_sharded(
         lines, pre.f.contiguous(), le_idx, planes.key, planes.cw, planes.pw,
         r=cfg.r, F=cfg.F, direction=direction)
-
-    col = 0 if direction == "out" else 1
-    pm = planes.pool_key[:, :, col][:, None, :] == pre.vid[None, :, None]
-    w = w + _sum32(torch.where(pm, planes.pool_cw[:, None, :], 0), -1)
-    if le_idx is not None:
-        lw = planes.pool_pw[:, :, le_idx.long()].permute(0, 2, 1)  # [S, B, Q]
-        wl = wl + _sum32(torch.where(pm, lw, 0), -1)
+    pw, pwl = pool_lookup(planes, pre.vid, le_idx, direction)
+    w = w + pw
+    if pwl is not None:
+        wl = wl + pwl
     return w.to(torch.int32), wl.to(torch.int32)
 
 

@@ -22,13 +22,14 @@ from repro_torch.kernels.flash_attention.kernel import (
 from repro_torch.kernels.heavy_hitters.kernel import (
     cell_decode_kernel_sharded, cell_decode_plain)
 from repro_torch.kernels.sketch_insert.kernel import (
-    pool_pass_kernel_sharded, pool_pass_plain, sketch_insert_kernel_sharded,
-    sketch_insert_plain)
+    pool_pass_kernel_sharded, pool_pass_plain, pool_stats_buffer,
+    pool_stats_split, sketch_insert_kernel_sharded, sketch_insert_plain)
 from repro_torch.kernels.sketch_insert.ops import _bin_plan
 from repro_torch.kernels.sketch_query.kernel import (
     sketch_query_kernel_sharded, sketch_query_plain)
 from repro_torch.kernels.vertex_scan.kernel import (
     vertex_scan_kernel_sharded, vertex_scan_plain)
+from torch_walk_emulation import emulate_pool_rounds
 
 CFG = LSketchConfig(d=32, n_blocks=2, F=256, r=4, s=4, c=4, k=4,
                     window_size=100, pool_capacity=32, pool_probes=4)
@@ -159,6 +160,103 @@ def test_cuda_pool_pass_matches_plain(case):
     assert not torch.equal(want[0], pool[0])
     if case == "saturated":
         assert bool((want[3] > pool[3]).any())
+
+
+@pytest.mark.gpu
+def test_cuda_pool_pass_probe_cluster_counts_rounds():
+    """A nearly full shard (80 % of its slots taken and one run of 1,500
+    taken slots, so items walk long probe clusters, converge on the free
+    slot after one and some are lost) beside a sparse one, fed skewed
+    pairs that repeat: the kernel equals the plain pass, and its stats
+    buffer counts the rounds, the voided rounds and the same-pair lanes
+    that the emulated walk counts."""
+    _need_card()
+    S, B, Q, probes = 2, 4000, 4096, 16
+    rng = np.random.default_rng(21)
+    pool_key = np.full((S, Q, 2), -1, np.int64)
+    taken = rng.random((S, Q)) < np.array([0.3, 0.8])[:, None]
+    taken[1, 1000:2500] = True
+    pool_key[taken] = rng.integers(10 ** 5, 2 * 10 ** 5, (int(taken.sum()), 2))
+    pid_s = rng.zipf(1.3, (S, B)) % 150
+    pid_d = (pid_s * 7 + rng.integers(0, 3, (S, B))) % 500
+    w_count = rng.integers(0, 4, (S, B))
+    w_key = np.where(rng.random((S, B)) < 0.1, 0, w_count)
+    elig = (rng.random((S, B)) < 0.5).astype(np.int64)
+    sl, le = rng.integers(0, 4, (S, B)), rng.integers(0, 3, (S, B))
+    pool = [pool_key, rng.integers(0, 5, (S, Q, 4)),
+            rng.integers(0, 5, (S, Q, 4, 3)), rng.integers(0, 3, S)]
+    pool = [x.astype(np.int32) for x in pool]
+    items = [x.astype(np.int32) for x in (pid_s, pid_d, w_count, w_key, sl,
+                                           le, elig)]
+    kw = dict(probes=probes, seed=1234)
+    want = [_t(x) for x in pool]
+    pool_pass_plain(*map(_t, items), *want, **kw)
+    emu = [x.copy() for x in pool]
+    emu_stats = emulate_pool_rounds(*items, *emu, **kw)
+    for a, b in zip(emu, want):
+        np.testing.assert_array_equal(a, b.numpy())
+    got = [_t(x).cuda() for x in pool]
+    stats = pool_stats_buffer(S, "cuda")
+    pool_pass_kernel_sharded(*[_t(x).cuda() for x in items], *got, **kw,
+                             stats=stats)
+    torch.cuda.synchronize()
+    for a, b in zip(want, got):
+        assert torch.equal(a, b.cpu())
+    split = pool_stats_split(stats.cpu())
+    for name in ("rounds", "voided_same_pair", "voided_other",
+                 "merged_same_pair"):
+        assert split[name] == emu_stats[name], name
+    assert split["items"] == elig.sum(1).tolist()
+    assert split["merged_same_pair"][1] > 0
+    assert sum(split["voided_other"]) > 0
+    assert split["voided_same_pair"] == [0, 0]
+    assert bool((want[3] > _t(pool[3])).any())  # the full shard lost some
+    for name in ("compaction_ns", "stage_ns", "walk_ns", "writeback_ns"):
+        assert min(split[name]) >= 0, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["one-label-block", "hub-line",
+                                    "ragged-d"])
+@pytest.mark.parametrize("direction", ["out", "in"])
+def test_cuda_vertex_scan_at_deployment_width(direction, layout):
+    """d = 2048 (the deployment's width): every query's lines inside one
+    512-line label block, or besides that one line named by all 3,000
+    queries (more references than one shared-memory chunk, on one line
+    and in one column tile); and d = 1,000 with F = 48 (a last column
+    tile of 8 columns; F not a power of two). Packed keys with small
+    fingerprints, so queries match often; sums wrap."""
+    _need_card()
+    S, d, r, F, c = 2, 2048, 8, 64, 4
+    if layout == "ragged-d":
+        d, F = 1000, 48
+    g = torch.Generator(device="cuda").manual_seed(5)
+
+    def ri(hi, shape):
+        return torch.randint(0, hi, shape, generator=g, device="cuda",
+                             dtype=torch.int32)
+
+    shape = (S, 2, d, d)
+    key = th.pack_key(ri(r, shape), ri(r, shape), ri(F, shape),
+                      ri(F, shape), F).to(torch.int32)
+    key = torch.where(ri(4, shape) == 0, key, -1).contiguous()
+    cw, pw = ri(1 << 30, shape), ri(1 << 30, shape + (c,))
+    nq = 3000 if layout == "hub-line" else 1024
+    lines = (ri(d, (nq, r)) if layout == "ragged-d"
+             else 512 + ri(512, (nq, r))).contiguous()
+    if layout == "hub-line":
+        lines[:, 3] = 700
+    f, le = ri(F, (nq,)), ri(c, (nq,))
+    kw = dict(r=r, F=F, direction=direction)
+    for lab in (None, le):
+        want = vertex_scan_plain(lines, f, lab, key, cw, pw, **kw)
+        before = vertex_scan_kernel_sharded.launches
+        got = vertex_scan_kernel_sharded(lines, f, lab, key, cw, pw, **kw)
+        torch.cuda.synchronize()
+        assert vertex_scan_kernel_sharded.launches == before + 1
+        for a, b in zip(want, got):
+            assert torch.equal(a, b)
+        assert bool((want[0] != 0).any())
 
 
 @pytest.mark.gpu

@@ -41,6 +41,7 @@ from repro_torch.kernels.sketch_insert.kernel import (
     claim_table_log2, pool_pass_kernel_sharded, pool_pass_plain,
     sketch_insert_plain)
 from repro_torch.kernels.sketch_insert.ops import _bin_plan
+from torch_walk_emulation import compact, emulate_pool_rounds
 
 
 def _t(x):
@@ -335,60 +336,12 @@ def test_pool_wrapper_takes_the_plain_version_on_cpu():
         assert torch.equal(a, c)
 
 
-def emulate_pool_rounds(pid_s, pid_d, w_count, w_key, sl, le, elig,
-                        pool_key, pool_C, pool_P, lost, *, probes, seed):
-    """The pool kernel's walk (numpy, in place on the pool leaves): each
-    shard's eligible items in stream order, 32 a chunk, in speculative
-    rounds that decide from the pool at the round's start and commit up
-    to the first item whose claimed slot an earlier item of the round
-    claims. Returns the number of rounds."""
-    ps = th.pool_slot_seq(_t(pid_s), _t(pid_d), pool_key.shape[1], probes,
-                          seed).numpy()
-    rounds = 0
-    for sh in range(pid_s.shape[0]):
-        items = np.flatnonzero(elig[sh])
-        pk = pool_key[sh]
-        for c0 in range(0, len(items), 32):
-            chunk = items[c0:c0 + 32]
-            start = 0
-            while start < len(chunk):
-                dec = {}
-                for j in range(start, len(chunk)):
-                    i = chunk[j]
-                    for q in ps[sh, i]:
-                        if pk[q, 0] == EMPTY:
-                            dec[j] = (q, w_key[sh, i] > 0)
-                            break
-                        if pk[q, 0] == pid_s[sh, i] and \
-                                pk[q, 1] == pid_d[sh, i]:
-                            dec[j] = (q, False)
-                            break
-                end, seen = len(chunk), set()
-                for j in range(start, len(chunk)):
-                    if j in dec and dec[j][1]:
-                        if dec[j][0] in seen:
-                            end = j
-                            break
-                        seen.add(dec[j][0])
-                for j in range(start, end):
-                    i = chunk[j]
-                    if j not in dec:
-                        lost[sh] += w_key[sh, i]
-                    elif w_key[sh, i] > 0:
-                        q, claim = dec[j]
-                        if claim:
-                            pk[q] = (pid_s[sh, i], pid_d[sh, i])
-                        pool_C[sh, q, sl[sh, i]] += w_count[sh, i]
-                        pool_P[sh, q, sl[sh, i], le[sh, i]] += w_count[sh, i]
-                rounds += 1
-                start = end
-    return rounds
-
-
 @pytest.mark.parametrize("case", list(POOL_CASES))
 def test_pool_round_emulation_matches_plain(case):
     """The pool kernel's speculative rounds (separate w_count and w_key,
-    per-item ring slots) against the plain pass."""
+    per-item ring slots), read through the chunked compaction, against
+    the plain pass, under the same-pair rule and under the old rule; the
+    same-pair rule never takes more rounds."""
     S, B, Q, probes, nv, rates, seed = POOL_CASES[case]
     k, c = 4, 3
     rng = np.random.default_rng(seed + 10)
@@ -396,15 +349,81 @@ def test_pool_round_emulation_matches_plain(case):
         rng, S, B, Q, probes, nv, rates, k, c)
     wk = np.where(rng.random((S, B)) < 0.2, 0, w).astype(np.int32)
     sl = rng.integers(0, k, (S, B)).astype(np.int32)
-    got = [x.copy() for x in pool]
-    rounds = emulate_pool_rounds(pid_s, pid_d, w, wk, sl, le, elig, *got,
-                                 probes=probes, seed=1234)
     want = [_t(x).clone() for x in pool]
     pool_pass_plain(_t(pid_s), _t(pid_d), _t(w), _t(wk), _t(sl), _t(le),
                     _t(elig), *want, probes=probes, seed=1234)
-    for a, b in zip(got, want):
-        np.testing.assert_array_equal(a, b.numpy())
+    rounds = {}
+    for same_pair in (True, False):
+        got = [x.copy() for x in pool]
+        stats = emulate_pool_rounds(pid_s, pid_d, w, wk, sl, le, elig, *got,
+                                    probes=probes, seed=1234,
+                                    same_pair=same_pair, chunk=16)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b.numpy())
+        rounds[same_pair] = sum(stats["rounds"])
+        if same_pair:
+            assert sum(stats["voided_same_pair"]) == 0
+        else:
+            assert sum(stats["merged_same_pair"]) == 0
     n_items = int(elig.sum())
-    assert rounds < n_items
+    chunks = sum(-(-int(x) // 32) for x in elig.sum(1))
+    assert rounds[True] <= rounds[False] < n_items
     if case == "repeated-pairs":
-        assert rounds > sum(-(-int(x) // 32) for x in elig.sum(1))
+        # the old rule redid rounds for repeated pairs; the new one fewer
+        assert rounds[False] > chunks
+        assert rounds[True] < rounds[False]
+
+
+@pytest.mark.parametrize("pattern,want", [
+    ("one-pair", {True: 1, False: 2}),
+    ("pairs-twice", {True: 1, False: 17}),
+    ("one-slot-distinct-pairs", {True: 32, False: 32})])
+def test_same_pair_rule_round_counts(pattern, want):
+    """A group of 32 items on an empty pool. One pair 32 times: the old
+    rule commits the first claim alone, then every other item matches it
+    (2 rounds); the same-pair rule commits all in one. 16 pairs, each twice
+    in a row: the old rule redoes a round at every second item (17). 32
+    distinct pairs on one probe sequence: each lane's claim is voided by
+    the lane before it under both rules (32). Each equals the plain
+    pass."""
+    Q, probes = 1 << 14, 32  # the 16 pairs' first slots all differ
+    if pattern == "one-pair":
+        pid_s, pid_d = np.full((1, 32), 7), np.full((1, 32), 9)
+    elif pattern == "pairs-twice":
+        pid_s, pid_d = np.repeat(np.arange(16), 2)[None], np.full((1, 32), 3)
+    else:  # pairs whose first probe slot is the same
+        Q = 64
+        base = th.pool_slot_seq(_t(np.arange(4000)), _t(np.zeros(4000)), Q,
+                                1, 1234).numpy()[:, 0]
+        pid_s = np.flatnonzero(base == base[0])[:32][None]
+        pid_d = np.zeros((1, 32), np.int64)
+        assert pid_s.shape == (1, 32)
+    pid_s, pid_d = pid_s.astype(np.int32), pid_d.astype(np.int32)
+    w = np.full((1, 32), 2, np.int32)
+    zero = np.zeros((1, 32), np.int32)
+    elig = np.ones((1, 32), np.int32)
+    pool = (np.full((1, Q, 2), EMPTY, np.int32), np.zeros((1, Q, 1), np.int32),
+            np.zeros((1, Q, 1, 1), np.int32), np.zeros(1, np.int32))
+    ref = [_t(x).clone() for x in pool]
+    pool_pass_plain(_t(pid_s), _t(pid_d), _t(w), _t(w), _t(zero), _t(zero),
+                    _t(elig), *ref, probes=probes, seed=1234)
+    for same_pair in (True, False):
+        got = [x.copy() for x in pool]
+        stats = emulate_pool_rounds(pid_s, pid_d, w, w, zero, zero, elig,
+                                    *got, probes=probes, seed=1234,
+                                    same_pair=same_pair)
+        assert stats["rounds"] == [want[same_pair]]
+        for a, b in zip(got, ref):
+            np.testing.assert_array_equal(a, b.numpy())
+
+
+def test_compaction_reads_items_in_stream_order():
+    """Chunk-local ranks plus a search over the chunk offsets give the
+    eligible items in stream order, with empty chunks between."""
+    rng = np.random.default_rng(5)
+    elig = (rng.random(300) < 0.3).astype(np.int32)
+    elig[40:200] = 0  # whole chunks with nothing eligible
+    for chunk in (16, 32, 1024):
+        np.testing.assert_array_equal(compact(elig, chunk),
+                                      np.flatnonzero(elig))
+    assert len(compact(np.zeros(50, np.int32), 16)) == 0

@@ -39,12 +39,22 @@ Phases (any failure raises, so the exit code is non-zero):
      without the edge label, at last in {None, 1, 8} on the kernel path;
      sampled answers must equal the dense scan path's;
   6. the query kernels against their plain versions at the main path's
-     shapes, exactly; timings by CUDA events;
+     shapes, exactly: the edge probe's contract entry (probe cells and
+     keys in; w, wl, go_pool out) and its fused entry (raw queries in;
+     addressing, walk and pool lookup in one launch) on the planes of
+     ``last=None`` and on the horizon-stacked planes of HORIZONS, with
+     and without the edge label; the vertex scan both ways. Timings by
+     CUDA events beside each kernel's profiler device time and byte
+     bound; an edge and a vertex query's split by stage (the edge split
+     by ``tools/edge_query_split.py``: host addressing, walk kernel, pool
+     lookup, the fused entry, the whole ``skt.query``, and the
+     ``cudaLaunchKernel`` calls of one edge query);
   6b. the analytics path on the same handle: heavy vertices (k=16, out
      and in), heavy edges (k=16) and top labels (k=4, out and in) at last
      in {None, 1} and one horizons=[None, 1, 8] sweep on the "cuda" path,
      each equal to the "scan" path; list-``last`` queries of every kind,
-     row for row equal to phase 5's answers; reachability of 64 pairs
+     row for row equal to phase 5's answers (an edge sweep in one
+     edge-probe launch); reachability of 64 pairs
      sampled from the newest subwindow's positive edge answers, all True;
      then the cell-decode kernel against its plain version on the main
      path's key plane, exactly, timed by CUDA events;
@@ -84,6 +94,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib.util
 import json
 import re
 import shutil
@@ -121,7 +132,8 @@ from repro_torch.kernels.sketch_insert.kernel import (  # noqa: E402
     pool_stats_split, sketch_insert_kernel_sharded, sketch_insert_plain)
 from repro_torch.kernels.sketch_insert.ops import _bin_plan  # noqa: E402
 from repro_torch.kernels.sketch_query.kernel import (  # noqa: E402
-    sketch_query_kernel_sharded, sketch_query_plain)
+    edge_query_kernel, edge_query_plain, sketch_query_kernel_sharded,
+    sketch_query_plain)
 from repro_torch.kernels.vertex_scan.kernel import (  # noqa: E402
     vertex_scan_kernel_sharded, vertex_scan_plain)
 from repro_torch.kernels.vertex_scan.ops import (pool_lookup,  # noqa: E402
@@ -131,6 +143,20 @@ from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.sketch.ingest import (StackedBatch,  # noqa: E402
                                        _partition_stack)
+
+
+def _tool(name: str):
+    """A script of the repository's ``tools/``, loaded as a module."""
+    path = Path(__file__).resolve().parent / "tools" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"tools_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# phase 6's edge-query split (a tool of its own, so that it runs on older
+# trees as well)
+EDGE_SPLIT = _tool("edge_query_split")
 
 # benchmarks/paper_tables.py _lsk_cfg(COMFS, d=2048, k=8, window=True)
 CFG = LSketchConfig(d=2048, n_blocks=4, F=1024, r=8, s=8, c=16, k=8,
@@ -806,9 +832,109 @@ def vertex_query_split(cfg, planes, qi, dev, direction, tag, reps=5):
          f"{1e3 * (addr + scan + pool) / len(v):.3f} us a query {tag}")
 
 
+def probe_nbytes(cfg, pr, le, key, cw_hits=1, pool=None) -> int:
+    """Bytes an edge-probe launch must move, each read once: the per-query
+    inputs (the contract entry's probe triples and label, or the fused
+    entry's five raw columns), the distinct key cells the walks visit (up
+    to and including each one's stop), cw of each distinct hit cell and pw
+    of each distinct (hit cell, label) at each of ``cw_hits`` horizons, the
+    outputs. ``pool`` (the fused entry: ``(pool_key, pool_probes)``) adds
+    the pool-key pairs the walks without a stop probe and the counters of
+    each distinct winning slot."""
+    S, _, d, _ = key.shape
+    nq, s = pr.rows.shape
+    dev = key.device
+    rows, cols = pr.rows.long(), pr.cols.long()
+    cur = key[:, :, rows, cols].movedim(1, -1)  # [S, nq, s, 2]
+    match = (cur == pr.keys[None, :, :, None]).reshape(S, nq, -1)
+    stop = match | (cur == -1).reshape(S, nq, -1)
+    first = stop.to(torch.uint8).argmax(-1, keepdim=True)
+    any_stop = stop.any(-1)
+    visited = torch.where(any_stop[..., None], first + 1, stop.shape[-1])
+    sh = torch.arange(S, device=dev)[:, None, None, None]
+    ids = (((sh * 2 + torch.arange(2, device=dev)) * d +
+            rows[None, :, :, None]) * d + cols[None, :, :, None]
+           ).reshape(S, nq, -1)  # cells of the planes [S, 2, d, d]
+    seen = torch.arange(stop.shape[-1], device=dev) < visited
+    hit = any_stop & match.gather(-1, first)[..., 0]
+    hit_ids = ids.gather(-1, first)[..., 0][hit]
+    hit_le = le[None, :].expand(S, -1)[hit]
+    counters = n_distinct(hit_ids) + n_distinct(hit_ids * cfg.c + hit_le)
+    if pool is None:
+        return nq * (3 * s * 4 + 4) + n_distinct(ids[seen]) * 4 + \
+            counters * 4 + 3 * S * nq * 4
+    pool_key, probes = pool
+    Q = pool_key.shape[1]
+    ps = hsh.pool_slot_seq(pr.pid_src, pr.pid_dst, Q, probes,
+                           cfg.seed).long()  # [nq, probes]
+    slots = (torch.arange(S, device=dev)[:, None, None] * Q + ps)
+    go = ~any_stop  # [S, nq]
+    pk = pool_key[:, ps]  # [S, nq, probes, 2]
+    pm = (pk[..., 0] == pr.pid_src[None, :, None]) & \
+        (pk[..., 1] == pr.pid_dst[None, :, None])
+    won = go & pm.any(-1)
+    slot = slots.gather(-1, pm.to(torch.uint8).argmax(-1, keepdim=True)
+                        )[..., 0][won]
+    counters += n_distinct(slot) + n_distinct(slot * cfg.c +
+                                              le[None, :].expand(S, -1)[won])
+    return nq * 5 * 4 + 2 * cfg.n_blocks * 4 + n_distinct(ids[seen]) * 4 + \
+        n_distinct(slots[go]) * 8 + cw_hits * counters * 4 + \
+        2 * cw_hits * S * nq * 4
+
+
+def check_edge_query_kernel(cfg, spec, state, planes, qi, pr, le, dev,
+                            tag) -> dict:
+    """Phase 6: the fused entry (the addressing, the walk and the pool
+    lookup in one launch) against ``edge_query_plain`` on the main path's
+    planes with and without the edge label, and on the horizon-stacked
+    planes of HORIZONS; CUDA events and profiler device time beside the
+    byte bound, at H = 1 and for the sweep."""
+    t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    q = [t(qi[k]) for k in ("src", "src_label", "dst", "dst_label")]
+    lab = t(qi["le"])
+    multi, uniq = skt.query_planes_multi(spec, state, list(HORIZONS))
+    pairs = []
+    for pl in (planes, multi):
+        for l in (lab, None):
+            got = edge_query_kernel(cfg, pl, *q, l)
+            want = edge_query_plain(cfg, pl, *q, l)
+            pairs += list(zip(got, want))
+    _sync()
+    mism, err = diff(pairs)
+    del pairs
+    one, sweep = (cfg, planes, *q, lab), (cfg, multi, *q, lab)
+    ms = event_ms(lambda: edge_query_kernel(*one), 50)
+    dev_ms = device_ms(lambda: edge_query_kernel(*one), 20)
+    plain_ms = event_ms(lambda: edge_query_plain(*one), 5)
+    sweep_ms = event_ms(lambda: edge_query_kernel(*sweep), 50)
+    sweep_plain = event_ms(lambda: edge_query_plain(*sweep), 3)
+    pool = (planes.pool_key, cfg.pool_probes)
+    nbytes = probe_nbytes(cfg, pr, le, planes.key, 1, pool)
+    sweep_bytes = probe_nbytes(cfg, pr, le, planes.key, len(uniq), pool)
+    _log(f"phase 6 edge_query (fused: addressing, walk, pool) vs plain: "
+         f"mismatches={mism} (H=1 and the H={len(uniq)} sweep, with and "
+         f"without the label); H=1 {ms:.4f} ms (CUDA events, 50 launches), "
+         f"device {dev_ms['total']:.4f} ms a launch (profiler: "
+         f"{json.dumps(dev_ms)}), byte bound "
+         f"{1e3 * nbytes / HBM_BYTES_PER_S:.7f} ms, plain {plain_ms:.3f} "
+         f"ms; sweep H={len(uniq)} {sweep_ms:.4f} ms, bound "
+         f"{1e3 * sweep_bytes / HBM_BYTES_PER_S:.7f} ms, plain "
+         f"{sweep_plain:.3f} ms {tag}")
+    if mism:
+        raise AssertionError("the fused edge-query entry disagrees with "
+                             "its plain version")
+    return dict(fused_mismatches=mism, fused_max_abs_err=err, fused_ms=ms,
+                fused_device_ms=dev_ms["total"], fused_plain_ms=plain_ms,
+                bound_ms_fused=1e3 * nbytes / HBM_BYTES_PER_S,
+                fused_sweep_horizons=len(uniq), fused_sweep_ms=sweep_ms,
+                fused_sweep_plain_ms=sweep_plain,
+                bound_ms_fused_sweep=1e3 * sweep_bytes / HBM_BYTES_PER_S)
+
+
 def check_query_kernels(cfg, spec, state, qi, dev, tag) -> dict:
-    """Phase 6: the edge-probe and vertex-scan kernels against their plain
-    versions on the main path's planes and 1,024-query inputs."""
+    """Phase 6: the edge-probe kernel's two entries and the vertex-scan
+    kernel against their plain versions on the main path's planes and
+    1,024-query inputs, and the edge query's split."""
     planes = skt.query_planes(spec, state, None)
     S = planes.key.shape[0]
     t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
@@ -820,37 +946,25 @@ def check_query_kernels(cfg, spec, state, qi, dev, tag) -> dict:
     got = sketch_query_kernel_sharded(*q_args)
     want = sketch_query_plain(*q_args)
     _sync()
-    mism, err = diff([(a.int(), b.int()) for a, b in zip(got, want)])
+    mism, err = diff(zip(got, want))
     ms = event_ms(lambda: sketch_query_kernel_sharded(*q_args), 50)
+    dev_ms = device_ms(lambda: sketch_query_kernel_sharded(*q_args), 20)
     plain_ms = event_ms(lambda: sketch_query_plain(*q_args), 5)
-    # bytes the walk needs, each read once: the probe triples and label per
-    # query, the distinct key cells the walks visit (up to and including
-    # each one's stop), cw of each distinct hit cell and pw of each
-    # distinct (hit cell, label); three outputs
-    rows, cols = pr.rows.long(), pr.cols.long()
-    cur = planes.key[:, :, rows, cols].movedim(1, -1)  # [S, nq, s, 2]
-    match = (cur == pr.keys[None, :, :, None]).reshape(S, N_QUERIES, -1)
-    stop = match | (cur == -1).reshape(S, N_QUERIES, -1)
-    first = stop.to(torch.uint8).argmax(-1, keepdim=True)
-    visited = torch.where(stop.any(-1, keepdim=True), first + 1,
-                          stop.shape[-1])
-    sh = torch.arange(S, device=dev)[:, None, None, None]
-    ids = (((sh * 2 + torch.arange(2, device=dev)) * cfg.d +
-            rows[None, :, :, None]) * cfg.d + cols[None, :, :, None]
-           ).reshape(S, N_QUERIES, -1)  # cells of the planes [S, 2, d, d]
-    seen = torch.arange(stop.shape[-1], device=dev) < visited
-    hit = stop.any(-1) & match.gather(-1, first)[..., 0]
-    hit_ids = ids.gather(-1, first)[..., 0][hit]
-    hit_le = le[None, :].expand(S, -1)[hit]
-    n_hit = n_distinct(hit_ids)
-    nbytes = N_QUERIES * (3 * cfg.s * 4 + 4) + n_distinct(ids[seen]) * 4 + \
-        n_hit * 4 + n_distinct(hit_ids * cfg.c + hit_le) * 4 + \
-        3 * S * N_QUERIES * 4
+    nbytes = probe_nbytes(cfg, pr, le, planes.key)
     _log(f"phase 6 sketch_query kernel vs plain: mismatches={mism}; "
-         f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms {tag}")
-    out = {"sketch_query_kernel_sharded": dict(
-        mismatches=mism, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        nbytes=nbytes, shape=f"S={S} nq={N_QUERIES} hit_cells={n_hit}")}
+         f"kernel {ms:.4f} ms (CUDA events, 50 launches), device "
+         f"{dev_ms['total']:.4f} ms a launch (profiler: "
+         f"{json.dumps(dev_ms)}), byte bound "
+         f"{1e3 * nbytes / HBM_BYTES_PER_S:.7f} ms, plain "
+         f"{plain_ms:.3f} ms {tag}")
+    row = dict(mismatches=mism, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               nbytes=nbytes, device_ms=dev_ms["total"],
+               shape=f"S={S} nq={N_QUERIES}")
+    row.update(check_edge_query_kernel(cfg, spec, state, planes, qi, pr, le,
+                                       dev, tag))
+    row["edge_query_split"] = EDGE_SPLIT.edge_query_split(
+        sys.modules[__name__], cfg, spec, state, qi, dev, tag)
+    out = {"sketch_query_kernel_sharded": row}
 
     pre, lines = scan_lines(cfg, t(qi["v"]), t(qi["lv"]))
     v_args = (lines, pre.f.contiguous(), le, planes.key, planes.cw,
@@ -958,12 +1072,18 @@ def analytics_path(cfg, spec, state, qi, answers, tag):
     for kind in KINDS:
         for with_le in (False, True):
             q = query_batch(qi, kind, with_le, list(HORIZONS))
+            before = sketch_query_kernel_sharded.launches
             out, sec = _timed(lambda: skt.query(spec, state, q, path="cuda"))
+            probes = sketch_query_kernel_sharded.launches - before
             want = torch.stack([answers[(kind, with_le, h)]
                                 for h in HORIZONS])
             if out.shape != want.shape or not torch.equal(out.cpu(), want):
                 raise AssertionError(f"list-last {kind} rows differ from "
                                      f"the single-horizon answers")
+            if kind == "edge" and state.device.type == "cuda" and \
+                    probes != 1:  # every horizon of a sweep in one launch
+                raise AssertionError(f"an edge sweep took {probes} "
+                                     f"edge-probe launches, not 1")
             _log(f"phase 6b list-last {kind} le={with_le} last="
                  f"{list(HORIZONS)}: rows equal phase 5; "
                  f"{1e6 * sec / N_QUERIES:.3f} us/query {tag}")

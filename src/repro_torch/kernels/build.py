@@ -30,6 +30,7 @@ SIGNATURES = {
     "lsk_sketch_insert": [_P] * 18 + [_I] * 9 + [_P],
     "lsk_pool_pass": [_P] * 13 + [_I] * 7 + [_P],
     "lsk_sketch_query": [_P] * 10 + [_I] * 5 + [_P],
+    "lsk_edge_query": [_P] * 14 + [_I] * 12 + [_P],
     "lsk_vertex_scan": [_P] * 9 + [_I] * 7 + [_P],
     "lsk_cell_decode": [_P] * 5 + [_I] * 5 + [_P],
     "lsk_flash_attention": [_P] * 4 + [_I] * 8 + [_P],
@@ -114,19 +115,20 @@ def call(name: str, *args) -> None:
 
 
 def check_cuda(*tensors) -> None:
-    """Validate what a kernel takes: contiguous int32 tensors on one card."""
+    """Validate what a kernel takes: contiguous int32 tensors on one card.
+    (Reads only cheap tensor properties: it runs on every launch.)"""
     import torch
 
     dev = None
     for t in tensors:
         if t is None:
             continue
-        if t.device.type != "cuda" or t.dtype != torch.int32 \
+        if not t.is_cuda or t.dtype is not torch.int32 \
                 or not t.is_contiguous():
             raise ValueError(f"kernel input must be a contiguous int32 CUDA "
                              f"tensor, got {t.dtype} on {t.device} "
                              f"(contiguous={t.is_contiguous()})")
         if dev is None:
-            dev = t.device
-        elif t.device != dev:
+            dev = t.get_device()
+        elif t.get_device() != dev:
             raise ValueError("kernel inputs lie on different devices")

@@ -24,8 +24,9 @@ A list ``last`` is a horizon sweep: ``int32 [H, B]`` out, row ``i`` equal
 to ``last=lasts[i]``. ``"scan"`` loops the single-horizon reference;
 ``"cuda"`` answers every row from one horizon-stacked ``MultiPlanes``
 build (one cache entry keyed ``("multi", horizons)``) through the same
-kernels. The reference's flush-delta plane maintenance is not ported:
-every new handle rebuilds its planes.
+kernels: an edge sweep in one launch of the fused edge kernel, the other
+kinds one horizon at a time. The reference's flush-delta plane
+maintenance is not ported: every new handle rebuilds its planes.
 """
 
 from __future__ import annotations
@@ -250,8 +251,15 @@ def _query_multi(spec: SketchSpec, state: ShardedState, q: QueryBatch,
     planes, uniq = query_planes_multi(spec, state, lasts)
     arrays, with_le, _, n = normalize_query(
         dataclasses.replace(q, last=None), state.device)
-    rows = [_answer_planes(spec.config, _q.slice_horizon(planes, i), q,
-                           arrays, with_le) for i in range(len(uniq))]
+    if q.kind == "edge":  # every horizon in one launch: [H, B]
+        from repro_torch.kernels.sketch_query.ops import edge_query_planes
+        src, dst, la, lb, les = arrays
+        w, wl = edge_query_planes(spec.config, planes, src, dst,
+                                  (la, lb, les), with_le=with_le)
+        rows = wl if with_le else w
+    else:
+        rows = [_answer_planes(spec.config, _q.slice_horizon(planes, i), q,
+                               arrays, with_le) for i in range(len(uniq))]
     return torch.stack([rows[i][:n] for i in sel])
 
 

@@ -25,8 +25,10 @@ from repro_torch.kernels.sketch_insert.kernel import (
     pool_pass_kernel_sharded, pool_pass_plain, pool_stats_buffer,
     pool_stats_split, sketch_insert_kernel_sharded, sketch_insert_plain)
 from repro_torch.kernels.sketch_insert.ops import _bin_plan
+from repro_torch.core.queries import MultiPlanes
 from repro_torch.kernels.sketch_query.kernel import (
-    sketch_query_kernel_sharded, sketch_query_plain)
+    edge_query_kernel, edge_query_plain, sketch_query_kernel_sharded,
+    sketch_query_plain)
 from repro_torch.kernels.vertex_scan.kernel import (
     vertex_scan_kernel_sharded, vertex_scan_plain)
 from torch_walk_emulation import emulate_pool_rounds
@@ -278,6 +280,138 @@ def test_cuda_edge_query_kernel_matches_plain():
         torch.cuda.synchronize()
         for a, b in zip(ref, got):
             assert torch.equal(a, b.cpu())
+
+
+# the deployment's width (d=2048, 4 label blocks, F=1024, r=s=8, pool
+# 16,384 x 16 probes) with fewer counters, so a few shards stay small
+D2048 = LSketchConfig(d=2048, n_blocks=4, F=1024, r=8, s=8, c=4, k=2,
+                      window_size=200, pool_capacity=16384, pool_probes=16)
+
+
+def _edge_planes(size):
+    """(config, planes on the card, raw queries on the card, the rows
+    whose walks were forced to the pool): a port-built state with a third
+    of the query rows' candidate cells overwritten by other keys and their
+    pool pair planted at a probe in {0, 5, 15} (the last probe where the
+    config has fewer; past an EMPTY slot; later plants may overwrite
+    earlier ones), and EMPTY padding rows at the end."""
+    if size == "small":
+        cfg, (planes, rng) = CFG, _planes(21)
+        planes = dataclasses.replace(planes, **{
+            f.name: getattr(planes, f.name).cuda()
+            for f in dataclasses.fields(planes)})
+        nv = 90
+    else:
+        cfg, rng, nv = D2048, np.random.default_rng(22), 50_000
+        spec = skt.make_spec("lsketch", n_shards=2, config=cfg)
+        st = skt.create(spec, device="cuda")
+        for t in (10, 80, 150):
+            n = 20_000
+            st = skt.ingest(spec, st, EdgeBatch.from_arrays(
+                rng.integers(0, nv, n), rng.integers(0, nv, n),
+                rng.integers(0, 3, n), rng.integers(0, 3, n),
+                rng.integers(0, 6, n), rng.integers(1, 4, n),
+                np.full(n, t)), path="cuda")
+        planes = skt.query_planes(spec, st)
+    nq = 300
+    q = [rng.integers(0, hi, nq) for hi in (nv, 3, nv, 3, 6)]
+    for x in q:
+        x[-20:] = -1  # padding rows
+    q = [_t(x).cuda() for x in q]
+    pr = edge_probes(cfg, precompute(cfg, q[0], q[1]),
+                     precompute(cfg, q[2], q[3]))
+    forced = torch.arange(0, nq - 20, 3, device="cuda")
+    key, pool_key = planes.key.clone(), planes.pool_key.clone()
+    for tz in range(2):
+        cells = (slice(None), tz, pr.rows[forced].long(),
+                 pr.cols[forced].long())
+        key[cells] = torch.where(pr.keys[forced] + 1 == -1, 7,
+                                 pr.keys[forced] + 1)
+    ps = th.pool_slot_seq(pr.pid_src, pr.pid_dst, cfg.pool_capacity,
+                          cfg.pool_probes, cfg.seed).long()
+    at = torch.tensor([p for p in (0, 5, 15) if p < cfg.pool_probes] or
+                      [0, cfg.pool_probes - 1], device="cuda")
+    at = at[forced % len(at)]
+    pool_key[:, ps[forced, (at - 1).clamp_min(0)]] = -1
+    pool_key[:, ps[forced, at], 0] = pr.pid_src[forced]
+    pool_key[:, ps[forced, at], 1] = pr.pid_dst[forced]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    pool_cw = torch.randint(1, 1000, planes.pool_cw.shape, device="cuda",
+                            dtype=torch.int32, generator=gen)
+    pool_pw = torch.randint(1, 1000, planes.pool_pw.shape, device="cuda",
+                            dtype=torch.int32, generator=gen)
+    planes = dataclasses.replace(planes, key=key, pool_key=pool_key,
+                                 pool_cw=pool_cw, pool_pw=pool_pw)
+    return cfg, planes, q, forced
+
+
+def _stack3(planes):
+    """Three horizons of ``planes``: key and pool_key broadcast (views),
+    the counters made to differ per horizon."""
+    lead = lambda x: x.expand((3,) + x.shape)  # noqa: E731
+    three = lambda x: torch.stack([x, 2 * x + 1, x + 3])  # noqa: E731
+    return MultiPlanes(key=lead(planes.key), cw=three(planes.cw),
+                       pw=three(planes.pw), pool_key=lead(planes.pool_key),
+                       pool_cw=three(planes.pool_cw),
+                       pool_pw=three(planes.pool_pw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", ["small", "d2048"])
+def test_cuda_edge_query_entries_match_plain(size):
+    """Both entries of the edge-probe kernel against their plain versions
+    on the card: the fused one (addressing, walk, pool) at H = 1 and 3 and
+    the contract one, with and without the label, with pool-resolved
+    walks and padding rows; one launch each."""
+    _need_card()
+    cfg, planes, q, forced = _edge_planes(size)
+    for pl in (planes, _stack3(planes)):
+        for le in (q[4], None):
+            before = sketch_query_kernel_sharded.launches
+            got = edge_query_kernel(cfg, pl, *q[:4], le)
+            torch.cuda.synchronize()
+            assert sketch_query_kernel_sharded.launches == before + 1
+            want = edge_query_plain(cfg, pl, *q[:4], le)
+            H = pl.cw.shape[0] if pl.cw.dim() == 5 else 1
+            assert got[0].shape == (H, planes.key.shape[0], len(q[0]))
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
+            # forced walks found their planted pool pair
+            assert bool((got[0][:, :, forced] > 0).any())
+    pr = edge_probes(cfg, precompute(cfg, q[0], q[1]),
+                     precompute(cfg, q[2], q[3]))
+    le_idx = th.edge_label_bucket(q[4], cfg.c, cfg.seed)
+    for le in (le_idx, None):
+        args = (pr.rows.contiguous(), pr.cols.contiguous(),
+                pr.keys.contiguous(), le, planes.key, planes.cw, planes.pw)
+        got = sketch_query_kernel_sharded(*args)
+        want = sketch_query_plain(*args)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        assert bool(got[2][:, forced].all())
+
+
+@pytest.mark.gpu
+def test_cuda_edge_query_raises_on_what_it_does_not_take():
+    """A wrong dtype, device, shape or layout raises and launches
+    nothing."""
+    _need_card()
+    cfg, planes, q, _ = _edge_planes("small")
+    before = sketch_query_kernel_sharded.launches
+    src = q[0]
+    for bad in (src.long(), src.cpu(), src[:-1], q[0].repeat(2)[::2]):
+        with pytest.raises(ValueError):
+            edge_query_kernel(cfg, planes, bad, *q[1:4], q[4])
+    with pytest.raises(ValueError):
+        edge_query_kernel(cfg, dataclasses.replace(
+            planes, cw=planes.cw.float()), *q[:4], q[4])
+    rows = torch.zeros((4, cfg.s), dtype=torch.int32, device="cuda")
+    for bad in (rows.long(), rows.cpu(), rows.t()):
+        with pytest.raises(ValueError):
+            sketch_query_kernel_sharded(bad, rows, rows, None, planes.key,
+                                        planes.cw, planes.pw)
+    assert sketch_query_kernel_sharded.launches == before
 
 
 @pytest.mark.gpu

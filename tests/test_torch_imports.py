@@ -44,6 +44,27 @@ SPEC = dict(d=16, n_blocks=2, F=256, r=4, s=4, c=4, k=4, window_size=100,
             pool_capacity=8, pool_probes=2)
 
 
+def test_every_c_entry_has_its_ctypes_signature():
+    """Each ``extern "C"`` entry of ``csrc/*.cu`` is in ``build.SIGNATURES``
+    with one ``c_void_p`` per pointer and the stream and one ``c_int`` per
+    int, in order: ctypes would pass an undeclared pointer as a 32-bit
+    int."""
+    import ctypes
+    import re
+
+    from repro_torch.kernels import build
+
+    entries = {}
+    for src in build.CSRC.glob("*.cu"):
+        for name, params in re.findall(
+                r'extern "C" int (\w+)\(([^)]*)\)', src.read_text()):
+            entries[name] = [ctypes.c_void_p if "*" in p else ctypes.c_int
+                             for p in params.split(",")]
+    assert entries and set(entries) == set(build.SIGNATURES)
+    for name, argtypes in entries.items():
+        assert build.SIGNATURES[name] == argtypes, name
+
+
 def test_entry_points_default_to_the_card():
     from repro_torch import configs
     from repro_torch.launch.serve import DecodeServer
@@ -254,6 +275,19 @@ def test_chip_smoke_rehearses_on_the_cpu(monkeypatch, capsys):
             if bound in k:
                 nbytes = k[bound] * chip_smoke.HBM_BYTES_PER_S / 1e3
                 assert 0 < nbytes <= most[k["name"]], (bound, k)
+    # the fused edge-query entry at H horizons: the key plane and the pool
+    # keys once, each horizon's counters, the block table, five inputs
+    # and two outputs per (horizon, shard) a query
+    probe = next(k for k in kernels
+                 if k["name"] == "sketch_query_kernel_sharded")
+    for bound, H in (("bound_ms_fused", 1),
+                     ("bound_ms_fused_sweep", probe["fused_sweep_horizons"])):
+        fused_most = S * 2 * d * d * 4 * (1 + H * (1 + cfg.c)) + \
+            S * cfg.pool_capacity * 4 * (2 + H * (1 + cfg.c)) + \
+            2 * cfg.n_blocks * 4 + 96 * (5 * 4 + 2 * H * S * 4)
+        nbytes = probe[bound] * chip_smoke.HBM_BYTES_PER_S / 1e3
+        assert 0 < nbytes <= fused_most, (bound, probe)
+    assert probe["fused_mismatches"] == 0
 
 
 def test_chip_smoke_reads_the_flash_kernels_ptxas_report(monkeypatch):

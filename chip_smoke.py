@@ -61,6 +61,20 @@ Phases (any failure raises, so the exit code is non-zero):
   7. a profiler trace of two replayed flushes (where ingest time goes:
      host ms by stage, the pool pass's share of the trace's host time,
      the card's busy share and the number of cudaLaunchKernel calls);
+  O. (the 4-shard state freed) the object API at one shard over the
+     COMFS analog at its own 500,000 edges, in batches cut at subwindow
+     boundaries plus one straddling batch: O1 ``LSketch.insert`` at CFG
+     (the first two and the last kernel-route batches replayed on the CPU
+     through the plain versions, leaf for leaf; the insert kernel at
+     S = 1 against its plain version on a fresh and a loaded state), O2
+     N_SCALAR scalar calls of every query kind x edge label x last in
+     {None, 1}, each equal to the batched and the scan answers, with one
+     plane build a horizon, O3 the edge probe and the vertex scan at
+     S = 1 and the single-sketch drop-ins against their plain versions,
+     O4 reachability, subgraph counts and the scalar analytics, O5
+     ``GSS`` at GSS_CFG (one bin a batch; the claim table's spill) held
+     to a CPU replay run in a child process, O6 ``LGS`` at LGS_CFG held to
+     a CPU replay; edges/s, µs per call and each sketch's state_bytes;
   L1. (the sketch state freed) the flash-attention kernel against its
      plain version on Qwen3-8B's and SmolLM-135M's prefill attention, a
      ragged length and bf16; medians of CUDA-event times beside the plain
@@ -80,9 +94,10 @@ Phases (any failure raises, so the exit code is non-zero):
   8. one JSON line of the kernels and the end-to-end numbers, the card
      line, and the result line.
 
-Three paths count kernel launches, each from 0 just before it: the sketch
+Four paths count kernel launches, each from 0 just before it: the sketch
 path (phases 4 and 5), the analytics path (phase 6b, before its
-comparisons) and the prefill (L2, the kernel forward). Each kernel's
+comparisons), the object path (phase O, before its comparisons; the
+single-sketch rows' launches) and the prefill (L2, the kernel forward). Each kernel's
 ``launches`` in the JSON line is from the path it was ported for.
 TF32 is off throughout (the models are f32), except in the one forward
 of L2 that shows the tolerance would catch it.
@@ -96,6 +111,7 @@ import contextlib
 import dataclasses
 import importlib.util
 import json
+import multiprocessing
 import re
 import shutil
 import subprocess
@@ -110,10 +126,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import configs  # noqa: E402
 from repro_torch import sketch as skt  # noqa: E402
+from repro_torch.core import (GSS, LGS, LGSConfig, LSketch,  # noqa: E402
+                              gss_config, init_state, state_bytes)
 from repro_torch.core import hashing as hsh  # noqa: E402
-from repro_torch.core.lsketch import edge_probes, precompute  # noqa: E402
+from repro_torch.core.lgs import LGS_LEAVES, lgs_state_bytes  # noqa: E402
+from repro_torch.core.lsketch import (edge_probes, precompute,  # noqa: E402
+                                      valid_slot_mask)
 from repro_torch.core.types import (LEAVES, LSketchConfig,  # noqa: E402
-                                    init_leaves)
+                                    LSketchState, init_leaves)
 from repro_torch.data.stream import COMFS, generate  # noqa: E402
 from repro_torch.engine import insert as eng  # noqa: E402
 from repro_torch.engine.window import WindowRing  # noqa: E402
@@ -128,21 +148,25 @@ from repro_torch.kernels.heavy_hitters.ops import _static_blocks  # noqa: E402
 from repro_torch.kernels.sketch_insert import \
     ops as insert_ops  # noqa: E402
 from repro_torch.kernels.sketch_insert.kernel import (  # noqa: E402
-    pool_pass_kernel_sharded, pool_pass_plain, pool_stats_buffer,
-    pool_stats_split, sketch_insert_kernel_sharded, sketch_insert_plain)
-from repro_torch.kernels.sketch_insert.ops import _bin_plan  # noqa: E402
+    TABLE_LOG2_MAX, pool_pass_kernel_sharded, pool_pass_plain,
+    pool_stats_buffer, pool_stats_split, sketch_insert_kernel_sharded,
+    sketch_insert_plain)
+from repro_torch.kernels.sketch_insert.ops import (  # noqa: E402
+    _bin_plan, insert_window_batch_pallas)
 from repro_torch.kernels.sketch_query.kernel import (  # noqa: E402
     edge_query_kernel, edge_query_plain, sketch_query_kernel_sharded,
     sketch_query_plain)
+from repro_torch.kernels.sketch_query.ops import \
+    edge_query_pallas  # noqa: E402
 from repro_torch.kernels.vertex_scan.kernel import (  # noqa: E402
     vertex_scan_kernel_sharded, vertex_scan_plain)
-from repro_torch.kernels.vertex_scan.ops import (pool_lookup,  # noqa: E402
-                                                 scan_lines)
+from repro_torch.kernels.vertex_scan.ops import (  # noqa: E402
+    pool_lookup, scan_lines, vertex_query_pallas)
 from repro_torch.launch.serve import DecodeServer, Request  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.sketch.ingest import (StackedBatch,  # noqa: E402
-                                       _partition_stack)
+                                       _degenerate_batch, _partition_stack)
 
 
 def _tool(name: str):
@@ -187,6 +211,19 @@ ANALYTICS = (("heavy_vertices", 16, {"direction": "out"}),
 N_REACH = 64
 REACH_HOPS = 4
 
+# phase O, the object path at one shard (benchmarks/paper_tables.py builds
+# these objects and asks them scalar questions): the COMFS analog at its
+# own spec length; LSketch at CFG, GSS at the paper tables' width, LGS at
+# their d // 2 rule (paper_tables.py:164)
+OBJ_EDGES = COMFS.n_edges
+N_SCALAR = 256
+N_OBJ_REACH = 16
+N_SUBGRAPHS = 16
+DROP_IN_EDGES = 8192
+GSS_CFG = gss_config(d=2048, pool_capacity=16384)
+LGS_CFG = LGSConfig(d=1024, copies=6, c=16, k=8,
+                    window_size=COMFS.window_size)
+
 # the LM phases: Qwen3-8B at full width (configs/qwen3_8b.py)
 LM_ARCH = "qwen3-8b"
 LM_REDUCED = False
@@ -224,6 +261,11 @@ MAIN_PATH = ("sketch_insert_kernel_sharded", "pool_pass_kernel_sharded",
              "sketch_query_kernel_sharded", "vertex_scan_kernel_sharded")
 ANALYTICS_PATH = ("cell_decode_kernel_sharded",
                   "sketch_query_kernel_sharded", "vertex_scan_kernel_sharded")
+OBJECT_PATH = MAIN_PATH + ("cell_decode_kernel_sharded",)
+# the single-sketch entries' rows: the wrapper whose launches each counts
+OBJECT_KERNELS = {"sketch_insert_kernel": "sketch_insert_kernel_sharded",
+                  "sketch_query_kernel": "sketch_query_kernel_sharded",
+                  "vertex_scan_kernel": "vertex_scan_kernel_sharded"}
 KERNELS = {
     "sketch_insert_kernel_sharded": dict(
         source="src/repro_torch/csrc/sketch_insert.cu",
@@ -245,6 +287,20 @@ KERNELS = {
     "flash_attention_kernel": dict(
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:67"),
+    # the single-sketch entries: the kernels above at S = 1 on [1, ...]
+    # views, through the object API
+    "sketch_insert_kernel": dict(
+        source="src/repro_torch/csrc/sketch_insert.cu",
+        replaces="src/repro/kernels/sketch_insert/kernel.py:114",
+        entry="kernels/sketch_insert/ops.py::matrix_insert_binned"),
+    "sketch_query_kernel": dict(
+        source="src/repro_torch/csrc/sketch_query.cu",
+        replaces="src/repro/kernels/sketch_query/kernel.py:81",
+        entry="kernels/sketch_query/ops.py::edge_query_pallas"),
+    "vertex_scan_kernel": dict(
+        source="src/repro_torch/csrc/vertex_scan.cu",
+        replaces="src/repro/kernels/vertex_scan/kernel.py:69",
+        entry="kernels/vertex_scan/ops.py::vertex_query_pallas"),
 }
 
 
@@ -379,7 +435,7 @@ def warm_up(dev) -> dict:
             "pool_pass_kernel_sharded": pp}
 
 
-def check_insert_kernel(cfg, spec, batches, dev, tag) -> dict:
+def check_insert_kernel(cfg, spec, batches, dev, tag, phase="3") -> dict:
     """Phase 3: the insert kernel and its plain version on two states on
     the card, fed the stream's first flush on fresh states and then its
     second flush into the same, loaded states, exactly as the engine would;
@@ -407,8 +463,8 @@ def check_insert_kernel(cfg, spec, batches, dev, tag) -> dict:
                           first=first, plain_ms=plain_ms, mismatches=mism,
                           max_abs_err=err, fill=int(bcounts.max()),
                           walked=int(bcounts.clamp(max=B).sum())))
-        _log(f"phase 3 insert kernel vs plain, {label} state [S={S}, B={B}"
-             f"], {cases[-1]['walked']} edges walked, largest bin "
+        _log(f"phase {phase} insert kernel vs plain, {label} state [S={S}, "
+             f"B={B}], {cases[-1]['walked']} edges walked, largest bin "
              f"{cases[-1]['fill']}: mismatches={mism} max_abs_err={err}; "
              f"kernel first launch {first:.3f} ms, plain {plain_ms:.1f} ms "
              f"{tag}")
@@ -426,14 +482,15 @@ def check_insert_kernel(cfg, spec, batches, dev, tag) -> dict:
                 *c["args"], plain.key, plain.C, plain.P, c["B"]))
         c["runs"] = [launch() for _ in range(INSERT_REPS)]
         c["ms"] = float(np.median(c["runs"]))
-        _log(f"phase 3 insert kernel, {c['label']} state: median "
+        _log(f"phase {phase} insert kernel, {c['label']} state: median "
              f"{c['ms']:.4f} ms over {INSERT_REPS} launches ("
              f"{[round(r, 4) for r in c['runs']]}), "
              f"{1e3 * c['ms'] / max(c['fill'], 1):.4f} us per step of the "
              f"longest bin ({c['fill']} edges) {tag}")
     fresh, loaded = cases
-    _log(f"phase 3 first-launch cost: warm-up launches {json.dumps(warm)} "
-         f"ms; then the first full launch {fresh['first']:.3f} ms against "
+    _log(f"phase {phase} first-launch cost: warm-up launches "
+         f"{json.dumps(warm)} ms; then the first full launch "
+         f"{fresh['first']:.3f} ms against "
          f"a median of {fresh['ms']:.4f} ms {tag}")
     return dict(mismatches=fresh["mismatches"] + loaded["mismatches"],
                 max_abs_err=max(fresh["max_abs_err"], loaded["max_abs_err"]),
@@ -1574,6 +1631,556 @@ def serve_phase(cfg, params, tokens, head, dev, tag) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase O: the object path (LSketch, GSS, LGS at one shard)
+# --------------------------------------------------------------------------
+
+def _columns(b):
+    return [getattr(b, f) for f in ("src", "dst", "src_label", "dst_label",
+                                    "edge_label", "weight", "time")]
+
+
+def _to_cpu(state):
+    """A CPU copy of a plain state (a copy on the CPU too)."""
+    return state.map(lambda x: x.to("cpu", copy=True))
+
+
+def _differs(cpu_state, state) -> list:
+    """The leaf names where a CPU state and another state differ."""
+    names = LEAVES if len(cpu_state.leaves()) == len(LEAVES) else \
+        LGS_LEAVES
+    return [n for n, x, y in zip(names, cpu_state.leaves(), state.leaves())
+            if not torch.equal(x, y.cpu())]
+
+
+def _gss_replay(conn, cfg, batches) -> None:
+    """Phase O5's CPU replay, in a child process: a GSS on the CPU (the
+    kernel route through the plain versions) fed ``batches`` (column
+    lists); sends its leaves and seconds after each."""
+    torch.set_num_threads(1)
+    g = GSS(cfg, device="cpu")
+    g.insert_path = "cuda"
+    for cols in batches:
+        t0 = time.perf_counter()
+        g.insert(*cols)
+        conn.send(([x.numpy() for x in g.state.leaves()],
+                   time.perf_counter() - t0))
+    conn.close()
+
+
+def start_gss_replay(stream, flushes):
+    """Start phase O5's CPU replay of the first two batches in a child
+    process, which runs while the card works; returns (process, pipe)."""
+    ctx = multiprocessing.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
+    batches = [[np.ascontiguousarray(c) for c in _columns(stream.slice(*f))]
+               for f in flushes[:2]]
+    proc = ctx.Process(target=_gss_replay, args=(send, GSS_CFG, batches),
+                       daemon=True)
+    proc.start()
+    send.close()
+    return proc, recv
+
+
+def object_ingest(cfg, stream, flushes, span_i, dev, tag):
+    """Phase O1: the stream through ``LSketch.insert`` batch by batch at
+    one shard. The first two batches are replayed on a fresh CPU state
+    and the last kernel-route batch on a CPU copy, through the plain
+    versions, and compared leaf for leaf (outside the timed calls).
+    Returns (the object, a CPU copy of its final state, numbers)."""
+    obj = LSketch(cfg, insert_path="cuda", query_path="cuda", device=dev)
+    last_k = max(i for i in range(len(flushes)) if i != span_i)
+    routes, flush_s, clone = {"kernel": 0, "scan": 0}, [], None
+    for i, (a, z) in enumerate(flushes):
+        batch = stream.slice(a, z)
+        if i == 0:
+            clone = init_state(cfg, "cpu")
+        elif i == last_k:
+            clone = _to_cpu(obj.state)
+        before = dict(eng.ROUTE_EDGES)
+        _sync()
+        t0 = time.perf_counter()
+        obj.insert(*_columns(batch))
+        _sync()
+        flush_s.append(time.perf_counter() - t0)
+        for k in routes:
+            routes[k] += eng.ROUTE_EDGES[k] - before[k]
+        if (eng.ROUTE_EDGES["scan"] != before["scan"]) != (i == span_i):
+            raise AssertionError(f"object batch {i} took the wrong route")
+        if i < 2 or i == last_k:
+            saved = dict(eng.ROUTE_EDGES)
+            eng.insert_batch(cfg, clone, batch, path="cuda")
+            eng.ROUTE_EDGES.update(saved)
+            bad = _differs(clone, obj.state)
+            _log(f"phase O1 batch {i}: CPU replay through the plain "
+                 f"versions vs the card, leaf for leaf: "
+                 f"{'equal' if not bad else 'DIFFER ' + str(bad)}")
+            if bad:
+                raise AssertionError(f"object batch {i} differs in {bad}")
+        if i == 1:
+            clone = None
+    n, total = len(stream), sum(flush_s)
+    span_n = flushes[span_i][1] - flushes[span_i][0]
+    kernel_s = total - flush_s[span_i]
+    out = dict(edges_per_s=n / total,
+               kernel_route_edges_per_s=routes["kernel"] / kernel_s,
+               span_edges=span_n, span_ms=1e3 * flush_s[span_i],
+               span_ms_per_edge=1e3 * flush_s[span_i] / span_n,
+               batches=len(flushes), state_bytes=state_bytes(cfg))
+    _log(f"phase O1 LSketch.insert: {n} edges in {len(flushes)} batches, "
+         f"{total:.3f} s = {out['edges_per_s']:.0f} edges/s; kernel route "
+         f"{routes['kernel']} edges in {kernel_s:.3f} s = "
+         f"{out['kernel_route_edges_per_s']:.0f} edges/s; the straddling "
+         f"batch ({span_n} edges, scan route) {out['span_ms']:.1f} ms = "
+         f"{out['span_ms_per_edge']:.4f} ms an edge; state_bytes "
+         f"{out['state_bytes']} {tag}")
+    return obj, clone, out
+
+
+def _scalar_call(obj, qi, kind, with_le, last, j):
+    le = int(qi["le"][j]) if with_le else None
+    if kind == "edge":
+        return obj.edge_weight(int(qi["src"][j]), int(qi["src_label"][j]),
+                               int(qi["dst"][j]), int(qi["dst_label"][j]),
+                               le=le, last=last)
+    if kind == "label":
+        return obj.label_aggregate(int(qi["labels"][j]), le=le, last=last)
+    return obj.vertex_weight(int(qi["v"][j]), int(qi["lv"][j]), le=le,
+                             direction=kind[7:], last=last)
+
+
+def object_scalar_queries(obj, qi, tag) -> dict:
+    """Phase O2: N_SCALAR scalar calls of every kind x edge label x last in
+    {None, 1} on the object; each equals the batched ``skt.query`` on the
+    same handle, which equals the scan path on N_SCAN_SAMPLE queries. The
+    planes are built once per horizon."""
+    spec, n = obj.spec, N_SCALAR
+    builds = skt.PLANES_BUILD_COUNTS["build"]
+    us, mism = {}, 0
+    for kind in KINDS:
+        for with_le in (False, True):
+            for last in (None, 1):
+                _sync()
+                t0 = time.perf_counter()
+                got = [_scalar_call(obj, qi, kind, with_le, last, j)
+                       for j in range(n)]
+                us.setdefault(kind, []).append(
+                    1e6 * (time.perf_counter() - t0) / n)
+                q = query_batch(qi, kind, with_le, last, slice(0, n))
+                batched = skt.query(spec, obj.handle, q, path="cuda").cpu()
+                mism += int((torch.tensor(got, dtype=torch.int32)
+                             != batched).sum())
+                m = min(N_SCAN_SAMPLE, n)
+                scan = skt.query(spec, obj.handle, query_batch(
+                    qi, kind, with_le, last, slice(0, m)), path="scan")
+                mism += int((scan.cpu() != batched[:m]).sum())
+    builds = skt.PLANES_BUILD_COUNTS["build"] - builds
+    out = {f"scalar_us_{k}": float(np.mean(v)) for k, v in us.items()}
+    out.update(plane_builds=builds, scalar_mismatches=mism)
+    _log(f"phase O2 scalar calls: {n} of each kind x edge label x last in "
+         f"{{None, 1}}, us per call {json.dumps(us)}; equal to the batched "
+         f"query and the scan path: mismatches={mism}; plane builds {builds}"
+         f" for 2 horizons {tag}")
+    if mism:
+        raise AssertionError("scalar answers differ from the batched or "
+                             "scan answers")
+    if builds != 2:
+        raise AssertionError(f"{builds} plane builds for 2 horizons")
+    return out
+
+
+def object_structural(obj, qi, tag) -> dict:
+    """Phase O4: reachability of sampled in-window edges (all True),
+    subgraph counts of edge triples (the minimum of their edge answers),
+    and the scalar heavy hitters and heavy edges (the host reference)
+    equal to the handle's analytics (the cell-decode kernel)."""
+    cfg, spec = obj.cfg, obj.spec
+    edge = skt.query(spec, obj.handle, query_batch(qi, "edge", False, None),
+                     path="cuda").cpu().numpy()
+    newest = qi["etime"] // cfg.subwindow_size == \
+        qi["etime"].max() // cfg.subwindow_size
+    cand = np.flatnonzero(newest & (edge > 0))
+    if not len(cand):
+        raise AssertionError("no in-window edge answers to sample")
+    pick = np.random.default_rng(SEED + 3).choice(
+        cand, min(N_OBJ_REACH, len(cand)), replace=False)
+    t0 = time.perf_counter()
+    reach = [obj.reachable(int(qi["src"][j]), int(qi["src_label"][j]),
+                           int(qi["dst"][j]), int(qi["dst_label"][j]),
+                           max_hops=REACH_HOPS) for j in pick]
+    reach_ms = 1e3 * (time.perf_counter() - t0) / len(pick)
+    if not all(reach):
+        raise AssertionError("an in-window edge is not reachable")
+    triples = np.arange(3 * N_SUBGRAPHS).reshape(N_SUBGRAPHS, 3)
+    sub = [obj.subgraph_count([(int(qi["src"][j]), int(qi["src_label"][j]),
+                                int(qi["dst"][j]), int(qi["dst_label"][j]))
+                               for j in tr]) for tr in triples]
+    if sub != [int(edge[tr].min()) for tr in triples]:
+        raise AssertionError("subgraph counts differ from the minimum of "
+                             "their edges")
+    hh = {}
+    for direction in ("out", "in"):
+        vid, w = skt.heavy_vertices(spec, obj.handle, 16,
+                                    direction=direction, path="cuda")
+        hh[direction] = (obj.heavy_hitters(16, direction),
+                         list(zip(vid.tolist(), w.tolist())))
+    s, d, w = skt.heavy_edges(spec, obj.handle, 16, path="cuda")
+    hh["edges"] = (obj.heavy_edges(16),
+                   list(zip(s.tolist(), d.tolist(), w.tolist())))
+    bad = [k for k, (a, b) in hh.items() if a != b]
+    _log(f"phase O4 reachable on {len(pick)} sampled in-window edges: all "
+         f"True, {reach_ms:.3f} ms a call; subgraph_count of "
+         f"{N_SUBGRAPHS} edge triples equal to their edges' minimum; the "
+         f"scalar heavy_hitters (out, in) and heavy_edges vs the handle's "
+         f"analytics: {'equal' if not bad else 'DIFFER ' + str(bad)}; top "
+         f"edge {hh['edges'][0][:1]} {tag}")
+    if bad:
+        raise AssertionError(f"scalar analytics differ: {bad}")
+    return dict(reachable_ms=reach_ms)
+
+
+def _reset(state) -> None:
+    """Empty a plain LSketch state in place."""
+    for x, v in zip(state.leaves(), (-1, 0, 0, -1, 0, 0, 0, -(2**30),
+                                     -(2**30))):
+        x.fill_(v)
+
+
+def _plane_build_bytes(cfg, n_slots: int) -> int:
+    """Bytes a one-shard plane build must move: C and P (and the pool's
+    counters) at the in-window slots read once, the key plane read and
+    written twin-leading, cw, pw and the pool planes written once."""
+    d, c, Q = cfg.d, cfg.c, cfg.pool_capacity
+    return n_slots * (d * d * 2 + Q) * 4 * (1 + c) + 2 * d * d * 2 * 4 + \
+        (d * d * 2 + Q) * 4 * (1 + c)
+
+
+def check_object_kernels(cfg, obj, clone, batch, qi, dev, tag) -> dict:
+    """Phase O3: the edge probe (fused entry, with the label) and the
+    vertex scan (both directions) at S = 1 on the object's planes against
+    their plain versions, timed by CUDA events beside their byte bounds;
+    then the single-sketch drop-ins (``insert_window_batch_pallas`` on
+    fresh states, ``edge_query_pallas``/``vertex_query_pallas`` at
+    last=2) on the card against the same calls on the CPU copy of the
+    object's state (the plain versions), exactly."""
+    planes = skt.query_planes(obj.spec, obj.handle, None)
+    t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    q = [t(qi[k]) for k in ("src", "src_label", "dst", "dst_label")]
+    lab = t(qi["le"])
+    pr = edge_probes(cfg, precompute(cfg, q[0], q[1]),
+                     precompute(cfg, q[2], q[3]))
+    le = hsh.edge_label_bucket(lab, cfg.c, cfg.seed)
+    got = edge_query_kernel(cfg, planes, *q, lab)
+    want = edge_query_plain(cfg, planes, *q, lab)
+    _sync()
+    e_mism, e_err = diff(zip(got, want))
+    e_ms = event_ms(lambda: edge_query_kernel(cfg, planes, *q, lab), 50)
+    e_plain = event_ms(lambda: edge_query_plain(cfg, planes, *q, lab), 5)
+    e_bytes = probe_nbytes(cfg, pr, le, planes.key, 1,
+                           (planes.pool_key, cfg.pool_probes))
+    pre, lines = scan_lines(cfg, t(qi["v"]), t(qi["lv"]))
+    v_args = (lines, pre.f.contiguous(), le, planes.key, planes.cw,
+              planes.pw)
+    scan = {}
+    for direction in ("out", "in"):
+        kw = dict(r=cfg.r, F=cfg.F, direction=direction)
+        got = vertex_scan_kernel_sharded(*v_args, **kw)
+        want = vertex_scan_plain(*v_args, **kw)
+        _sync()
+        m, err = diff(zip(got, want))
+        scan[direction] = dict(
+            mismatches=m, max_abs_err=err,
+            ms=event_ms(lambda: vertex_scan_kernel_sharded(*v_args, **kw),
+                        20),
+            plain_ms=event_ms(lambda: vertex_scan_plain(*v_args, **kw), 3),
+            nbytes=scan_nbytes(cfg, lines, pre.f, le, planes.key,
+                               direction))
+    del got, want
+
+    # the insert drop-in on fresh states: the card against the CPU
+    small = batch.slice(0, DROP_IN_EDGES)
+    widx = int(small.time[0]) // cfg.subwindow_size
+    fresh = init_state(cfg, dev)
+    host = insert_window_batch_pallas(cfg, init_state(cfg, "cpu"), small,
+                                      widx)
+    insert_window_batch_pallas(cfg, fresh, small, widx)
+    i_mism = len(_differs(host, fresh))
+    del host
+    _reset(fresh)  # the kernel's bytes for these inputs, on a scratch run
+    one = fresh.map(lambda x: x.unsqueeze(0))
+    args, probes, bcounts = insert_args(cfg, obj.spec, small, (one,), dev)
+    sketch_insert_kernel_sharded(*args, one.key, one.C, one.P,
+                                 args[3].shape[1])
+    i_bytes, _ = insert_nbytes(cfg, probes, args, bcounts, one)
+    del one
+
+    def timed_insert():
+        _reset(fresh)
+        return event_ms(lambda: insert_window_batch_pallas(cfg, fresh, small,
+                                                           widx))
+
+    i_runs = [timed_insert() for _ in range(3)]
+    del fresh
+
+    # the query drop-ins at last=2, each building its planes
+    e3 = (q[0], q[2], (q[1], q[3], lab))
+    vq = (t(qi["v"]), (t(qi["lv"]), lab))
+    calls = {"edge_query_pallas": (e3, lambda st, a: edge_query_pallas(
+        cfg, st, *a, last=2))}
+    for direction in ("out", "in"):
+        calls[f"vertex_query_pallas[{direction}]"] = (
+            vq, lambda st, a, dr=direction: vertex_query_pallas(
+                cfg, st, *a, direction=dr, last=2))
+    drop, state = {}, obj.state
+    for name, (a, fn) in calls.items():
+        a_cpu = tuple(x.cpu() if isinstance(x, torch.Tensor) else
+                      tuple(y.cpu() for y in x) for x in a)
+        got = fn(state, a)
+        _sync()
+        t0 = time.perf_counter()
+        want = fn(clone, a_cpu)
+        plain_s = time.perf_counter() - t0
+        m, _ = diff((x.cpu(), y) for x, y in zip(got, want))
+        drop[name] = dict(mismatches=m, ms=float(np.median(
+            [event_ms(lambda: fn(state, a)) for _ in range(5)])),
+            cpu_plain_ms=1e3 * plain_s)
+    n_slots = int(valid_slot_mask(cfg, state, 2).sum())
+    plane_bytes = _plane_build_bytes(cfg, n_slots)
+    i_ms = float(np.median(i_runs))
+    _log(f"phase O3 at S=1: edge_query (fused, with the label) vs plain: "
+         f"mismatches={e_mism}; {e_ms:.4f} ms (CUDA events, 50 launches), "
+         f"byte bound {1e3 * e_bytes / HBM_BYTES_PER_S:.7f} ms, plain "
+         f"{e_plain:.3f} ms; vertex_scan out/in vs plain: mismatches "
+         f"{scan['out']['mismatches']}/{scan['in']['mismatches']}; "
+         f"{scan['out']['ms']:.4f}/{scan['in']['ms']:.4f} ms, byte bound "
+         f"{1e3 * scan['out']['nbytes'] / HBM_BYTES_PER_S:.4f}/"
+         f"{1e3 * scan['in']['nbytes'] / HBM_BYTES_PER_S:.4f} ms, plain "
+         f"{scan['out']['plain_ms']:.3f}/{scan['in']['plain_ms']:.3f} ms "
+         f"{tag}")
+    _log(f"phase O3 drop-ins vs their plain versions on the CPU: "
+         f"insert_window_batch_pallas ({len(small)} edges, fresh state) "
+         f"mismatches={i_mism}, {i_ms:.4f} ms median of 3 "
+         f"({[round(r, 4) for r in i_runs]}), its kernel's byte bound "
+         f"{1e3 * i_bytes / HBM_BYTES_PER_S:.5f} ms; the query drop-ins "
+         f"(each builds its planes, bound "
+         f"{1e3 * plane_bytes / HBM_BYTES_PER_S:.4f} ms for {n_slots} "
+         f"slots): {json.dumps(drop)} {tag}")
+    if e_mism or i_mism or any(v["mismatches"] for v in scan.values()) or \
+            any(v["mismatches"] for v in drop.values()):
+        raise AssertionError("a single-sketch entry disagrees with its "
+                             "plain version")
+    qd = drop["edge_query_pallas"]
+    vo, vi = drop["vertex_query_pallas[out]"], drop["vertex_query_pallas[in]"]
+    return {
+        "sketch_query_kernel": dict(
+            mismatches=e_mism + qd["mismatches"], max_abs_err=e_err,
+            ms=e_ms, plain_ms=e_plain, nbytes=e_bytes, drop_in_ms=qd["ms"],
+            drop_in_cpu_plain_ms=qd["cpu_plain_ms"],
+            drop_in_bound_ms=1e3 * (plane_bytes + e_bytes) /
+            HBM_BYTES_PER_S, shape=f"S=1 nq={len(qi['src'])} fused"),
+        "vertex_scan_kernel": dict(
+            mismatches=sum(v["mismatches"] for v in scan.values()) +
+            vo["mismatches"] + vi["mismatches"],
+            max_abs_err=max(v["max_abs_err"] for v in scan.values()),
+            ms=scan["out"]["ms"], plain_ms=scan["out"]["plain_ms"],
+            nbytes=scan["out"]["nbytes"], direction="out",
+            ms_in=scan["in"]["ms"], plain_ms_in=scan["in"]["plain_ms"],
+            bound_ms_in=1e3 * scan["in"]["nbytes"] / HBM_BYTES_PER_S,
+            drop_in_ms=vo["ms"], drop_in_ms_in=vi["ms"],
+            drop_in_cpu_plain_ms=vo["cpu_plain_ms"],
+            shape=f"S=1 nq={len(qi['v'])}"),
+        "insert_drop_in": dict(mismatches=i_mism, ms=i_ms, runs=i_runs,
+                               bound_ms=1e3 * i_bytes / HBM_BYTES_PER_S,
+                               edges=len(small)),
+    }
+
+
+def object_gss(stream, flushes, qi, dev, tag):
+    """Phase O5's card half: ``GSS.insert`` of the same batches (times
+    normalized to 0, so every batch is one subwindow and takes the kernel
+    route in the one bin of the one block), a CPU copy of the state after
+    each of the first two and each batch's new claims; then edge and
+    vertex queries and heavy edges (the cell-decode kernel at one block)
+    against the scan path."""
+    g = GSS(GSS_CFG, device=dev)
+    g.insert_path = g.query_path = "cuda"
+    snaps, claims, flush_s = [], [], []
+    for i, (a, z) in enumerate(flushes):
+        occupied = int((g.state.key != -1).sum())
+        _sync()
+        t0 = time.perf_counter()
+        g.insert(*_columns(stream.slice(a, z)))
+        _sync()
+        flush_s.append(time.perf_counter() - t0)
+        claims.append(int((g.state.key != -1).sum()) - occupied)
+        if i < 2:
+            snaps.append(_to_cpu(g.state))
+    cap = 1 << (TABLE_LOG2_MAX - 1)
+    past = [max(0, c - cap) for c in claims]
+    mism = 0
+    for kind in ("edge", "vertex-out", "vertex-in"):
+        q = query_batch(qi, kind, False, None, slice(0, N_SCALAR))
+        got = skt.query(g.spec, g.handle, q, path="cuda").cpu()
+        want = skt.query(g.spec, g.handle, q, path="scan").cpu()
+        mism += int((got != want).sum())
+    top = skt.heavy_edges(g.spec, g.handle, 16, path="cuda")
+    want = skt.heavy_edges(g.spec, g.handle, 16, path="scan")
+    mism += sum(int((a.cpu() != b.cpu()).sum()) for a, b in zip(top, want))
+    n = len(stream)
+    out = dict(edges_per_s=n / sum(flush_s),
+               largest_bin=max(z - a for a, z in flushes), claims=claims,
+               claims_past_capacity=past, state_bytes=state_bytes(GSS_CFG),
+               query_mismatches=mism)
+    _log(f"phase O5 GSS.insert ({GSS_CFG.d} x {GSS_CFG.d}, one block): "
+         f"{n} edges in {len(flushes)} batches, {sum(flush_s):.3f} s = "
+         f"{out['edges_per_s']:.0f} edges/s; each batch one bin (largest "
+         f"{out['largest_bin']} edges); new claims per batch {claims}, past "
+         f"the claim table's {cap}: {past}; edge and vertex (out, in) "
+         f"queries and heavy_edges (cell decode at one block) vs the scan "
+         f"path: mismatches={mism}; state_bytes {out['state_bytes']} {tag}")
+    if mism:
+        raise AssertionError("GSS answers differ from the scan path")
+    return g, snaps, out
+
+
+def check_gss(stream, flushes, snaps, replay, dev, tag) -> dict:
+    """Phase O5's checks: the card's GSS after each of the first two
+    batches against the child's CPU replay, leaf for leaf; the insert
+    kernel's time on the first batch (CUDA events, median of
+    INSERT_REPS launches from the pre-flush key plane)."""
+    proc, recv = replay
+    cpu_s = []
+    for i, snap in enumerate(snaps):
+        leaves, sec = recv.recv()
+        cpu_s.append(sec)
+        bad = _differs(LSketchState(*[torch.from_numpy(x) for x in leaves]),
+                       snap)
+        _log(f"phase O5 GSS batch {i}: the CPU replay (plain versions, a "
+             f"child process, {sec:.1f} s) vs the card, leaf for leaf: "
+             f"{'equal' if not bad else 'DIFFER ' + str(bad)}")
+        if bad:
+            raise AssertionError(f"GSS batch {i} differs in {bad}")
+    proc.join(timeout=60)
+    spec = skt.make_spec("gss", config=GSS_CFG)
+    scratch = init_leaves(GSS_CFG, (1,), dev)
+    batch = _degenerate_batch(stream.slice(*flushes[0]))
+    args, _, bcounts = insert_args(GSS_CFG, spec, batch, (scratch,), dev)
+    B = args[3].shape[1]
+
+    def launch():
+        scratch.key.fill_(-1)
+        return event_ms(lambda: sketch_insert_kernel_sharded(
+            *args, scratch.key, scratch.C, scratch.P, B))
+
+    runs = [launch() for _ in range(INSERT_REPS)]
+    fill = int(bcounts.max())
+    out = dict(kernel_ms=float(np.median(runs)), kernel_runs=runs,
+               bin_fill=fill, cpu_replay_s=cpu_s)
+    _log(f"phase O5 GSS insert kernel on the first batch (one bin of "
+         f"{fill} edges): median {out['kernel_ms']:.3f} ms over "
+         f"{INSERT_REPS} launches ({[round(r, 3) for r in runs]}), "
+         f"{1e3 * out['kernel_ms'] / max(fill, 1):.4f} us per edge {tag}")
+    return out
+
+
+def object_lgs(stream, flushes, qi, dev, tag) -> dict:
+    """Phase O6: ``LGS.insert`` of the same batches on the card (a
+    count-min scatter-add) and on the CPU; the states leaf for leaf, and
+    edge and vertex (out, in) answers with and without the edge label at
+    last in {None, 1}."""
+    objs, secs = {}, {}
+    for where in (dev, "cpu"):
+        obj = LGS(LGS_CFG, device=where)
+        flush_s = []
+        for a, z in flushes:
+            _sync()
+            t0 = time.perf_counter()
+            obj.insert(*_columns(stream.slice(a, z)))
+            _sync()
+            flush_s.append(time.perf_counter() - t0)
+        objs[str(where)], secs[str(where)] = obj, sum(flush_s)
+    card, host = objs[str(dev)], objs["cpu"]
+    bad = _differs(host.state, card.state)
+    sl = slice(0, N_SCALAR)
+
+    def answers(o, le, last):
+        return [o.edge_weight(qi["src"][sl], qi["src_label"][sl],
+                              qi["dst"][sl], qi["dst_label"][sl], le=le,
+                              last=last)] + [
+            o.vertex_weight(qi["v"][sl], qi["lv"][sl], le=le, direction=dr,
+                            last=last) for dr in ("out", "in")]
+
+    mism = 0
+    for le in (None, qi["le"][sl]):
+        for last in (None, 1):
+            mism += sum(int((a != b).sum()) for a, b in zip(
+                answers(card, le, last), answers(host, le, last)))
+    n = len(stream)
+    out = dict(edges_per_s=n / secs[str(dev)],
+               cpu_edges_per_s=n / secs["cpu"],
+               state_bytes=lgs_state_bytes(LGS_CFG), mismatches=mism)
+    _log(f"phase O6 LGS.insert ({LGS_CFG}): {n} edges in {len(flushes)} "
+         f"batches, {secs[str(dev)]:.3f} s = {out['edges_per_s']:.0f} "
+         f"edges/s (the CPU replay {secs['cpu']:.3f} s); state vs the CPU "
+         f"replay, leaf for leaf: "
+         f"{'equal' if not bad else 'DIFFER ' + str(bad)}; edge and vertex (out, in) answers with and without the label "
+         f"at last in {{None, 1}}: mismatches={mism}; state_bytes "
+         f"{out['state_bytes']} {tag}")
+    if bad or mism:
+        raise AssertionError("the card's LGS differs from its CPU replay")
+    return out
+
+
+def object_phase(dev, tag):
+    """Phase O: the object API at one shard over the COMFS analog at its
+    own length, in batches cut at subwindow boundaries plus one straddling
+    one. Launch counts run from 0 over the object path (O1, O2, O4, O5's
+    card half, O6); the comparisons with plain versions come after.
+    Returns (the kernel rows, the launches, the numbers)."""
+    cfg = CFG
+    stream = generate(dataclasses.replace(COMFS, n_edges=OBJ_EDGES),
+                      seed=SEED, weighted=True)
+    cuts, span_i = flush_cuts(stream.time, cfg.subwindow_size)
+    flushes = list(zip(cuts[:-1], cuts[1:]))
+    qi = query_inputs(cfg, stream)
+    replay = start_gss_replay(stream, flushes)
+    try:
+        def path():
+            obj, clone, o1 = object_ingest(cfg, stream, flushes, span_i,
+                                           dev, tag)
+            o2 = object_scalar_queries(obj, qi, tag)
+            o4 = object_structural(obj, qi, tag)
+            gss, snaps, o5 = object_gss(stream, flushes, qi, dev, tag)
+            del gss
+            o6 = object_lgs(stream, flushes, qi, dev, tag)
+            return obj, clone, snaps, dict(lsketch=dict(o1, **o2, **o4),
+                                           gss=o5, lgs=o6)
+
+        names = OBJECT_PATH if dev.type == "cuda" else ()
+        (obj, clone, snaps, numbers), launches = count_launches(names, path)
+        _log(f"phase O object-path launches: {launches} {tag}")
+        spec1 = obj.spec
+        rows = {"sketch_insert_kernel": check_insert_kernel(
+            cfg, spec1, [stream.slice(*f) for f in flushes[:2]], dev, tag,
+            phase="O1")}
+        torch.cuda.empty_cache()
+        rows.update(check_object_kernels(cfg, obj, clone,
+                                         stream.slice(*flushes[0]), qi, dev,
+                                         tag))
+        rows["sketch_insert_kernel"]["drop_in"] = rows.pop("insert_drop_in")
+        rows["sketch_insert_kernel"]["mismatches"] += \
+            rows["sketch_insert_kernel"]["drop_in"]["mismatches"]
+        del obj, clone
+        torch.cuda.empty_cache()
+        numbers["gss"].update(check_gss(stream, flushes, snaps, replay, dev,
+                                        tag))
+    finally:
+        if replay[0].is_alive():
+            replay[0].terminate()
+        replay[0].join()
+    return rows, launches, numbers
+
+
 def deployment():
     """The spec, the seeded stream and its flushes ``[(a, z)]``, with the
     index of the boundary-spanning flush."""
@@ -1678,7 +2285,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     profile = profile_ingest(spec, state, stream, flushes, tag)
-    del state  # the LM phases start from an empty card
+    del state  # phase O and the LM phases start from an empty card
+    torch.cuda.empty_cache()
+
+    obj_rows, o_launches, obj_out = object_phase(dev, tag)  # phase O
+    results.update(obj_rows)
+    launches.update({k: o_launches[w] for k, w in OBJECT_KERNELS.items()})
     torch.cuda.empty_cache()
 
     results.update(check_flash_kernel(dev, tag))  # L1
@@ -1698,7 +2310,7 @@ def main() -> int:
                       "analytics_peak_memory_bytes": a_peak,
                       "ingest_edges_per_s": edges_per_s,
                       "ingest_kernel_route_edges_per_s": kernel_edges_per_s,
-                      **profile, **lm_out,
+                      "object": obj_out, **profile, **lm_out,
                       "seconds": seconds}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

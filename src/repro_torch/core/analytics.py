@@ -14,6 +14,9 @@ collisions and pool overflow:
   * top_label_blocks — top-k label blocks (the decoded vid's block id).
   * triangle_estimate — approximate directed-triangle count over the
     heaviest edges, by batched edge-existence checks on the sketch.
+
+``LSketch.heavy_hitters``/``heavy_edges``/``triangle_count`` are these on
+the object's plain state.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import numpy as np
 import torch
 
 from . import hashing as hsh
-from .lsketch import valid_slot_mask
+from .lsketch import LSketch, valid_slot_mask
 from .queries import _edge_exists_by_vid, _successors_by_vid, _sum32
 from .types import EMPTY, LSketchConfig, LSketchState
 
@@ -133,3 +136,20 @@ def triangle_estimate(cfg: LSketchConfig, state: LSketchState,
                             dim=1).to(dev)
         total += int(_edge_exists_by_vid(cfg, state, pairs).sum())
     return total
+
+
+def _sketch_heavy_hitters(self: LSketch, k=10, direction="out", last=None):
+    return heavy_hitter_vertices(self.cfg, self.state, k, direction, last)
+
+
+def _sketch_heavy_edges(self: LSketch, k=10, last=None):
+    return heavy_hitter_edges(self.cfg, self.state, k, last)
+
+
+def _sketch_triangles(self: LSketch, max_seed_edges=64):
+    return triangle_estimate(self.cfg, self.state, max_seed_edges)
+
+
+LSketch.heavy_hitters = _sketch_heavy_hitters
+LSketch.heavy_edges = _sketch_heavy_edges
+LSketch.triangle_count = _sketch_triangles

@@ -1,22 +1,27 @@
-"""LSketch addressing, window index and the sequential reference insert
-(port of ``repro.core.lsketch``).
+"""LSketch addressing, window index, the sequential reference insert and
+the object API (port of ``repro.core.lsketch``).
 
 ``precompute`` and ``edge_probes`` are vectorized over any batch shape
-(``[B]`` or a shard-stacked ``[S, B]``). ``advance_window`` and
-``_insert_loop`` are the one-subwindow sequential reference; they update
-the state in place, like every write path of the port.
+(``[B]`` or a shard-stacked ``[S, B]``). ``advance_window``,
+``_insert_loop`` and ``insert_window_batch`` are the one-subwindow
+sequential reference; they update the state in place, like every write
+path of the port. ``insert_batch`` delegates to the engine's single-shard
+entry. ``OneShardObject`` is what the objects share (a live 1-shard
+handle); ``LSketch`` is the stateful object, its query methods attached in
+``queries.py`` and ``analytics.py``.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.engine.window import WindowRing
 
 from . import hashing as hsh
-from .types import LSketchConfig, LSketchState
+from .types import EdgeBatch, LSketchConfig, LSketchState, init_state
 
 
 class VertexAddressing(NamedTuple):
@@ -111,3 +116,111 @@ def _insert_loop(cfg: LSketchConfig, state: LSketchState, slot, live,
                  one(le_idx), torch.full_like(one(le_idx), int(slot)),
                  one(w), one(w), torch.ones_like(one(w), dtype=torch.bool))
     return state
+
+
+def insert_window_batch(cfg: LSketchConfig, state: LSketchState,
+                        batch: EdgeBatch, widx) -> LSketchState:
+    """Insert a batch of items that all belong to subwindow ``widx`` into
+    one plain state, in place: the sequential stream-order reference."""
+    dev = state.key.device
+    col = lambda f: torch.from_numpy(  # noqa: E731
+        np.asarray(getattr(batch, f), np.int32)).to(dev)
+    pa = precompute(cfg, col("src"), col("src_label"))
+    pb = precompute(cfg, col("dst"), col("dst_label"))
+    probes = edge_probes(cfg, pa, pb)
+    le_idx = hsh.edge_label_bucket(col("edge_label"), cfg.c, cfg.seed)
+    state, slot, live = advance_window(cfg, state, int(widx))
+    return _insert_loop(cfg, state, slot, live, probes, le_idx,
+                        col("weight").to(state.C.dtype))
+
+
+def insert_batch(cfg: LSketchConfig, state: LSketchState, batch: EdgeBatch,
+                 path: str = "auto") -> LSketchState:
+    """Insert a time-ordered batch into one plain state (any number of
+    subwindows), in place: ``engine.insert.insert_batch``."""
+    from repro_torch.engine.insert import insert_batch as _engine_insert
+    return _engine_insert(cfg, state, batch, path=path)
+
+
+# --------------------------------------------------------------------------
+# object API
+# --------------------------------------------------------------------------
+
+class OneShardObject:
+    """What the objects (``LSketch``, ``GSS``, ``LGS``) share: a live
+    1-shard handle of the ``repro_torch.sketch`` layer. ``.state`` reads as
+    the plain state (views of shard 0) and can be assigned; ``insert``
+    goes through ``ingest_single`` in place and starts a new handle (the
+    old one is spent), so the window planes that scalar queries read are
+    built once per horizon between inserts."""
+
+    kind: str
+
+    @classmethod
+    def _spec(cls, cfg):
+        from repro_torch.sketch.spec import SketchSpec
+        return SketchSpec(kind=cls.kind, config=cfg, n_shards=1)
+
+    @property
+    def spec(self):
+        return self._spec(self.cfg)
+
+    @property
+    def handle(self):
+        """The live 1-shard ``ShardedState`` (its plane cache is the
+        object's)."""
+        return self._handle
+
+    @property
+    def state(self):
+        return self._handle.live().map(lambda x: x[0])
+
+    @state.setter
+    def state(self, state) -> None:
+        from repro_torch.sketch.state import ShardedState
+        self._handle = ShardedState.lift(state)
+
+    @property
+    def device(self) -> torch.device:
+        return self._handle.device
+
+    @classmethod
+    def from_numpy(cls, cfg, arrays, device=None, **kw):
+        """An object over a plain state given as arrays in
+        ``jax.tree.leaves`` order of the reference's state."""
+        from repro_torch.sketch.state import from_numpy
+        return cls(cfg, state=from_numpy(cls._spec(cfg), arrays, device,
+                                         plain=True), **kw)
+
+    def insert(self, src, dst, src_label=None, dst_label=None,
+               edge_label=None, weight=None, time=None):
+        if len(np.asarray(src)) == 0:  # an empty batch is a no-op
+            return self
+        from repro_torch.sketch.ingest import ingest_single
+        batch = EdgeBatch.from_arrays(src, dst, src_label, dst_label,
+                                      edge_label, weight, time)
+        old = self._handle
+        self.state = ingest_single(self.spec, self.state, batch,
+                                   path=getattr(self, "insert_path", "auto"))
+        old.spent = True
+        return self
+
+
+class LSketch(OneShardObject):
+    """The LSketch object (its query methods are attached in
+    ``queries.py`` and ``analytics.py``).
+
+    >>> sk = LSketch(LSketchConfig(d=64, n_blocks=2), device="cpu")
+    >>> sk.insert(src, dst, src_label, dst_label, edge_label, weight, time)
+    >>> sk.edge_weight(a, la, b, lb)
+    """
+
+    kind = "lsketch"
+
+    def __init__(self, cfg: LSketchConfig, state: LSketchState | None = None,
+                 insert_path: str = "auto", query_path: str = "auto",
+                 device=None):
+        self.cfg = cfg
+        self.insert_path = insert_path
+        self.query_path = query_path
+        self.state = state if state is not None else init_state(cfg, device)

@@ -1,8 +1,10 @@
 """Window-reduced query planes and the dense reference queries
 (port of ``repro.core.queries``: ``QueryPlanes``, ``build_query_planes``,
 ``MultiPlanes``, ``build_query_planes_multi``, ``edge_query``,
-``vertex_query``, ``vertex_label_aggregate``, and the by-identity edge
-check and successor scan behind reachability).
+``vertex_query``, ``vertex_label_aggregate``, the by-identity edge check
+and successor scan behind reachability, ``successor_scan``,
+``path_reachability``, ``subgraph_query``, and the scalar query methods
+of ``LSketch``).
 
 The dense queries are the port's ``"scan"`` path and the oracle of the
 plane kernels. They take one (unstacked) state. Two rules keep them at
@@ -17,10 +19,12 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import hashing as hsh
-from .lsketch import VertexAddressing, edge_probes, precompute, valid_slot_mask
+from .lsketch import (LSketch, VertexAddressing, edge_probes, precompute,
+                      valid_slot_mask)
 from .types import EMPTY, LSketchConfig, LSketchState
 
 _I32 = torch.int32
@@ -398,3 +402,116 @@ def _successors_by_vid(cfg: LSketchConfig, state: LSketchState, vids,
     vids_p = state.pool_key[:, 1][None, :].expand(pm.shape)
     return (torch.cat([vid.reshape(U, -1), vids_p], -1),
             torch.cat([match.reshape(U, -1), pm & plive[None, :]], -1))
+
+
+# --------------------------------------------------------------------------
+# successor scan, path reachability, subgraph queries (paper Alg. 6, 7)
+# --------------------------------------------------------------------------
+
+# frontier vertices per successor scan: its [U, r, d, 2, k] gather stays
+# near 256 MiB at any width
+_SCAN_BYTES = 1 << 28
+
+
+def successor_scan(cfg: LSketchConfig, state: LSketchState, vertex, vlabel):
+    """All successor identities of ``vertex`` recoverable from one state by
+    key reversibility: (vids [B, r*d*2 + Q], valid mask), over the whole
+    window."""
+    pre = precompute(cfg, vertex, vlabel)
+    return _successors_by_vid(cfg, state, pre.vid)
+
+
+def _successors(cfg, state, frontier) -> np.ndarray:
+    """Unique successor identities of packed identities ``frontier`` (a
+    host list), the scan run in chunks of ``_SCAN_BYTES``."""
+    dev = state.key.device
+    k = state.C.shape[-1]
+    chunk = max(1, _SCAN_BYTES // (cfg.r * cfg.d * 2 * k * 4))
+    out = []
+    for a in range(0, len(frontier), chunk):
+        vids, valid = _successors_by_vid(cfg, state, torch.tensor(
+            frontier[a:a + chunk], dtype=_I32, device=dev))
+        out.append(vids[valid].cpu().numpy())
+    return np.unique(np.concatenate(out))
+
+
+def path_reachability(cfg: LSketchConfig, state: LSketchState, src,
+                      src_label, dst, dst_label, max_hops: int = 64) -> bool:
+    """BFS reachability src -> dst over one state (paper Alg. 6): a host
+    frontier loop, each hop one batched direct-edge check and one
+    successor scan of the frontier. Identities are packed (m, s, f), so
+    the visited set is exact at sketch resolution."""
+    dev = state.key.device
+    one = lambda x: torch.tensor([int(x)], dtype=_I32, device=dev)  # noqa
+    start = int(precompute(cfg, one(src), one(src_label)).vid[0])
+    target = int(precompute(cfg, one(dst), one(dst_label)).vid[0])
+    frontier, visited = [start], {start}
+    for _ in range(max_hops):
+        if not frontier:
+            return False
+        pairs = torch.tensor([[v, target] for v in frontier], dtype=_I32,
+                             device=dev)
+        if bool(_edge_exists_by_vid(cfg, state, pairs).any()):
+            return True
+        frontier = [int(v) for v in _successors(cfg, state, frontier)
+                    if int(v) not in visited]
+        visited.update(frontier)
+    return False
+
+
+def subgraph_query(cfg: LSketchConfig, state: LSketchState, edges,
+                   with_edge_label: bool = False,
+                   last: int | None = None) -> int:
+    """The minimum of the per-edge weights of ``edges`` (paper Alg. 7; a 0
+    short-circuits): a list of (src, lA, dst, lB[, le]) tuples."""
+    dev = state.key.device
+    col = lambda i: torch.tensor(  # noqa: E731
+        [e[i] if len(e) > i else 0 for e in edges], dtype=_I32, device=dev)
+    w, wl = edge_query(cfg, state, col(0), col(2), (col(1), col(3), col(4)),
+                       with_edge_label=with_edge_label, last=last)
+    return int((wl if with_edge_label else w).min())
+
+
+# --------------------------------------------------------------------------
+# the scalar methods of LSketch: length-1 (or pass-through array) wrappers
+# over the batched frontend ``engine.query_batch``
+# --------------------------------------------------------------------------
+
+def _edge_weight(self: LSketch, a, la, b, lb, le=None, last=None):
+    from repro_torch.engine import query_batch as qb
+    out = qb.edge_weight_batch(self, a, la, b, lb, edge_label=le, last=last,
+                               path=getattr(self, "query_path", "auto"))
+    return qb.scalarize(out, np.ndim(a) == 0)
+
+
+def _vertex_weight(self: LSketch, v, lv, le=None, direction="out",
+                   last=None):
+    from repro_torch.engine import query_batch as qb
+    out = qb.vertex_weight_batch(self, v, lv, edge_label=le,
+                                 direction=direction, last=last,
+                                 path=getattr(self, "query_path", "auto"))
+    return qb.scalarize(out, np.ndim(v) == 0)
+
+
+def _label_aggregate(self: LSketch, lv, le=None, direction="out",
+                     last=None):
+    from repro_torch.engine import query_batch as qb
+    out = qb.label_aggregate_batch(self, lv, edge_label=le,
+                                   direction=direction, last=last,
+                                   path=getattr(self, "query_path", "auto"))
+    return qb.scalarize(out, np.ndim(lv) == 0)
+
+
+def _reachable(self: LSketch, a, la, b, lb, max_hops=64):
+    return path_reachability(self.cfg, self.state, a, la, b, lb, max_hops)
+
+
+def _subgraph(self: LSketch, edges, with_edge_label=False, last=None):
+    return subgraph_query(self.cfg, self.state, edges, with_edge_label, last)
+
+
+LSketch.edge_weight = _edge_weight
+LSketch.vertex_weight = _vertex_weight
+LSketch.label_aggregate = _label_aggregate
+LSketch.reachable = _reachable
+LSketch.subgraph_count = _subgraph

@@ -159,6 +159,13 @@ def init_state(cfg: LSketchConfig, device=None) -> LSketchState:
     return init_leaves(cfg, (), resolve_device(device))
 
 
+def state_bytes(cfg: LSketchConfig) -> int:
+    """Configured storage budget of one shard in bytes (the sub-linear
+    knob): every leaf's elements times its item size, allocated nowhere."""
+    return sum(x.numel() * x.element_size()
+               for x in init_leaves(cfg, (), "meta").leaves())
+
+
 @dataclass
 class EdgeBatch:
     """A time-ordered batch of stream items e = (A,B; lA,lB,le; w; t) as

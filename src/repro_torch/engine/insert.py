@@ -1,6 +1,9 @@
 """Windowed insertion of a shard-stacked flush (port of
 ``repro.engine.insert``: ``_segment_count``, ``_scan_insert``,
-``insert_stacked_fused_impl``, ``resolve_path``).
+``insert_stacked_fused_impl``, ``resolve_path``), and the single-shard
+entry the object API rides (``insert_batch_fused_impl``, ``insert_batch``,
+``insert_batch_chunked``, ``default_path``): a plain state runs the
+stacked insert on ``[1, ...]`` views of its own tensors.
 
 A flush is planned against the ring once (``WindowRing.plan``), the
 re-claimed slot planes are zeroed in place, and then one of two routes
@@ -23,17 +26,19 @@ profiler trace splits a flush's time by stage.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
 from repro_torch.core import hashing as hsh
 from repro_torch.core.lsketch import EdgeProbes, edge_probes, precompute
-from repro_torch.core.types import EMPTY, LSketchConfig, LSketchState
+from repro_torch.core.types import EMPTY, EdgeBatch, LSketchConfig, \
+    LSketchState
 from repro_torch.kernels.sketch_insert.kernel import _pool_step
 from repro_torch.kernels.sketch_insert.ops import \
     matrix_insert_binned_sharded
 
-from .window import WindowRing
+from .window import WindowRing, pad_to_bucket
 
 # valid edges ingested by each route, summed over every flush in the
 # process: read (and reset) by callers that report the route shares
@@ -151,19 +156,93 @@ def insert_stacked_fused_impl(cfg: LSketchConfig, states: LSketchState,
                             w_key, valid)
 
 
+def default_path(device=None) -> str:
+    """The kernel route for a state on the card, the scan on the CPU."""
+    return "cuda" if torch.device(device or "cpu").type == "cuda" \
+        else "scan"
+
+
 def resolve_path(cfg: LSketchConfig, path: str = "auto",
                  device=None) -> str:
-    """Normalize an insert path name to "scan" | "cuda".
+    """Normalize an insert path name to "scan" | "cuda" | "chunked".
 
-    "auto" is "cuda" for a state on the card and "scan" for one on the
-    CPU; "cuda" falls back to "scan" under skewed blocking (the binned
-    kernel needs uniform tiles). On a CPU state "cuda" runs the kernel
-    route with each kernel's plain version."""
+    "auto" is ``default_path(device)``; "cuda" falls back to "scan" under
+    skewed blocking (the binned kernel needs uniform tiles). On a CPU
+    state "cuda" runs the kernel route with each kernel's plain version.
+    "chunked" (the per-subwindow reference) exists on the single-shard
+    entry only."""
     if path == "auto":
-        path = "cuda" if torch.device(device or "cpu").type == "cuda" \
-            else "scan"
+        path = default_path(device)
     if path == "cuda" and cfg.block_bounds is not None:
         path = "scan"
-    if path not in ("scan", "cuda"):
+    if path not in ("scan", "cuda", "chunked"):
         raise ValueError(f"unknown insert path {path!r}")
     return path
+
+
+_FIELDS = ("src", "dst", "src_label", "dst_label", "edge_label", "weight",
+           "time")
+
+
+class _Rows:
+    """int32 ``[1, B]`` tensors, one per ``EdgeBatch`` field."""
+
+    def __init__(self, batch: EdgeBatch, device):
+        for f in _FIELDS:
+            col = np.asarray(getattr(batch, f), np.int32)
+            setattr(self, f, torch.from_numpy(col).to(device)[None])
+
+
+def insert_batch_fused_impl(cfg: LSketchConfig, state: LSketchState,
+                            batch: EdgeBatch, n_valid,
+                            use_kernel: bool = False) -> LSketchState:
+    """One time-ordered batch (any number of subwindows) into one plain
+    state, in place: ``insert_stacked_fused_impl`` at one shard on views
+    of the state's tensors. Rows at or past ``n_valid`` are padding and
+    fully masked; the route rule is the stacked one."""
+    if len(batch) == 0:
+        return state
+    dev = state.key.device
+    insert_stacked_fused_impl(cfg, state.map(lambda x: x.unsqueeze(0)),
+                              _Rows(batch, dev), [int(n_valid)],
+                              use_kernel=use_kernel)
+    return state
+
+
+def insert_batch(cfg: LSketchConfig, state: LSketchState, batch: EdgeBatch,
+                 path: str = "auto") -> LSketchState:
+    """Insert a time-ordered batch into one plain state, in place.
+
+    path: "auto" (the kernel route on the card, the scan on the CPU),
+    "scan", "cuda" (the kernel route for a batch whose valid rows sit in
+    one subwindow, the scan otherwise) or "chunked" (the per-subwindow
+    reference). The batch is padded to its size bucket (replicate-last,
+    masked), as the reference pads it."""
+    n = len(batch)
+    if n == 0:
+        return state
+    path = resolve_path(cfg, path, state.key.device)
+    if path == "chunked":
+        return insert_batch_chunked(cfg, state, batch)
+    batch = EdgeBatch(*[pad_to_bucket(np.asarray(getattr(batch, f)))
+                        for f in _FIELDS])
+    return insert_batch_fused_impl(cfg, state, batch, n,
+                                   use_kernel=path == "cuda")
+
+
+def insert_batch_chunked(cfg: LSketchConfig, state: LSketchState,
+                         batch: EdgeBatch) -> LSketchState:
+    """The per-subwindow reference: one ``insert_window_batch`` call (the
+    stream-order walk) per run of items in one subwindow, in place."""
+    from repro_torch.core.lsketch import insert_window_batch
+
+    t = np.asarray(batch.time)
+    if t.shape[0] == 0:
+        return state
+    widx = t // cfg.subwindow_size
+    cuts = np.flatnonzero(np.diff(widx)) + 1
+    for a, z in zip(np.concatenate([[0], cuts]),
+                    np.concatenate([cuts, [len(t)]])):
+        state = insert_window_batch(cfg, state, batch.slice(a, z),
+                                    int(widx[a]))
+    return state

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.types import NEVER
@@ -115,3 +116,17 @@ def bucket_size(n: int, floor: int = 64) -> int:
     while b < n:
         b *= 2
     return b
+
+
+def pad_to_bucket(x, floor: int = 64):
+    """Pad a 1-D numpy array or tensor to its size bucket by replicating
+    the last element (replicate-last keeps a ``time`` column
+    non-decreasing, so segment plans are untouched); callers mask the pad
+    rows (LSketch: ``n_valid``; LGS: zeroed pad weights)."""
+    n = x.shape[0]
+    to = bucket_size(n, floor)
+    if to == n:
+        return x
+    if isinstance(x, torch.Tensor):
+        return torch.cat([x, x[-1:].expand(to - n)])
+    return np.concatenate([x, np.broadcast_to(x[-1], (to - n,))])

@@ -1,21 +1,27 @@
 """Binned matrix insert around the insert kernel (port of
 ``repro/kernels/sketch_insert/ops.py``: ``_bin_plan``, ``_pool_pass``,
-``matrix_insert_binned_sharded``).
+``matrix_insert_binned_sharded``, and the single-sketch entries
+``matrix_insert_binned`` and ``insert_window_batch_pallas``).
 
 Pipeline for a shard-stacked, single-subwindow flush, all on the state's
 device and in place: stable binning of every shard's edges by their
 (row-block, col-block) tile; one call of the insert kernel over every
 (shard, bin); one call of the pool-pass kernel over the edges the matrix
-rejected, in stream order.
+rejected, in stream order. The single-sketch entries take a plain
+(unstacked) state and run the same pipeline at S = 1 on ``[1, ...]``
+views of its tensors: no plane is copied.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
-from repro_torch.core.lsketch import EdgeProbes
-from repro_torch.core.types import LSketchConfig, LSketchState
+from repro_torch.core import hashing as hsh
+from repro_torch.core.lsketch import (EdgeProbes, advance_window, edge_probes,
+                                      precompute)
+from repro_torch.core.types import EdgeBatch, LSketchConfig, LSketchState
 
 from .kernel import pool_pass_kernel_sharded, sketch_insert_kernel_sharded
 
@@ -81,3 +87,44 @@ def matrix_insert_binned_sharded(cfg: LSketchConfig, state: LSketchState,
     failed = (~inserted) & (weight > 0)
     with record_function("lsketch.pool_pass"):
         return _pool_pass(cfg, state, slot, probes, le_idx, weight, failed)
+
+
+def _lift(x: torch.Tensor) -> torch.Tensor:
+    """A ``[1, ...]`` view (a contiguous tensor stays contiguous, so the
+    kernels' raw pointers address the plain state's own storage)."""
+    return x.unsqueeze(0)
+
+
+def matrix_insert_binned(cfg: LSketchConfig, state: LSketchState,
+                         probes: EdgeProbes, le_idx, weight, slot,
+                         max_bin: int | None = None) -> LSketchState:
+    """Block-binned insertion of a pre-addressed ``[B]`` batch into one
+    plain state's ring ``slot``, in place: the sharded pipeline at S = 1
+    on views. ``weight`` must already carry the window-liveness and
+    padding masks (zero-weight rows insert nothing and claim nothing)."""
+    lifted = state.map(_lift)
+    matrix_insert_binned_sharded(
+        cfg, lifted, EdgeProbes(*[_lift(p) for p in probes]),
+        _lift(le_idx), _lift(weight),
+        torch.as_tensor(slot, device=le_idx.device).reshape(1),
+        max_bin=max_bin)
+    return state
+
+
+def insert_window_batch_pallas(cfg: LSketchConfig, state: LSketchState,
+                               batch: EdgeBatch, widx,
+                               max_bin: int | None = None) -> LSketchState:
+    """Drop-in for ``core.lsketch.insert_window_batch`` (a batch that all
+    belongs to subwindow ``widx``) through the insert and pool kernels at
+    one shard, in place; the name is the reference's."""
+    dev = state.key.device
+    col = lambda f: torch.from_numpy(  # noqa: E731
+        np.asarray(getattr(batch, f), np.int32)).to(dev)
+    pa = precompute(cfg, col("src"), col("src_label"))
+    pb = precompute(cfg, col("dst"), col("dst_label"))
+    probes = edge_probes(cfg, pa, pb)
+    le_idx = hsh.edge_label_bucket(col("edge_label"), cfg.c, cfg.seed)
+    state, slot, live = advance_window(cfg, state, int(widx))
+    weight = col("weight").to(state.C.dtype) * live.to(state.C.dtype)
+    return matrix_insert_binned(cfg, state, probes, le_idx, weight, slot,
+                                max_bin=max_bin)

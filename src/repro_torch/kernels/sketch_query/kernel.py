@@ -139,14 +139,17 @@ def edge_query_plain(cfg, planes, src, la, dst, lb, le):
 _BLOCKS: dict = {}
 
 
-def _block_table(cfg, device_index: int) -> torch.Tensor:
-    """The config's block starts then widths, int32 on the card, made once
-    per (config object, card): the lookup runs on every launch."""
-    hit = _BLOCKS.get((id(cfg), device_index))
-    if hit is None or hit[0] is not cfg:
-        table = torch.cat(cfg.block_start_width(f"cuda:{device_index}"))
-        _BLOCKS[(id(cfg), device_index)] = hit = (cfg, table.contiguous())
-    return hit[1]
+def _block_table(cfg, device) -> torch.Tensor:
+    """The config's block starts then widths, int32 on ``device``, made
+    once per (block layout, device): the lookup runs on every launch. The
+    key is what the table holds (``d``, ``n_blocks``, ``block_bounds``),
+    so equal configs share one entry and no config object is kept."""
+    key = (cfg.d, cfg.n_blocks, cfg.block_bounds, torch.device(device))
+    table = _BLOCKS.get(key)
+    if table is None:
+        table = torch.cat(cfg.block_start_width(device)).contiguous()
+        _BLOCKS[key] = table
+    return table
 
 
 def _i32(x: int) -> int:
@@ -175,7 +178,7 @@ def edge_query_kernel(cfg, planes, src, la, dst, lb, le):
                          f"{cfg.pool_capacity}")
     out = torch.empty((2, H, S, B), dtype=torch.int32, device=key.device)
     build.call("lsk_edge_query", src, la, dst, lb, le,
-               _block_table(cfg, key.get_device()), key, planes.cw, planes.pw,
+               _block_table(cfg, key.device), key, planes.cw, planes.pw,
                pool_key, planes.pool_cw, planes.pool_pw, out[0], out[1], H, S,
                B, cfg.s, d, c, Q, cfg.pool_probes, cfg.n_blocks, cfg.F, cfg.r,
                _i32(cfg.seed))

@@ -1,6 +1,7 @@
 """Vertex and label aggregates on window-reduced planes (port of
 ``repro/kernels/vertex_scan/ops.py``: ``vertex_query_planes``,
-``label_aggregate_planes``).
+``label_aggregate_planes`` and the single-sketch drop-in
+``vertex_query_pallas``).
 
 Vertex aggregates run the line scan on the kernel, plus the pool lookup.
 Label aggregates are a dense masked reduction in plain PyTorch — the
@@ -13,8 +14,8 @@ import torch
 
 from repro_torch.core import hashing as hsh
 from repro_torch.core.lsketch import precompute
-from repro_torch.core.queries import QueryPlanes
-from repro_torch.core.types import EMPTY, LSketchConfig
+from repro_torch.core.queries import QueryPlanes, build_query_planes
+from repro_torch.core.types import EMPTY, LSketchConfig, LSketchState
 
 from .kernel import vertex_scan_kernel_sharded
 
@@ -103,3 +104,21 @@ def label_aggregate_planes(cfg: LSketchConfig, planes: QueryPlanes, vlabel,
         plw = planes.pool_pw[:, :, le_idx].permute(0, 2, 1)  # [S, B, Q]
         wl = wl + _sum32(torch.where(pmatch, plw, 0), -1)
     return w.to(torch.int32), wl.to(torch.int32)
+
+
+def vertex_query_pallas(cfg: LSketchConfig, state: LSketchState, vertex,
+                        labels, direction: str = "out",
+                        last: int | None = None):
+    """Kernel-backed equivalent of ``core.queries.vertex_query`` with the
+    edge label (both outputs, int32 [B]) on one plain state: the window
+    planes of a ``[1, ...]`` view, then the vertex-scan kernel at S = 1.
+    The name is the reference's."""
+    dev = state.key.device
+    t = lambda x: torch.as_tensor(  # noqa: E731
+        x, dtype=torch.int32).to(dev).contiguous()
+    planes = build_query_planes(cfg, state.map(lambda x: x.unsqueeze(0)),
+                                last)
+    w, wl = vertex_query_planes(cfg, planes, t(vertex),
+                                tuple(t(x) for x in labels),
+                                direction=direction, with_le=True)
+    return w[0], wl[0]

@@ -15,6 +15,11 @@ ascending identity). Every top-k takes ``last=`` (the most recent ``last``
 subwindows) or ``horizons=[...]`` (a sweep: ``[H, k]`` rows, row ``i``
 equal to ``last=horizons[i]``), not both. ``reachable_many`` is a batched
 host BFS over the by-identity edge check and successor scan.
+
+An ``lgs`` sketch raises ``NotImplementedError`` (its cells store no keys
+to decode); a ``gss`` sketch has no window, so ``last=`` is dropped and a
+``horizons=`` sweep repeats its one answer. A plain single-shard state is
+lifted to a 1-shard handle over views of its tensors.
 """
 
 from __future__ import annotations
@@ -48,11 +53,29 @@ def _planes_topk(cfg, planes, kind: str, k: int, direction: str, *,
                              kernel=kernel)
 
 
-def _analytics(spec: SketchSpec, state: ShardedState, kind: str, k: int,
+def _handle(state) -> ShardedState:
+    """A handle over ``state``: itself, or a 1-shard view of a plain
+    state."""
+    return state if isinstance(state, ShardedState) else \
+        ShardedState.lift(state)
+
+
+def _analytics(spec: SketchSpec, state, kind: str, k: int,
                direction: str, last, path: str, horizons=None):
+    if spec.kind == "lgs":
+        raise NotImplementedError(
+            "LGS cells store no keys — the reversible cell-owner decode "
+            "needs LSketch/GSS")
     if horizons is not None and last is not None:
         raise ValueError("pass either last= (one horizon) or horizons= "
                          "(a sweep), not both")
+    state = _handle(state)
+    if spec.kind == "gss":
+        if horizons is not None:  # no window ring: one ranking fits all
+            out = _analytics(spec, state, kind, k, direction, None, path)
+            return tuple(x[None].expand((len(horizons),) + x.shape)
+                         for x in out)
+        last = None  # no window ring to restrict
     cfg = spec.config
     path = resolve_query_path(path, state.device)
     if horizons is not None:
@@ -157,9 +180,20 @@ def reachable_many(spec: SketchSpec, state: ShardedState, src, src_label,
     row ``i`` equal to ``last=horizons[i]``: validity masks nest, so the
     loosest horizon runs on the full batch and each tighter one re-walks
     only the pairs still reachable."""
+    if spec.kind == "lgs":
+        raise NotImplementedError(
+            "LGS cells store no keys — successor recovery needs LSketch/GSS")
     if horizons is not None and last is not None:
         raise ValueError("pass either last= (one horizon) or horizons= "
                          "(a sweep), not both")
+    state = _handle(state)
+    if spec.kind == "gss":
+        last = None  # no window ring to restrict
+        if horizons is not None:
+            out = reachable_many(spec, state, src, src_label, dst, dst_label,
+                                 max_hops=max_hops)
+            return np.broadcast_to(out[None],
+                                   (len(horizons),) + out.shape).copy()
     cfg = spec.config
     if horizons is not None:
         horizons = list(horizons)

@@ -20,6 +20,15 @@ ingest returns a new handle, so the cache is never stale. Query batches
 are padded to power-of-two buckets with the ``EMPTY`` sentinel; pad rows
 are sliced off.
 
+A ``gss`` query drops its labels and its window (``normalize_query``); an
+``lgs`` query always takes the scan (count-min cells: no keyed walk, no
+planes), and an ``lgs`` label aggregate raises. A plain single-shard
+state (an object's ``.state``) is accepted and lifted to a fresh 1-shard
+handle over views of its tensors, so its planes live for one call; the
+objects pass their own handle, whose cache lives until their next insert.
+``PLANES_BUILD_COUNTS["build"]`` counts the plane builds (cache misses)
+in the process.
+
 A list ``last`` is a horizon sweep: ``int32 [H, B]`` out, row ``i`` equal
 to ``last=lasts[i]``. ``"scan"`` loops the single-horizon reference;
 ``"cuda"`` answers every row from one horizon-stacked ``MultiPlanes``
@@ -40,7 +49,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import queries as _q
-from repro_torch.core.types import EMPTY, LSketchState
+from repro_torch.core.lgs import _lgs_edge_query, _lgs_vertex_query
+from repro_torch.core.types import EMPTY
 from repro_torch.engine.window import bucket_size
 
 from .spec import SketchSpec
@@ -48,6 +58,7 @@ from .state import ShardedState
 
 PLANES_CACHE_CAP = 8
 _PLANES_ATTR = "_query_planes_cache"
+PLANES_BUILD_COUNTS = {"build": 0}
 
 
 @dataclass(frozen=True)
@@ -84,14 +95,16 @@ class QueryBatch:
                    edge_label=edge_label, direction=direction, last=last)
 
 
-def resolve_query_path(path: str = "auto", device=None) -> str:
-    """Normalize a query path name to "scan" | "cuda"."""
+def resolve_query_path(path: str = "auto", device=None,
+                       kind: str = "lsketch") -> str:
+    """Normalize a query path name to "scan" | "cuda"; an ``lgs`` sketch
+    always takes "scan"."""
     if path == "auto":
         path = "cuda" if torch.device(device or "cpu").type == "cuda" \
             else "scan"
     if path not in ("scan", "cuda"):
         raise ValueError(f"unknown query path {path!r}")
-    return path
+    return "scan" if kind == "lgs" else path
 
 
 def as_i32(x, n: int | None = None, device=None) -> torch.Tensor:
@@ -113,38 +126,47 @@ def pad_all(n: int, *arrays, floor: int = 32):
                  for a in arrays)
 
 
-def normalize_query(q: QueryBatch, device=None):
+def normalize_query(q: QueryBatch, device=None, kind: str = "lsketch"):
     """int32 tensors on ``device``, broadcast and bucket-padded. Returns
     ``(arrays, with_le, last, n)``: ``(src, dst, la, lb, les)`` for edges,
     ``(v, lv, les)`` for vertices, ``(lv, les)`` for labels; ``n`` is the
-    unpadded row count."""
-    with_le = q.edge_label is not None
+    unpadded row count. A ``gss`` sketch (``kind``) drops the labels, the
+    edge label and the window; an ``lgs`` sketch has no label
+    aggregate."""
+    gss = kind == "gss"
+    le, last = (None, None) if gss else (q.edge_label, q.last)
+    with_le = le is not None
+
+    def labels(x, n):
+        return torch.zeros(n, dtype=torch.int32, device=device) if gss \
+            else as_i32(x, n, device)
+
     if q.kind == "edge":
         src, dst = as_i32(q.src), as_i32(q.dst)
         n = max(src.shape[0], dst.shape[0])
         src, dst = as_i32(src, n, device), as_i32(dst, n, device)
-        la = as_i32(q.src_label, n, device)
-        lb = as_i32(q.dst_label, n, device)
-        les = as_i32(q.edge_label, n, device) if with_le \
-            else torch.zeros_like(src)
-        return pad_all(n, src, dst, la, lb, les), with_le, q.last, n
+        la, lb = labels(q.src_label, n), labels(q.dst_label, n)
+        les = as_i32(le, n, device) if with_le else torch.zeros_like(src)
+        return pad_all(n, src, dst, la, lb, les), with_le, last, n
     if q.kind == "vertex":
         v = as_i32(q.vertex, None, device)
         n = v.shape[0]
-        lv = as_i32(q.vertex_label, n, device)
-        les = as_i32(q.edge_label, n, device) if with_le \
-            else torch.zeros_like(v)
-        return pad_all(n, v, lv, les), with_le, q.last, n
+        lv = labels(q.vertex_label, n)
+        les = as_i32(le, n, device) if with_le else torch.zeros_like(v)
+        return pad_all(n, v, lv, les), with_le, last, n
     if q.kind == "label":
-        lv = as_i32(q.vertex_label, None, device)
-        n = lv.shape[0]
-        les = as_i32(q.edge_label, n, device) if with_le \
-            else torch.zeros_like(lv)
-        return pad_all(n, lv, les), with_le, q.last, n
+        if kind == "lgs":
+            raise NotImplementedError(
+                "LGS stores no label blocks; label aggregates need "
+                "LSketch/GSS")
+        n = as_i32(q.vertex_label).shape[0]
+        lv = labels(q.vertex_label, n)
+        les = as_i32(le, n, device) if with_le else torch.zeros_like(lv)
+        return pad_all(n, lv, les), with_le, last, n
     raise ValueError(f"unknown query kind {q.kind!r}")
 
 
-def _with_global_window(shards: LSketchState) -> LSketchState:
+def _with_global_window(shards):
     """A view of the stack in which every shard carries the fleet-wide
     newest subwindow index (the handle's own tensors are not touched)."""
     g = shards.cur_widx.max().expand(shards.cur_widx.shape)
@@ -173,6 +195,7 @@ def _cached(state: ShardedState, ckey, build):
         return cache[ckey]
     while len(cache) >= PLANES_CACHE_CAP:
         cache.popitem(last=False)
+    PLANES_BUILD_COUNTS["build"] += 1
     cache[ckey] = planes = build()
     return planes
 
@@ -204,9 +227,9 @@ def clear_plane_cache(state: ShardedState) -> None:
     setattr(state, _PLANES_ATTR, None)
 
 
-def _per_shard(shards: LSketchState, fn):
+def _per_shard(shards, fn):
     """Sum of ``fn(one shard's state)`` over the stack (the scan path)."""
-    S = shards.key.shape[0]
+    S = shards.leaves()[0].shape[0]
     total = None
     for s in range(S):
         part = fn(shards.map(lambda x: x[s])).to(torch.int64)
@@ -242,7 +265,11 @@ def _query_multi(spec: SketchSpec, state: ShardedState, q: QueryBatch,
     lasts = list(q.last)
     if not lasts:
         raise ValueError("multi-horizon query needs at least one horizon")
-    path = resolve_query_path(path, state.device)
+    path = resolve_query_path(path, state.device, spec.kind)
+    if spec.kind == "gss":  # no window: one answer serves every horizon
+        out = query(spec, state, dataclasses.replace(q, last=None),
+                    path=path)
+        return out[None].expand((len(lasts),) + out.shape)
     if path == "scan":
         return torch.stack([query(spec, state, dataclasses.replace(
             q, last=None if h is None else int(h)), path=path)
@@ -250,7 +277,7 @@ def _query_multi(spec: SketchSpec, state: ShardedState, q: QueryBatch,
     _, sel = _normalize_horizons(spec, lasts)
     planes, uniq = query_planes_multi(spec, state, lasts)
     arrays, with_le, _, n = normalize_query(
-        dataclasses.replace(q, last=None), state.device)
+        dataclasses.replace(q, last=None), state.device, spec.kind)
     if q.kind == "edge":  # every horizon in one launch: [H, B]
         from repro_torch.kernels.sketch_query.ops import edge_query_planes
         src, dst, la, lb, les = arrays
@@ -265,22 +292,37 @@ def _query_multi(spec: SketchSpec, state: ShardedState, q: QueryBatch,
 
 def query(spec: SketchSpec, state: ShardedState, q: QueryBatch,
           path: str = "auto") -> torch.Tensor:
-    """Answer a QueryBatch against a sharded handle: int32 [B] on the
-    state's device, or int32 [H, B] for a list ``last`` (row ``i`` equal
-    to ``last=q.last[i]``)."""
+    """Answer a QueryBatch against a sharded handle (or a plain
+    single-shard state): int32 [B] on the state's device, or int32 [H, B]
+    for a list ``last`` (row ``i`` equal to ``last=q.last[i]``)."""
+    if not isinstance(state, ShardedState):
+        state = ShardedState.lift(state)
     if isinstance(q.last, (list, tuple)):
         return _query_multi(spec, state, q, path)
     shards = state.live()
     cfg = spec.config
-    path = resolve_query_path(path, state.device)
-    arrays, with_le, last, n = normalize_query(q, state.device)
+    path = resolve_query_path(path, state.device, spec.kind)
+    arrays, with_le, last, n = normalize_query(q, state.device, spec.kind)
 
     if path == "cuda":
         planes = query_planes(spec, state, last)
         return _answer_planes(cfg, planes, q, arrays, with_le)[:n]
 
     glob = _with_global_window(shards)
-    if q.kind == "edge":
+    if spec.kind == "lgs":
+        if q.kind == "edge":
+            src, dst, la, lb, les = arrays
+
+            def one(st):
+                return _lgs_edge_query(cfg, st, src, dst, la, lb, les,
+                                       with_le, last)
+        else:
+            v, lv, les = arrays
+
+            def one(st):
+                return _lgs_vertex_query(cfg, st, v, lv, les, with_le,
+                                         q.direction, last)
+    elif q.kind == "edge":
         src, dst, la, lb, les = arrays
 
         def one(st):

@@ -1,8 +1,9 @@
 """SketchSpec — the static identity of a (possibly sharded) sketch, and the
 host hash partition (port of ``repro.sketch.spec`` without routing).
 
-Only ``kind="lsketch"`` is ported; ``"gss"`` and ``"lgs"`` raise
-``NotImplementedError``.
+Kinds: ``"lsketch"`` and ``"gss"`` (the degenerate LSketch of
+``core.gss.gss_config``) take an ``LSketchConfig``, ``"lgs"`` an
+``LGSConfig``.
 """
 
 from __future__ import annotations
@@ -13,10 +14,11 @@ from typing import Any
 
 import numpy as np
 
+from repro_torch.core.gss import gss_config
+from repro_torch.core.lgs import LGSConfig
 from repro_torch.core.types import LSketchConfig
 
 KINDS = ("lsketch", "lgs", "gss")
-PORTED_KINDS = ("lsketch",)
 
 # seed perturbation for the shard-routing hash
 _SHARD_SALT = 0x51AD
@@ -33,13 +35,11 @@ class SketchSpec:
     def __post_init__(self):
         if self.kind not in KINDS:
             raise ValueError(f"kind must be one of {KINDS}, got {self.kind!r}")
-        if self.kind not in PORTED_KINDS:
-            raise NotImplementedError(
-                f"kind {self.kind!r} is not ported to repro_torch yet")
         if self.n_shards < 1:
             raise ValueError(f"n_shards must be >= 1, got {self.n_shards}")
-        if not isinstance(self.config, LSketchConfig):
-            raise TypeError(f"{self.kind} spec requires an LSketchConfig, "
+        want = LGSConfig if self.kind == "lgs" else LSketchConfig
+        if not isinstance(self.config, want):
+            raise TypeError(f"{self.kind} spec requires a {want.__name__}, "
                             f"got {type(self.config).__name__}")
 
     @property
@@ -53,11 +53,13 @@ class SketchSpec:
 def make_spec(kind: str, n_shards: int = 1, config: Any = None,
               **config_kw) -> SketchSpec:
     """Build a spec from a kind plus either a ready config or config kwargs."""
-    if kind not in PORTED_KINDS:
-        raise NotImplementedError(
-            f"kind {kind!r} is not ported to repro_torch yet")
     if config is None:
-        config = LSketchConfig(**config_kw)
+        if kind == "lgs":
+            config = LGSConfig(**config_kw)
+        elif kind == "gss":
+            config = gss_config(**config_kw)
+        else:
+            config = LSketchConfig(**config_kw)
     elif config_kw:
         raise ValueError("pass either config= or config kwargs, not both")
     return SketchSpec(kind=kind, config=config, n_shards=n_shards)

@@ -616,3 +616,188 @@ def test_cuda_prefill_and_decode_match_the_cpu(no_tf32):
              for i in range(96)]
     dec = torch.cat(steps, 1).cpu()
     assert float((dec - got.cpu()).abs().max()) / scale < 1e-5
+
+
+# --------------------------------------------------------------------------
+# the object API at one shard: the single-sketch entries of the insert,
+# probe and scan kernels, GSS's one-block single-bin flush, LGS
+# --------------------------------------------------------------------------
+
+OBJ_CFG = LSketchConfig(d=64, n_blocks=2, F=1024, r=8, s=8, c=16, k=8,
+                        window_size=1440, pool_capacity=64, pool_probes=8)
+
+
+def _object_stream(n=6000, seed=21):
+    rng = np.random.default_rng(seed)
+    return EdgeBatch.from_arrays(
+        rng.integers(0, 400, n), rng.integers(0, 400, n),
+        rng.integers(0, 4, n), rng.integers(0, 4, n), rng.integers(0, 9, n),
+        rng.integers(1, 4, n), np.sort(rng.integers(0, 2880, n)))
+
+
+def _cols(b):
+    return [getattr(b, f) for f in ("src", "dst", "src_label", "dst_label",
+                                    "edge_label", "weight", "time")]
+
+
+@pytest.mark.gpu
+def test_cuda_lsketch_object_matches_plain():
+    """``LSketch.insert`` on the card (the insert and pool kernels at S = 1
+    for batches cut at subwindow boundaries, the scan for a spanning one)
+    against the same object on the CPU (plain versions), leaf for leaf;
+    then its batched, scalar and drop-in queries, equal on both."""
+    _need_card()
+    from repro_torch.core import LSketch
+    from repro_torch.kernels.sketch_insert.ops import \
+        insert_window_batch_pallas
+    from repro_torch.kernels.sketch_query.ops import edge_query_pallas
+    from repro_torch.kernels.vertex_scan.ops import vertex_query_pallas
+
+    b = _object_stream()
+    widx = b.time // OBJ_CFG.subwindow_size
+    cuts = [0] + (np.flatnonzero(np.diff(widx)) + 1).tolist()[:-1]
+    cuts = sorted(set(cuts + [cuts[-1] + 5, len(b)]))  # the last spans
+    objs = {dev: LSketch(OBJ_CFG, insert_path="cuda", query_path="cuda",
+                         device=dev) for dev in ("cpu", "cuda")}
+    before = sketch_insert_kernel_sharded.launches
+    for a, z in zip(cuts[:-1], cuts[1:]):
+        for o in objs.values():
+            o.insert(*[x[a:z] for x in _cols(b)])
+        for x, y in zip(skt.to_numpy(objs["cpu"].state),
+                        skt.to_numpy(objs["cuda"].state)):
+            np.testing.assert_array_equal(x, y)
+    assert sketch_insert_kernel_sharded.launches - before == len(cuts) - 2
+    i = np.arange(0, len(b), 97)
+    e = (b.src[i], b.src_label[i], b.dst[i], b.dst_label[i])
+    lab = (e[1], e[3], b.edge_label[i])
+    out = {}
+    for dev, o in objs.items():
+        out[dev] = [o.edge_weight(*e, le=b.edge_label[i], last=2),
+                    o.vertex_weight(e[0], e[1], direction="in"),
+                    o.label_aggregate(np.arange(4), last=1),
+                    np.array([o.edge_weight(int(e[0][0]), int(e[1][0]),
+                                            int(e[2][0]), int(e[3][0]))]),
+                    *[x.cpu().numpy() for x in edge_query_pallas(
+                        OBJ_CFG, o.state, e[0], e[2], lab, 3)],
+                    *[x.cpu().numpy() for x in vertex_query_pallas(
+                        OBJ_CFG, o.state, e[0], (e[1], lab[2]), "out")]]
+        st = insert_window_batch_pallas(
+            OBJ_CFG, o.state, b.slice(0, 500), int(widx[-1]))
+        out[dev] += skt.to_numpy(st)
+    for x, y in zip(out["cpu"], out["cuda"]):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.fixture(scope="module")
+def gss_spill():
+    """GSS at d = 2048 (one label block, c = 1, k = 1) on the card and on
+    the CPU, fed one flush whose single bin holds more than 2^13 new
+    claims: the insert kernel's claim table overflows into the key plane."""
+    _need_card()
+    from repro_torch.core import GSS, gss_config
+
+    cfg = gss_config(d=2048, pool_capacity=4096)
+    rng = np.random.default_rng(5)
+    n = 12_000
+    src, dst = rng.integers(0, 1 << 24, n), rng.integers(0, 1 << 24, n)
+    dup = rng.random(n) < 0.2  # repeats inside the flush: matches
+    src[dup], dst[dup] = src[:dup.sum()], dst[:dup.sum()]
+    objs = {}
+    for dev in ("cpu", "cuda"):
+        objs[dev] = GSS(cfg, device=dev)
+        objs[dev].insert_path = objs[dev].query_path = "cuda"
+    before = sketch_insert_kernel_sharded.launches
+    for o in objs.values():
+        o.insert(src, dst, weight=np.full(n, 2))
+    assert sketch_insert_kernel_sharded.launches == before + 1
+    return cfg, objs, src, dst
+
+
+@pytest.mark.gpu
+def test_cuda_gss_single_bin_spill_matches_plain(gss_spill):
+    cfg, objs, src, dst = gss_spill
+    assert int((objs["cpu"].state.key != -1).sum()) > 1 << 13
+    for x, y in zip(skt.to_numpy(objs["cpu"].state),
+                    skt.to_numpy(objs["cuda"].state)):
+        np.testing.assert_array_equal(x, y)
+    for direction in ("out", "in"):
+        a = objs["cpu"].vertex_weight(src[:300], 0, direction=direction)
+        b = objs["cuda"].vertex_weight(src[:300], 0, direction=direction)
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(objs["cpu"].edge_weight(src, 0, dst, 0),
+                                  objs["cuda"].edge_weight(src, 0, dst, 0))
+
+
+@pytest.mark.gpu
+def test_cuda_one_block_kernels_match_plain(gss_spill):
+    """The edge probe (both entries), the vertex scan (both directions) and
+    the cell decode at n_blocks = 1, c = 1, b = d = 2048, on the spilled
+    GSS planes, against their plain versions."""
+    cfg, objs, src, dst = gss_spill
+    spec, handle = objs["cuda"].spec, objs["cuda"].handle
+    planes = skt.query_planes(spec, handle)
+    assert planes.cw.shape == (1, 2, 2048, 2048) and cfg.b == 2048
+    t = lambda x: _t(x).cuda()  # noqa: E731
+    z = torch.zeros(len(src), dtype=torch.int32, device="cuda")
+    got = edge_query_kernel(cfg, planes, t(src), z, t(dst), z, None)
+    want = edge_query_plain(cfg, planes, t(src), z, t(dst), z, None)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    pr = edge_probes(cfg, precompute(cfg, t(src), z), precompute(cfg, t(dst),
+                                                               z))
+    args = (pr.rows.contiguous(), pr.cols.contiguous(), pr.keys.contiguous(),
+            None, planes.key, planes.cw, planes.pw)
+    for a, b in zip(sketch_query_kernel_sharded(*args),
+                    sketch_query_plain(*args)):
+        assert torch.equal(a, b)
+    from repro_torch.kernels.vertex_scan.ops import scan_lines
+    pre, lines = scan_lines(cfg, t(src[:2000]), z[:2000])
+    for direction in ("out", "in"):
+        kw = dict(r=cfg.r, F=cfg.F, direction=direction)
+        a = vertex_scan_kernel_sharded(lines, pre.f.contiguous(), None,
+                                       planes.key, planes.cw, planes.pw,
+                                       **kw)
+        b = vertex_scan_plain(lines, pre.f.contiguous(), None, planes.key,
+                              planes.cw, planes.pw, **kw)
+        torch.cuda.synchronize()
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    kw = dict(starts=(0,), widths=(2048,), r=cfg.r, F=cfg.F)
+    for a, b in zip(cell_decode_kernel_sharded(planes.key, **kw),
+                    cell_decode_plain(planes.key, **kw)):
+        assert torch.equal(a, b)
+    for path in ("cuda", "scan"):
+        top = skt.heavy_edges(spec, handle, 16, path=path)
+        assert [x.cpu().tolist() for x in top] == [
+            x.tolist() for x in skt.heavy_edges(
+                spec, objs["cpu"].handle, 16, path="scan")]
+
+
+@pytest.mark.gpu
+def test_cuda_lgs_handle_matches_cpu_replay():
+    """The ``lgs`` kind at 4 shards on the card (count-min scatter-adds)
+    against the same flushes on the CPU, leaf for leaf, and its queries."""
+    _need_card()
+    from repro_torch.core import LGS
+
+    b = _object_stream(n=5000, seed=8)
+    spec = skt.make_spec("lgs", n_shards=4, d=128, copies=6, c=16, k=8,
+                         window_size=1440)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        st = skt.create(spec, device=dev)
+        for a in range(0, len(b), 1300):
+            st = skt.ingest(spec, st, b.slice(a, a + 1300))
+        i = np.arange(0, len(b), 31)
+        out[dev] = skt.to_numpy(st) + [
+            skt.query(spec, st, skt.QueryBatch.edges(
+                b.src[i], b.src_label[i], b.dst[i], b.dst_label[i],
+                b.edge_label[i], last=[None, 2])).cpu().numpy(),
+            skt.query(spec, st, skt.QueryBatch.vertices(
+                b.src[i], b.src_label[i], direction="in")).cpu().numpy()]
+        obj = LGS(spec.config, device=dev).insert(*_cols(b))
+        out[dev] += skt.to_numpy(obj.state) + [
+            obj.vertex_weight(b.src[i], b.src_label[i], le=b.edge_label[i])]
+    for x, y in zip(out["cpu"], out["cuda"]):
+        np.testing.assert_array_equal(x, y)

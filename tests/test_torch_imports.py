@@ -37,7 +37,7 @@ def test_port_and_chip_smoke_import_neither_jax_nor_repro():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     n_mods = int(out.stdout.split()[0])
-    assert n_mods >= 47
+    assert n_mods >= 50
 
 
 SPEC = dict(d=16, n_blocks=2, F=256, r=4, s=4, c=4, k=4, window_size=100,
@@ -116,8 +116,11 @@ def test_ingest_spends_the_old_handle_and_starts_a_cold_cache():
 
 @pytest.mark.parametrize("kind", ["gss", "lgs"])
 def test_unported_kinds_raise(kind):
-    with pytest.raises(NotImplementedError):
-        tskt.make_spec(kind, n_shards=1)
+    """Every kind of the reference is ported now: ``gss`` and ``lgs`` make
+    specs, and only a kind the reference lacks raises."""
+    assert tskt.make_spec(kind, n_shards=1).kind == kind
+    with pytest.raises(ValueError, match="kind must be one of"):
+        tskt.make_spec(kind + "x", n_shards=1)
 
 
 def test_dense_vertex_scan_is_independent_of_its_query_chunk():
@@ -205,6 +208,28 @@ def test_chip_smoke_rehearses_on_the_cpu(monkeypatch, capsys):
     assert "reachable" in capsys.readouterr().out
     profile = chip_smoke.profile_ingest(spec, state, stream, flushes, tag)
     assert profile["profile_launches"] == 0  # the CPU launches nothing
+    del state
+
+    # phase O at a tiny size: the GSS replay runs in its child process
+    from repro_torch.core import LGSConfig, gss_config
+    for name, value in (("OBJ_EDGES", 6000), ("N_SCALAR", 12),
+                        ("N_OBJ_REACH", 4), ("N_SUBGRAPHS", 4),
+                        ("DROP_IN_EDGES", 300),
+                        ("GSS_CFG", gss_config(d=32, pool_capacity=64)),
+                        ("LGS_CFG", LGSConfig(d=32, copies=6, c=16, k=8,
+                                              window_size=1440))):
+        monkeypatch.setattr(chip_smoke, name, value)
+    obj_rows, o_launches, obj_out = chip_smoke.object_phase(dev, tag)
+    out = capsys.readouterr().out
+    for phase in ("O1", "O2", "O3", "O4", "O5", "O6"):
+        assert f"phase {phase} " in out, phase
+    assert out.count("CPU replay through the plain versions vs the card, "
+                     "leaf for leaf: equal") == 3
+    assert out.count("vs the card, leaf for leaf: equal") == 5
+    assert obj_out["lsketch"]["plane_builds"] == 2
+    assert obj_out["gss"]["query_mismatches"] == 0
+    assert set(obj_rows) == set(chip_smoke.OBJECT_KERNELS)
+    results.update(obj_rows)
 
     # L1-L3 at the reduced Qwen3 config: the kernel's plain version on the
     # CPU, so the card-only launch and TF32 checks are not run
@@ -231,10 +256,11 @@ def test_chip_smoke_rehearses_on_the_cpu(monkeypatch, capsys):
     assert "3 of 3 requests done" in capsys.readouterr().out
 
     kernels = chip_smoke.kernel_entries(
-        results, {n: 0 for n in chip_smoke.WRAPPERS})
-    json.dumps({"kernels": kernels, **lm_out})
-    assert [k["mismatches"] for k in kernels] == [0] * 6
-    assert {k["name"] for k in kernels} == set(chip_smoke.WRAPPERS)
+        results, {n: 0 for n in chip_smoke.KERNELS})
+    json.dumps({"kernels": kernels, "object": obj_out, **lm_out})
+    assert [k["mismatches"] for k in kernels] == [0] * 9
+    assert {k["name"] for k in kernels} == set(chip_smoke.WRAPPERS) | set(
+        chip_smoke.OBJECT_KERNELS) == set(chip_smoke.KERNELS)
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     assert all(keys <= set(k) for k in kernels)
@@ -267,7 +293,15 @@ def test_chip_smoke_rehearses_on_the_cpu(monkeypatch, capsys):
             96 * ((cfg.r + 2) * 4 + 2 * S * 4),
             # the key plane read once, two owner planes written once
             "cell_decode_kernel_sharded": 3 * S * 2 * d * d * 4 +
-            2 * cfg.n_blocks * 4}
+            2 * cfg.n_blocks * 4,
+            # the single-sketch entries at S = 1: a flush of the object
+            # stream, and the fused probe and the scan on 96 queries
+            "sketch_insert_kernel": 2 * plane // S + 6000 * (
+                (3 * cfg.s + 4) * 4 + 1),
+            "sketch_query_kernel": 2 * d * d * 4 * (2 + cfg.c) +
+            cfg.pool_capacity * 4 * (3 + cfg.c) + 2 * cfg.n_blocks * 4 +
+            96 * (5 * 4 + 2 * 4),
+            "vertex_scan_kernel": plane // S + 96 * ((cfg.r + 2) * 4 + 2 * 4)}
     for k in kernels:
         if k["name"] == "flash_attention_kernel":
             continue  # operations bound, checked above

@@ -61,6 +61,21 @@ Phases (any failure raises, so the exit code is non-zero):
   7. a profiler trace of two replayed flushes (where ingest time goes:
      host ms by stage, the pool pass's share of the trace's host time,
      the card's busy share and the number of cudaLaunchKernel calls);
+  S. (the 4-shard state freed) the streaming loop on a fresh handle of
+     the deployment: the COMFS analog at its own 500,000 edges through
+     ``AsyncIngestor`` in batches of <= 16,384 cut at subwindow
+     boundaries; after each dispatched batch a 1,024-query edge batch at
+     last=None and a sweep at last in (None, 1, 4) on planes kept by
+     flush deltas (a flush that enters a new subwindow moves the ring and
+     its planes are built: the rounds of each kind must be the predicted
+     ones, and some folded). S2 every 8th round and the last: the planes
+     and answers against cold builds, exactly; S3 the final answers
+     one-sided against ``GroundTruth`` (est >= truth - pool_lost); S4
+     pure-ingest passes of ``AsyncIngestor`` and synchronous ``ingest``
+     (sync, async, async, sync, then one profiled pass of each: edges/s
+     and the card's busy share), each final state equal to the loop's
+     leaf for leaf; fold and build ms, the bytes of a delta link and the
+     peak device memory;
   O. (the 4-shard state freed) the object API at one shard over the
      COMFS analog at its own 500,000 edges, in batches cut at subwindow
      boundaries plus one straddling batch: O1 ``LSketch.insert`` at CFG
@@ -94,10 +109,11 @@ Phases (any failure raises, so the exit code is non-zero):
   8. one JSON line of the kernels and the end-to-end numbers, the card
      line, and the result line.
 
-Four paths count kernel launches, each from 0 just before it: the sketch
+Five paths count kernel launches, each from 0 just before it: the sketch
 path (phases 4 and 5), the analytics path (phase 6b, before its
-comparisons), the object path (phase O, before its comparisons; the
-single-sketch rows' launches) and the prefill (L2, the kernel forward). Each kernel's
+comparisons), the streaming loop (phase S1-S2, reported in its numbers),
+the object path (phase O, before its comparisons; the single-sketch
+rows' launches) and the prefill (L2, the kernel forward). Each kernel's
 ``launches`` in the JSON line is from the path it was ported for.
 TF32 is off throughout (the models are f32), except in the one forward
 of L2 that shows the tolerance would catch it.
@@ -134,7 +150,8 @@ from repro_torch.core.lsketch import (edge_probes, precompute,  # noqa: E402
                                       valid_slot_mask)
 from repro_torch.core.types import (LEAVES, LSketchConfig,  # noqa: E402
                                     LSketchState, init_leaves)
-from repro_torch.data.stream import COMFS, generate  # noqa: E402
+from repro_torch.data.stream import (COMFS, GroundTruth,  # noqa: E402
+                                     generate)
 from repro_torch.engine import insert as eng  # noqa: E402
 from repro_torch.engine.window import WindowRing  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
@@ -224,6 +241,17 @@ GSS_CFG = gss_config(d=2048, pool_capacity=16384)
 LGS_CFG = LGSConfig(d=1024, copies=6, c=16, k=8,
                     window_size=COMFS.window_size)
 
+# phase S, the streaming loop on the main path's deployment: the COMFS
+# analog at its own length through AsyncIngestor, in batches cut at
+# subwindow boundaries (none takes the scan route); after each dispatched
+# batch an edge batch at last=None and a horizon sweep, so that the
+# single and the stacked fold both run; every CHECK_EVERY-th round and
+# the last held to cold builds
+STREAM_EDGES = COMFS.n_edges
+STREAM_FLUSH = 16_384
+SWEEP = (None, 1, 4)
+CHECK_EVERY = 8
+
 # the LM phases: Qwen3-8B at full width (configs/qwen3_8b.py)
 LM_ARCH = "qwen3-8b"
 LM_REDUCED = False
@@ -262,6 +290,7 @@ MAIN_PATH = ("sketch_insert_kernel_sharded", "pool_pass_kernel_sharded",
 ANALYTICS_PATH = ("cell_decode_kernel_sharded",
                   "sketch_query_kernel_sharded", "vertex_scan_kernel_sharded")
 OBJECT_PATH = MAIN_PATH + ("cell_decode_kernel_sharded",)
+STREAM_PATH = MAIN_PATH[:3]  # phase S asks edge queries only
 # the single-sketch entries' rows: the wrapper whose launches each counts
 OBJECT_KERNELS = {"sketch_insert_kernel": "sketch_insert_kernel_sharded",
                   "sketch_query_kernel": "sketch_query_kernel_sharded",
@@ -365,24 +394,35 @@ def diff(pairs):
     return n_bad, err
 
 
+def _subwindow_bounds(time_col: np.ndarray, subwindow: int) -> list:
+    widx = time_col // subwindow
+    return (np.flatnonzero(np.diff(widx)) + 1).tolist()
+
+
+def _chunked(seg_edges, max_flush: int, keep=()) -> list:
+    """Cuts of the segments between ``seg_edges`` into near-equal flushes
+    of at most ``max_flush`` edges (a segment in ``keep`` stays whole)."""
+    cuts = [0]
+    for a, z in zip(seg_edges[:-1], seg_edges[1:]):
+        if (a, z) in keep:
+            cuts.append(z)
+            continue
+        n_chunks = -(-(z - a) // max_flush)
+        step = -(-(z - a) // n_chunks)
+        cuts.extend(list(range(a + step, z, step)) + [z])
+    return cuts
+
+
 def flush_cuts(time_col: np.ndarray, subwindow: int):
     """Flush boundaries: every subwindow boundary and every MAX_FLUSH edges
     within a subwindow — except one boundary near the middle, which a
     SPAN_FLUSH-edge flush straddles. Returns (cuts, index of that flush)."""
-    widx = time_col // subwindow
-    bounds = (np.flatnonzero(np.diff(widx)) + 1).tolist()
+    bounds = _subwindow_bounds(time_col, subwindow)
     mid = bounds[len(bounds) // 2]
     lo, hi = mid - SPAN_FLUSH // 2, mid + SPAN_FLUSH // 2
     seg_edges = sorted(set([0] + [b for b in bounds if b != mid]
                            + [lo, hi, len(time_col)]))
-    cuts = [0]
-    for a, z in zip(seg_edges[:-1], seg_edges[1:]):
-        if (a, z) == (lo, hi):
-            cuts.append(z)
-            continue
-        n_chunks = -(-(z - a) // MAX_FLUSH)
-        step = -(-(z - a) // n_chunks)
-        cuts.extend(list(range(a + step, z, step)) + [z])
+    cuts = _chunked(seg_edges, MAX_FLUSH, keep=((lo, hi),))
     return cuts, cuts.index(lo)
 
 
@@ -1201,6 +1241,16 @@ def check_analytics(cfg, spec, state, got, tag) -> dict:
         nbytes=nbytes, shape=f"key {list(key.shape)}")}
 
 
+def device_us(events) -> float:
+    """Device time of a profiler trace as the profiler's own table sums
+    it: CUDA-side events that are not user annotations (a range's
+    device-side twin spans its whole window and would count idle time as
+    busy)."""
+    return sum(e.self_device_time_total for e in events
+               if e.device_type.name == "CUDA"
+               and not getattr(e, "is_user_annotation", False))
+
+
 def profile_ingest(spec, state, stream, flushes, tag):
     """Phase 7: a profiler trace over a replay of the last two flushes (the
     same subwindow, so the ring does not move); the ``lsketch.*`` ranges
@@ -1216,12 +1266,7 @@ def profile_ingest(spec, state, stream, flushes, tag):
         _sync()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
-    # device time as the profiler's own table sums it: CUDA-side events
-    # that are not user annotations (a range's device-side twin spans its
-    # whole window and would count idle time as busy)
-    dev_us = sum(e.self_device_time_total for e in events
-                 if e.device_type.name == "CUDA"
-                 and not getattr(e, "is_user_annotation", False))
+    dev_us = device_us(events)
     stages = {e.key: e.cpu_time_total / 1e3 for e in events
               if e.key.startswith("lsketch.") and e.device_type.name == "CPU"}
     launches = sum(e.count for e in events
@@ -2181,6 +2226,257 @@ def object_phase(dev, tag):
     return rows, launches, numbers
 
 
+# --------------------------------------------------------------------------
+# phase S: the streaming loop
+# --------------------------------------------------------------------------
+
+def stream_batches(cfg, stream):
+    """Phase S's batches: cut at every subwindow boundary and every
+    STREAM_FLUSH edges within a subwindow. Returns (batches, the indices
+    of the batches that enter a new subwindow: their flushes move the
+    ring, so the planes after them must be built)."""
+    bounds = _subwindow_bounds(stream.time, cfg.subwindow_size)
+    cuts = _chunked([0] + bounds + [len(stream)], STREAM_FLUSH)
+    starts = set([0] + bounds)
+    return ([stream.slice(a, z) for a, z in zip(cuts[:-1], cuts[1:])],
+            [i for i, a in enumerate(cuts[:-1]) if a in starts])
+
+
+def _plane_leaves(p) -> list:
+    return [p.key, p.cw, p.pw, p.pool_key, p.pool_cw, p.pool_pw]
+
+
+def _leaf_bytes(xs) -> int:
+    return sum(x.numel() * x.element_size() for x in xs)
+
+
+def _link_bytes(st) -> int:
+    """The bytes of the newest link of a handle's pending delta chain (a
+    function of its own, so that no reference to the chain outlives the
+    call)."""
+    attr = importlib.import_module("repro_torch.sketch.query")._PENDING_ATTR
+    d = getattr(st, attr)[1][-1]
+    return _leaf_bytes([d.ok, d.slot, d.d_c, d.d_p, d.d_pool_c, d.d_pool_p])
+
+
+def check_round(spec, st, qs, answers) -> tuple:
+    """Phase S2 at one round: the handle's planes (folded or built) leaf
+    for leaf against a cold build on the same tensors (a fresh handle over
+    them), and the round's answers against the cold planes' answers.
+    Returns (mismatches, the cold builds' ms)."""
+    cold = skt.ShardedState(st.live())
+    (c1, (cm, _)), sec = _timed(lambda: (
+        skt.query_planes(spec, cold, None),
+        skt.query_planes_multi(spec, cold, list(SWEEP))))
+    f1 = skt.query_planes(spec, st, None)
+    fm, _ = skt.query_planes_multi(spec, st, list(SWEEP))
+    pairs = list(zip(_plane_leaves(f1), _plane_leaves(c1))) + \
+        list(zip(_plane_leaves(fm), _plane_leaves(cm)))
+    pairs += [(skt.query(spec, cold, q, path="cuda"), a)
+              for q, a in zip(qs, answers)]
+    bad, _ = diff(pairs)
+    return bad, 1e3 * sec
+
+
+def stream_loop(spec, batches, qs, dev, tag) -> dict:
+    """Phase S1-S2: ``AsyncIngestor`` (kernel route) fed the batches; after
+    each dispatched batch (``ing.dispatched``, the pipeline kept) and after
+    the final flush, the planes of ``last=None`` and of the sweep are
+    fetched (a fold of the flush's delta, or a build) and the two query
+    batches answered on them; every CHECK_EVERY-th round and the last
+    are held to cold builds. Returns the final handle and the rounds."""
+    rounds, link_bytes, checks = [], 0, []
+    peaks = dict(ingest=0, planes=0, queries=0, check=0)
+
+    def peak(stage):  # the stage's peak device memory, then a fresh count
+        peaks[stage] = max(peaks[stage], torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+
+    ing = skt.AsyncIngestor(spec, path="cuda", device=dev)
+    t_loop = time.perf_counter()
+    for i in range(len(batches) + 1):
+        if i < len(batches):
+            _, sec_in = _timed(lambda: ing.submit(batches[i]))
+            peak("ingest")
+            if i == 0:
+                continue  # staged: nothing dispatched yet
+            st = ing.dispatched
+        else:
+            st, sec_in = _timed(ing.flush)
+            peak("ingest")
+        r = len(rounds)
+        before = dict(skt.PLANES_BUILD_COUNTS)
+        _, sec_pl = _timed(lambda: (
+            skt.query_planes(spec, st, None),
+            skt.query_planes_multi(spec, st, list(SWEEP))))
+        peak("planes")
+        moved = {k: skt.PLANES_BUILD_COUNTS[k] - v
+                 for k, v in before.items()}
+        answers, sec_q = _timed(lambda: [
+            skt.query(spec, st, q, path="cuda") for q in qs])
+        peak("queries")
+        kind = "delta" if moved["delta"] == 2 and not moved["build"] \
+            else "build" if moved["build"] == 2 and not moved["delta"] \
+            else f"mixed {moved}"
+        if kind == "delta" and not link_bytes:
+            link_bytes = _link_bytes(st)
+        rounds.append(dict(kind=kind, ingest_ms=1e3 * sec_in,
+                           planes_ms=1e3 * sec_pl,
+                           query_ms=1e3 * sec_q))
+        if r % CHECK_EVERY == 0 or i == len(batches):
+            bad, cold_ms = check_round(spec, st, qs, answers)
+            peak("check")
+            checks.append(dict(round=r, kind=kind, mismatches=bad,
+                               cold_build_ms=cold_ms))
+            _log(f"phase S2 round {r} ({kind}): planes and answers vs "
+                 f"a cold build: mismatches={bad}; cold build of "
+                 f"last=None and the sweep {cold_ms:.2f} ms, this "
+                 f"round's planes {1e3 * sec_pl:.2f} ms {tag}")
+    loop_s = time.perf_counter() - t_loop
+    return dict(final=st, answers=answers, rounds=rounds, checks=checks,
+                link_bytes=link_bytes, loop_s=loop_s, peaks=peaks)
+
+
+def ingest_pass(spec, batches, dev, pipelined: bool, profiled: bool):
+    """One pure-ingest pass of the batches into a fresh handle (made
+    before the timed region): ``AsyncIngestor`` (submit each, flush at the
+    end) or synchronous ``ingest``. Returns (the handle, seconds, the
+    card's busy share under the profiler, or None)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    state = skt.create(spec, device=dev)
+
+    def run():
+        if pipelined:
+            ing = skt.AsyncIngestor(spec, state, path="cuda")
+            for b in batches:
+                ing.submit(b)
+            return ing.flush()
+        st = state
+        for b in batches:
+            st = skt.ingest(spec, st, b, path="cuda")
+        return st
+
+    if not profiled:
+        return (*_timed(run), None)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out, sec = _timed(run)
+    return out, sec, device_us(prof.key_averages()) / 1e6 / sec
+
+
+def _leaves_differ(a, b) -> list:
+    return [n for n, x, y in zip(LEAVES, a.live().leaves(),
+                                 b.live().leaves()) if not torch.equal(x, y)]
+
+
+def stream_phase(cfg, spec, dev, tag):
+    """Phase S: the streaming loop on a fresh handle of the deployment
+    (S1-S2, launches counted from 0 over it), the exact truth (S3: the
+    final state against synchronous ingest of the same batches, and the
+    final answers one-sided against ``GroundTruth``), and pure-ingest
+    passes of ``AsyncIngestor`` against ``ingest`` (S4: timed in the
+    order sync, async, async, sync, then one profiled pass of each).
+    Returns (the launches, the numbers)."""
+    stream = generate(dataclasses.replace(COMFS, n_edges=STREAM_EDGES),
+                      seed=SEED, weighted=True)
+    batches, enters = stream_batches(cfg, stream)
+    qi = query_inputs(cfg, stream)
+    qs = (query_batch(qi, "edge", False, None),
+          query_batch(qi, "edge", False, list(SWEEP)))
+    n = len(stream)
+    want = ["build" if i in enters else "delta" for i in range(len(batches))]
+    _log(f"phase S: {n} edges in {len(batches)} batches of <= "
+         f"{STREAM_FLUSH}, {len(enters)} entering a new subwindow: expect "
+         f"{want.count('build')} rounds built and {want.count('delta')} "
+         f"folded (2 planes a round: last=None and the sweep {SWEEP})")
+    at_start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    names = STREAM_PATH if dev.type == "cuda" else ()
+    loop, launches = count_launches(names, lambda: stream_loop(
+        spec, batches, qs, dev, tag))
+    peak = max(loop["peaks"].values())
+    got = [r["kind"] for r in loop["rounds"]]
+    bad = sum(c["mismatches"] for c in loop["checks"])
+    med = lambda xs: float(np.median(xs)) if xs else float("nan")  # noqa
+    by = {k: [r for r in loop["rounds"] if r["kind"] == k]
+          for k in ("delta", "build")}
+    out = dict(
+        edges=n, batches=len(batches), rounds_delta=len(by["delta"]),
+        rounds_build=len(by["build"]), check_mismatches=bad,
+        checked_rounds=[c["round"] for c in loop["checks"]],
+        fold_ms=med([r["planes_ms"] for r in by["delta"]]),
+        build_in_loop_ms=med([r["planes_ms"] for r in by["build"]]),
+        cold_build_ms=med([c["cold_build_ms"] for c in loop["checks"]]),
+        query_ms=med([r["query_ms"] for r in loop["rounds"]]),
+        ingest_ms=med([r["ingest_ms"] for r in loop["rounds"]]),
+        link_bytes=loop["link_bytes"], peak_memory_bytes=peak,
+        peak_memory_by_stage=loop["peaks"], memory_at_start=at_start,
+        loop_edges_per_s=n / loop["loop_s"], launches=launches)
+    _log(f"phase S1 loop: {n} edges, {len(batches)} rounds in "
+         f"{loop['loop_s']:.3f} s ({out['loop_edges_per_s']:.0f} edges/s "
+         f"with the queries); rounds folded {out['rounds_delta']}, built "
+         f"{out['rounds_build']}; planes per round (last=None and the "
+         f"sweep): fold {out['fold_ms']:.3f} ms, build in the loop "
+         f"{out['build_in_loop_ms']:.3f} ms, cold build at the checks "
+         f"{out['cold_build_ms']:.3f} ms (medians); the two query batches "
+         f"{out['query_ms']:.3f} ms, a submit {out['ingest_ms']:.3f} ms; "
+         f"one delta link {out['link_bytes']} bytes; peak device memory "
+         f"{peak} bytes (by stage {loop['peaks']}; {at_start} bytes "
+         f"allocated at the start); launches {launches} {tag}")
+    if got != want or not out["rounds_delta"]:
+        raise AssertionError(f"phase S rounds {got} != predicted {want}")
+    if bad:
+        raise AssertionError(f"phase S: {bad} mismatches against cold "
+                             f"builds")
+
+    final, (w, W) = loop["final"], loop["answers"]
+    lost = int(final.live().pool_lost.sum())
+    gt = GroundTruth(stream.spec, cfg.k).insert_stream(stream)
+    if not torch.equal(w, W[SWEEP.index(None)]):
+        raise AssertionError("phase S3: last=None and its sweep row differ")
+    under = 0
+    for row, last in zip(W, SWEEP):
+        truth = torch.tensor([gt.edge_weight(int(a), int(b), None, last)
+                              for a, b in zip(qi["src"], qi["dst"])])
+        est = row.cpu().long()
+        under += int((est < truth - lost).sum())
+        exact = float((est == truth).float().mean())
+        _log(f"phase S3 last={last}: {len(truth)} edge answers vs "
+             f"GroundTruth: est >= truth - pool_lost ({lost}) fails "
+             f"{int((est < truth - lost).sum())}; exact {exact:.4f}, mean "
+             f"over-count {float((est - truth).float().mean()):.4f}")
+    out.update(truth_violations=under, pool_lost=lost)
+    if under:
+        raise AssertionError("phase S3: an estimate under-counts the truth")
+    skt.clear_plane_cache(final)
+    torch.cuda.empty_cache()
+
+    times = {"sync": [], "async": []}
+    for label in ("sync", "async", "async", "sync", "async*", "sync*"):
+        st, sec, busy = ingest_pass(spec, batches, dev,
+                                    pipelined=label.startswith("async"),
+                                    profiled=label.endswith("*"))
+        differ = _leaves_differ(final, st)
+        busy_txt = "" if busy is None else f" (profiled: card busy {busy:.4f})"
+        _log(f"phase S4 {label.rstrip('*')} pass{busy_txt}: {n / sec:.0f} "
+             f"edges/s ({1e3 * sec:.1f} ms); final state vs the loop's, "
+             f"leaf for leaf: "
+             f"{'equal' if not differ else 'DIFFER ' + str(differ)} {tag}")
+        if differ:
+            raise AssertionError(f"phase S4: the {label} pass differs in "
+                                 f"{differ}")
+        if busy is None:
+            times[label].append(n / sec)
+        else:
+            out[f"{label.rstrip('*')}_busy_share"] = busy
+        del st
+        torch.cuda.empty_cache()
+    out.update(async_edges_per_s=times["async"],
+               sync_edges_per_s=times["sync"])
+    return out
+
+
 def deployment():
     """The spec, the seeded stream and its flushes ``[(a, z)]``, with the
     index of the boundary-spanning flush."""
@@ -2285,7 +2581,10 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     profile = profile_ingest(spec, state, stream, flushes, tag)
-    del state  # phase O and the LM phases start from an empty card
+    del state  # phases S, O and the LM phases start from an empty card
+    torch.cuda.empty_cache()
+
+    stream_out = stream_phase(cfg, spec, dev, tag)  # phase S
     torch.cuda.empty_cache()
 
     obj_rows, o_launches, obj_out = object_phase(dev, tag)  # phase O
@@ -2310,7 +2609,8 @@ def main() -> int:
                       "analytics_peak_memory_bytes": a_peak,
                       "ingest_edges_per_s": edges_per_s,
                       "ingest_kernel_route_edges_per_s": kernel_edges_per_s,
-                      "object": obj_out, **profile, **lm_out,
+                      "stream": stream_out, "object": obj_out,
+                      **profile, **lm_out,
                       "seconds": seconds}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,6 +6,7 @@ object API (port of ``repro.core``):
   edge_query / vertex_query / vertex_label_aggregate / successor_scan /
   path_reachability / subgraph_query (queries)
   GSS / gss_config, LGS / LGSConfig / LGSState / lgs_init_state (baselines)
+  PrimeLSketch (paper-literal oracle), theory (Theorem 1 bounds)
   heavy_hitter_edges / heavy_hitter_vertices / triangle_estimate
 """
 
@@ -17,7 +18,8 @@ from .queries import (edge_query, path_reachability, subgraph_query,
                       successor_scan, vertex_label_aggregate, vertex_query)
 from .gss import GSS, gss_config
 from .lgs import LGS, LGSConfig, LGSState, lgs_init_state
-from . import hashing
+from .ref_prime import PrimeLSketch
+from . import hashing, theory
 from .analytics import (heavy_hitter_edges, heavy_hitter_vertices,
                         triangle_estimate)
 
@@ -27,6 +29,7 @@ __all__ = [
     "insert_window_batch", "precompute", "valid_slot_mask", "window_index",
     "edge_query", "path_reachability", "subgraph_query", "successor_scan",
     "vertex_label_aggregate", "vertex_query", "GSS", "gss_config", "LGS",
-    "LGSConfig", "LGSState", "lgs_init_state", "hashing",
+    "LGSConfig", "LGSState", "lgs_init_state", "PrimeLSketch", "hashing",
+    "theory",
     "heavy_hitter_edges", "heavy_hitter_vertices", "triangle_estimate",
 ]

@@ -1,6 +1,7 @@
 """Window-reduced query planes and the dense reference queries
 (port of ``repro.core.queries``: ``QueryPlanes``, ``build_query_planes``,
-``MultiPlanes``, ``build_query_planes_multi``, ``edge_query``,
+``MultiPlanes``, ``build_query_planes_multi``, the flush delta
+``PlanesDelta`` with ``apply_planes_delta(_multi)``, ``edge_query``,
 ``vertex_query``, ``vertex_label_aggregate``, the by-identity edge check
 and successor scan behind reachability, ``successor_scan``,
 ``path_reachability``, ``subgraph_query``, and the scalar query methods
@@ -154,6 +155,103 @@ def build_query_planes_multi(cfg: LSketchConfig, state: LSketchState,
                        pool_key=state.pool_key.expand(
                            (H,) + state.pool_key.shape),
                        pool_cw=pool_cw, pool_pw=pool_pw)
+
+
+@dataclass
+class PlanesDelta:
+    """Additive contribution of one ingest flush to cached planes. The
+    planes are linear in the C/P/pool counters under a fixed validity
+    mask, so a flush that neither resets a ring slot nor advances
+    ``cur_widx`` changes every horizon's planes by exactly the increments
+    it wrote, all in one ring slot per shard (the flush was one subwindow
+    segment). The engine records it around its insert
+    (``engine.insert.insert_stacked_fused_impl(emit_delta=True)``).
+
+    ok      : [S] bool      per shard row: one segment and no slot reset
+                            (that row's ring is unchanged); the query
+                            layer folds a chain only when every row of
+                            every link holds
+    slot    : [S]           the one ring slot each row's flush touched
+    d_c     : [S, d, d, 2]  C increment at that slot (post - pre)
+    d_p     : [S, d, d, 2, c]
+    d_pool_c: [S, Q]
+    d_pool_p: [S, Q, c]
+    """
+
+    ok: torch.Tensor
+    slot: torch.Tensor
+    d_c: torch.Tensor
+    d_p: torch.Tensor
+    d_pool_c: torch.Tensor
+    d_pool_p: torch.Tensor
+
+
+def _fold(base: torch.Tensor, d: torch.Tensor, live: dict) -> torch.Tensor:
+    """A new plane: ``base[idx] + d[s]`` where ``live[idx]`` holds (``idx``
+    is ``(s,)``, or ``(h, s)`` for horizon-stacked planes), a copy of
+    ``base[idx]`` elsewhere. ``d[s]`` is in the state's layout and is read
+    through a view permuted to the planes' twin-leading one. One add or
+    copy per row: nothing the size of ``d`` times a mask is made."""
+    out = torch.empty_like(base)
+    for idx, v in live.items():
+        if v:
+            dd = d[idx[-1]]
+            if dd.dim() >= 3:  # [d, d, 2(, c)] -> [2, d, d(, c)]
+                dd = dd.movedim(2, 0)
+            torch.add(base[idx], dd, out=out[idx])
+        else:
+            out[idx].copy_(base[idx])
+    return out
+
+
+def _fold_all(cls, state, planes, delta, live, lead=()):
+    """Every leaf of the folded planes: the counters by ``_fold``, the keys
+    from ``state`` (broadcast over ``lead``)."""
+    key = state.key.permute(0, 3, 1, 2).contiguous()
+    return cls(key=key.expand(lead + key.shape),
+               cw=_fold(planes.cw, delta.d_c, live),
+               pw=_fold(planes.pw, delta.d_p, live),
+               pool_key=state.pool_key.expand(lead + state.pool_key.shape),
+               pool_cw=_fold(planes.pool_cw, delta.d_pool_c, live),
+               pool_pw=_fold(planes.pool_pw, delta.d_pool_p, live))
+
+
+def apply_planes_delta(cfg: LSketchConfig, state: LSketchState,
+                       planes: QueryPlanes, delta: PlanesDelta,
+                       last: int | None = None) -> QueryPlanes:
+    """Fold one flush's ``PlanesDelta`` into cached planes for horizon
+    ``last``: equal to ``build_query_planes(cfg, state, last)`` whenever
+    ``delta.ok`` holds on every row (int32 addition wraps, so adding the
+    slot's increment equals re-reducing all ``k`` slots).
+
+    ``state`` is the post-flush stack under the fleet-global window (its
+    ring equals the pre-flush ring under ``ok``). The touched slot counts
+    only where it is inside this horizon's mask: a flush into an older,
+    still-claimed subwindow adds to ``last=None`` but not to a horizon
+    that excludes the slot. Keys and pool keys come from ``state``, never
+    from ``planes`` (first-fit may have claimed empty cells, and a cached
+    ``pool_key`` is a view of tensors the ingest wrote in place). One
+    host read: the touched slots' mask bits."""
+    mask = valid_slot_mask(cfg, state, last)  # [S, k]
+    live = torch.gather(mask, 1, delta.slot.long()[:, None])[:, 0].tolist()
+    return _fold_all(QueryPlanes, state, planes, delta,
+                     {(s,): v for s, v in enumerate(live)})
+
+
+def apply_planes_delta_multi(cfg: LSketchConfig, state: LSketchState,
+                             planes: MultiPlanes, delta: PlanesDelta,
+                             horizons) -> MultiPlanes:
+    """Fold one flush's ``PlanesDelta`` into a horizon-stacked cache: row
+    ``i`` equal to ``apply_planes_delta(cfg, state, slice_horizon(planes,
+    i), delta, horizons[i])``. The touched slot's age against the
+    post-flush window decides, per horizon, whether its increment is in
+    the mask (``age < h``, the nesting the stacked build bands on)."""
+    hs = tuple(int(h) for h in horizons)
+    slot_w = torch.gather(state.slot_widx, 1, delta.slot.long()[:, None])
+    age = (state.cur_widx - slot_w[:, 0]).tolist()  # [S], one host read
+    return _fold_all(MultiPlanes, state, planes, delta,
+                     {(i, s): a < h for i, h in enumerate(hs)
+                      for s, a in enumerate(age)}, lead=(len(hs),))
 
 
 def _first(stop: torch.Tensor) -> torch.Tensor:

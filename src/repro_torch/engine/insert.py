@@ -1,6 +1,6 @@
 """Windowed insertion of a shard-stacked flush (port of
-``repro.engine.insert``: ``_segment_count``, ``_scan_insert``,
-``insert_stacked_fused_impl``, ``resolve_path``), and the single-shard
+``repro.engine.insert``: ``_scan_insert``, ``insert_stacked_fused_impl``
+with its ``emit_delta`` record, ``resolve_path``), and the single-shard
 entry the object API rides (``insert_batch_fused_impl``, ``insert_batch``,
 ``insert_batch_chunked``, ``default_path``): a plain state runs the
 stacked insert on ``[1, ...]`` views of its own tensors.
@@ -8,7 +8,8 @@ stacked insert on ``[1, ...]`` views of its own tensors.
 A flush is planned against the ring once (``WindowRing.plan``), the
 re-claimed slot planes are zeroed in place, and then one of two routes
 writes the matrix, chosen exactly as the reference chooses under its
-``lax.cond``:
+``lax.cond`` (from the host's copy of the time column: the choice waits
+on no device read):
 
   * the kernel route, when every shard's valid prefix sits in one
     subwindow: the block-binned CUDA insert plus the pool pass
@@ -20,8 +21,8 @@ Each route keeps its own claim rule, as in the reference: the kernel
 claims a key only for weight > 0, the scan claims at weight 0 too.
 Everything updates the state's tensors in place. The stages carry
 ``torch.profiler.record_function`` ranges named ``lsketch.*`` (window
-plan, addressing, bin plan, insert kernel, pool pass, scan insert), so a
-profiler trace splits a flush's time by stage.
+plan, addressing, bin plan, insert kernel, pool pass, scan insert,
+planes delta), so a profiler trace splits a flush's time by stage.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from torch.profiler import record_function
 
 from repro_torch.core import hashing as hsh
 from repro_torch.core.lsketch import EdgeProbes, edge_probes, precompute
+from repro_torch.core.queries import PlanesDelta
 from repro_torch.core.types import EMPTY, EdgeBatch, LSketchConfig, \
     LSketchState
 from repro_torch.kernels.sketch_insert.kernel import _pool_step
@@ -43,15 +45,6 @@ from .window import WindowRing, pad_to_bucket
 # valid edges ingested by each route, summed over every flush in the
 # process: read (and reset) by callers that report the route shares
 ROUTE_EDGES = {"kernel": 0, "scan": 0}
-
-
-def _segment_count(widx: torch.Tensor) -> torch.Tensor:
-    """Number of contiguous subwindow segments of each sorted row
-    ``widx`` [..., B]."""
-    if widx.shape[-1] <= 1:
-        return torch.full(widx.shape[:-1], widx.shape[-1], dtype=torch.int32,
-                          device=widx.device)
-    return 1 + (widx[..., 1:] != widx[..., :-1]).sum(-1, dtype=torch.int32)
 
 
 def _first(ok: torch.Tensor) -> torch.Tensor:
@@ -103,19 +96,50 @@ def _scan_insert(cfg: LSketchConfig, state: LSketchState, probes: EdgeProbes,
     return state
 
 
+def _touched_slot_slices(states: LSketchState, slot: torch.Tensor):
+    """Copies of each shard's counters at ring slot ``slot[s]`` (``[S]``, on
+    the device; no host read): C ``[S, d, d, 2]``, P ``[S, d, d, 2, c]``,
+    pool_C ``[S, Q]``, pool_P ``[S, Q, c]`` — the only slot a
+    single-segment flush writes."""
+    sidx = torch.arange(slot.shape[0], device=slot.device)
+    sl = slot.long()
+    return [states.C[sidx, :, :, :, sl], states.P[sidx, :, :, :, sl],
+            states.pool_C[sidx, :, sl], states.pool_P[sidx, :, sl]]
+
+
+def _host_rows(batch, n_valid):
+    """(valid edges, per-row counts, time column) of a flush, on the host:
+    the time column is the partition's own copy (``batch.time_host``; a
+    batch without one has its time column read back), so the route
+    choice waits on no device read."""
+    counts = np.asarray(n_valid, np.int64)
+    t = getattr(batch, "time_host", None)
+    if t is None:
+        t = batch.time.cpu().numpy()
+    return int(counts.sum()), counts, t
+
+
 def insert_stacked_fused_impl(cfg: LSketchConfig, states: LSketchState,
-                              batch, n_valid, use_kernel: bool = False
-                              ) -> LSketchState:
+                              batch, n_valid, use_kernel: bool = False,
+                              emit_delta: bool = False):
     """Insert one ``[S, B]`` hash-partitioned flush into a shard-stacked
     state, in place. ``batch`` holds int32 ``[S, B]`` tensors (src, dst,
     src_label, dst_label, edge_label, weight, time) on the state's device;
-    ``n_valid`` [S]: rows at or past it are padding, fully masked
-    (including the ring bookkeeping, so an empty shard is a no-op)."""
+    ``n_valid`` [S] (host counts): rows at or past it are padding, fully
+    masked (including the ring bookkeeping, so an empty shard is a
+    no-op).
+
+    With ``emit_delta`` the return value is ``(states, delta)``, ``delta``
+    the flush's ``core.queries.PlanesDelta``. The insert writes in place,
+    so the touched slot's counters are copied after the ring plan's
+    resets and before the kernel or the scan writes, and the increment is
+    what they hold after it minus that copy. ``delta.ok`` is per shard
+    row, as in the reference: one segment and no reset."""
     S, B = batch.src.shape
     dev = batch.src.device
-    n_valid = torch.as_tensor(n_valid, dtype=torch.int32, device=dev)
-    valid = torch.arange(B, dtype=torch.int32, device=dev)[None, :] \
-        < n_valid[:, None]
+    n_edges, counts, time_host = _host_rows(batch, n_valid)
+    valid_host = np.arange(B)[None, :] < counts[:, None]
+    valid = torch.from_numpy(valid_host).to(dev)
 
     with record_function("lsketch.window_plan"):
         ring = WindowRing.for_config(cfg)
@@ -139,21 +163,34 @@ def insert_stacked_fused_impl(cfg: LSketchConfig, states: LSketchState,
         w = batch.weight.to(states.C.dtype)
         w_count = w * plan.count_live.to(w.dtype)
         w_key = w * plan.key_live.to(w.dtype)
-    n_edges = int(n_valid.sum())
 
-    one_segment_all = False
-    if use_kernel:
-        rows_w = torch.where(valid, widx, widx[:, :1])
-        one_segment_all = bool((_segment_count(rows_w) == 1).all())
-    if one_segment_all:
+    # one segment per row: every valid item of the row in one subwindow
+    # (padding takes the row's first subwindow)
+    hw = np.asarray(time_host, np.int64) // cfg.subwindow_size
+    hw = np.where(valid_host, hw, hw[:, :1])
+    one_segment_rows = (hw == hw[:, :1]).all(axis=1)
+    touched = plan.slot[:, 0]
+    pre = _touched_slot_slices(states, touched) if emit_delta else None
+
+    if use_kernel and bool(one_segment_rows.all()):
         ROUTE_EDGES["kernel"] += n_edges
-        return matrix_insert_binned_sharded(cfg, states, probes, le_idx,
-                                            w_count, plan.slot[:, 0],
-                                            max_bin=B)
-    ROUTE_EDGES["scan"] += n_edges
-    with record_function("lsketch.scan_insert"):
-        return _scan_insert(cfg, states, probes, le_idx, plan.slot, w_count,
-                            w_key, valid)
+        matrix_insert_binned_sharded(cfg, states, probes, le_idx, w_count,
+                                     touched, max_bin=B)
+    else:
+        ROUTE_EDGES["scan"] += n_edges
+        with record_function("lsketch.scan_insert"):
+            _scan_insert(cfg, states, probes, le_idx, plan.slot, w_count,
+                         w_key, valid)
+    if not emit_delta:
+        return states
+    with record_function("lsketch.planes_delta"):
+        post = _touched_slot_slices(states, touched)
+        for a, b in zip(post, pre):
+            a.sub_(b)
+        del pre
+        ok = torch.from_numpy(one_segment_rows).to(dev) & \
+            ~plan.reset.any(dim=1)
+    return states, PlanesDelta(ok, touched, *post)
 
 
 def default_path(device=None) -> str:
@@ -185,12 +222,14 @@ _FIELDS = ("src", "dst", "src_label", "dst_label", "edge_label", "weight",
 
 
 class _Rows:
-    """int32 ``[1, B]`` tensors, one per ``EdgeBatch`` field."""
+    """int32 ``[1, B]`` tensors, one per ``EdgeBatch`` field, and the host
+    copy of the time column (``time_host``)."""
 
     def __init__(self, batch: EdgeBatch, device):
         for f in _FIELDS:
             col = np.asarray(getattr(batch, f), np.int32)
             setattr(self, f, torch.from_numpy(col).to(device)[None])
+        self.time_host = np.asarray(batch.time, np.int32)[None]
 
 
 def insert_batch_fused_impl(cfg: LSketchConfig, state: LSketchState,

@@ -1,6 +1,6 @@
 """Hash-partitioned sharded ingest (port of ``repro.sketch.ingest``:
-``_shard_bucket``, ``_partition_stack``, ``ingest``, ``_degenerate_batch``,
-``_ingest_stacked_lgs``, ``ingest_single``).
+``_shard_bucket``, ``_partition_stack``, ``ingest``, ``AsyncIngestor``,
+``_degenerate_batch``, ``_ingest_stacked_lgs``, ``ingest_single``).
 
 ``ingest(spec, state, batch)``:
   1. the host partitions the time-ordered batch by the shard hash of its
@@ -13,9 +13,20 @@
      otherwise.
 
 The call returns a new handle over the updated tensors and marks the input
-handle spent (see ``sketch/state.py``): its plane cache dies with it.
-A ``gss`` batch loses its labels and times first (``_degenerate_batch``);
-an ``lgs`` flush is a count-min scatter-add per shard.
+handle spent (see ``sketch/state.py``). When the spent handle held query
+planes, or a pending chain of flush deltas, the insert also records this
+flush's ``PlanesDelta`` and the new handle carries ``(the parent's
+planes, chain + [delta])``, so its first query folds instead of
+rebuilding (``sketch/query.py``); a handle that was never queried
+ingests with no delta work. A ``gss`` batch loses its labels and times
+first (``_degenerate_batch``); an ``lgs`` flush is a count-min
+scatter-add per shard.
+
+``AsyncIngestor`` staggers the two halves by one batch, as the
+reference does: each ``submit`` dispatches the staged batch, then
+partitions its own while the card finishes the dispatch's last kernels.
+Dispatches keep submission order, and ``flush()``/``.state`` give exactly
+the handle synchronous ``ingest`` of the same batches gives.
 
 ``ingest_single`` is the unstacked one-shard path the objects (``LSketch``,
 ``GSS``, ``LGS``) ride: no partition, the engine's path choice on the
@@ -32,19 +43,23 @@ from repro_torch.core.types import EdgeBatch
 from repro_torch.engine import insert as eng_insert
 from repro_torch.engine.window import pad_to_bucket
 
+from . import query as _query
 from .spec import SketchSpec, shard_assignment
-from .state import ShardedState
+from .state import ShardedState, create
 
 _FIELDS = ("src", "dst", "src_label", "dst_label", "edge_label", "weight",
            "time")
 
 
 class StackedBatch:
-    """int32 ``[n_shards, L]`` tensors, one per ``EdgeBatch`` field."""
+    """int32 ``[n_shards, L]`` tensors, one per ``EdgeBatch`` field, and
+    optionally the host copy of the time column (``time_host``, which lets
+    the insert choose its route without reading the card)."""
 
-    def __init__(self, **cols):
+    def __init__(self, time_host=None, **cols):
         for f in _FIELDS:
             setattr(self, f, cols[f])
+        self.time_host = time_host
 
 
 def _degenerate_batch(batch: EdgeBatch) -> EdgeBatch:
@@ -122,30 +137,131 @@ def _ingest_stacked_lgs(cfg, shards, batch: StackedBatch, n_valid) -> None:
                         batch.time[s], valid=valid)
 
 
-def ingest(spec: SketchSpec, state: ShardedState, batch: EdgeBatch,
-           path: str = "auto") -> ShardedState:
-    """Insert a time-ordered batch into a sharded handle, in place; returns
-    the new handle and marks ``state`` spent. ``path``: "auto" (the kernel
-    route on a CUDA state, the scan on a CPU state), "scan" or "cuda"
-    (lgs has one route and ignores it)."""
+def _dispatch_stacked(spec: SketchSpec, state: ShardedState, cols,
+                      counts, path: str) -> ShardedState:
+    """One stacked insert of a host partition ``(cols, counts)`` into the
+    handle (shared by ``ingest`` and ``AsyncIngestor``): spends ``state``
+    and returns the new handle, which carries the flush delta when
+    ``state`` held planes or a pending chain."""
     shards = state.live()
-    if len(batch) == 0:
-        return state
     dev = state.device
-    if spec.kind == "gss":
-        batch = _degenerate_batch(batch)
-    cols, counts = _partition_stack(spec, batch)
-    stacked = StackedBatch(**{f: torch.from_numpy(cols[f]).to(dev)
+    stacked = StackedBatch(time_host=cols["time"],
+                           **{f: torch.from_numpy(cols[f]).to(dev)
                               for f in _FIELDS})
+    carry = None
     if spec.kind == "lgs":
         _ingest_stacked_lgs(spec.config, shards, stacked, counts)
     else:
         path = eng_insert.resolve_path(spec.config, path, dev)
         if path == "chunked":
             raise ValueError("the stacked ingest has no chunked path")
-        n_valid = torch.from_numpy(counts).to(dev)
-        eng_insert.insert_stacked_fused_impl(spec.config, shards, stacked,
-                                             n_valid,
-                                             use_kernel=path == "cuda")
+        carry = _query.planes_delta_base(state)
+        out = eng_insert.insert_stacked_fused_impl(
+            spec.config, shards, stacked, counts, use_kernel=path == "cuda",
+            emit_delta=carry is not None)
     state.spent = True
-    return ShardedState(shards)
+    new = ShardedState(shards)
+    if carry is not None:
+        _query.attach_planes_delta(new, carry[0], carry[1], out[1])
+    return new
+
+
+def _stage(spec: SketchSpec, batch: EdgeBatch):
+    """The host half of a flush: the ``gss`` normalisation and the hash
+    partition. Returns ``(cols, counts)``."""
+    if spec.kind == "gss":
+        batch = _degenerate_batch(batch)
+    return _partition_stack(spec, batch)
+
+
+def ingest(spec: SketchSpec, state: ShardedState, batch: EdgeBatch,
+           path: str = "auto") -> ShardedState:
+    """Insert a time-ordered batch into a sharded handle, in place; returns
+    the new handle and marks ``state`` spent. ``path``: "auto" (the kernel
+    route on a CUDA state, the scan on a CPU state), "scan" or "cuda"
+    (lgs has one route and ignores it)."""
+    state.live()
+    if len(batch) == 0:
+        return state
+    cols, counts = _stage(spec, batch)
+    return _dispatch_stacked(spec, state, cols, counts, path)
+
+
+class AsyncIngestor:
+    """Pipelined ingest over one sharded handle.
+
+    A flush has a host half (the numpy hash partition) and a device half
+    (the stacked insert). ``submit(batch)`` first dispatches the
+    previously staged batch, then partitions this one on the host while
+    the card runs what that dispatch enqueued last; ``flush()`` dispatches
+    whatever is staged and returns the handle. After it the state
+    reflects every submitted batch, in submission order (each dispatch
+    consumes the previous handle, so nothing reorders across subwindow
+    boundaries). ``.state`` flushes implicitly, so reading it always gives
+    synchronous ``ingest``'s handle; ``dispatched`` gives the handle
+    without collapsing the one-batch stagger.
+
+    The overlap is small: the dispatch waits on the card a few times a
+    flush, and the partition is under a millisecond a batch. Partitioning
+    on a worker thread instead lost a quarter of the edges/s on an H100's
+    host, the interpreter lock shared with the dispatch's ~440 launches a
+    flush (``tools/ingest_overlap.py`` measures every variant).
+
+    Like ``ingest``, every dispatch spends the previous handle: query the
+    handle ``flush()`` returns before the next ``submit``.
+
+    The reference's skew-aware routing (``heat_threshold``, ``detector``,
+    ``split_replicas``) needs the routing table and the heavy-key detector,
+    which are not ported yet: those arguments raise."""
+
+    def __init__(self, spec: SketchSpec, state: ShardedState | None = None,
+                 path: str = "auto", heat_threshold: float | None = None,
+                 detector=None, split_replicas: int | None = None,
+                 device=None):
+        if heat_threshold is not None or detector is not None \
+                or split_replicas is not None:
+            raise NotImplementedError(
+                "skew-aware routing needs sketch/routing.py "
+                "(HeavyKeyDetector, SketchSpec.with_splits), which the "
+                "port does not have yet")
+        self.spec = spec
+        self.path = path
+        self._state = state if state is not None else create(spec, device)
+        self._staged = None  # (cols, counts) awaiting dispatch
+
+    def submit(self, batch: EdgeBatch) -> None:
+        """Enqueue a time-ordered batch: partition it now, dispatch it on
+        the next ``submit``/``flush``."""
+        if len(batch) == 0:
+            return
+        self._dispatch_staged()  # the card takes batch N ...
+        self._staged = _stage(self.spec, batch)  # ... the host N+1
+
+    def flush(self) -> ShardedState:
+        """Dispatch any staged batch; returns the fully applied handle."""
+        self._dispatch_staged()
+        return self._state
+
+    @property
+    def state(self) -> ShardedState:
+        """The handle with every submitted batch applied (implicit
+        flush)."""
+        return self.flush()
+
+    @property
+    def dispatched(self) -> ShardedState:
+        """The live handle with every dispatched batch applied; unlike
+        ``state`` this does not flush the staged batch."""
+        return self._state
+
+    @property
+    def pending(self) -> int:
+        """Number of staged, not yet dispatched batches (0 or 1)."""
+        return int(self._staged is not None)
+
+    def _dispatch_staged(self) -> None:
+        if self._staged is None:
+            return
+        (cols, counts), self._staged = self._staged, None
+        self._state = _dispatch_stacked(self.spec, self._state, cols, counts,
+                                        self.path)

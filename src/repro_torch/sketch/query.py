@@ -16,9 +16,13 @@ Every shard queries under the fleet-wide newest subwindow index (a
 lagging shard must not count ring slots the combined stream expired).
 The planes are memoized on the handle object, keyed by the clamped
 horizon ``min(last or k, k)``, in a small LRU (``PLANES_CACHE_CAP``);
-ingest returns a new handle, so the cache is never stale. Query batches
-are padded to power-of-two buckets with the ``EMPTY`` sentinel; pad rows
-are sliced off.
+ingest returns a new handle, so the cache is never stale. A miss is
+served, in this order, by a horizon-stacked entry that covers the
+horizon (a slice, no build), by folding the flush deltas that ingest
+hung on the handle into the parent handle's planes (``PlanesDelta``, up
+to ``MAX_DELTA_CHAIN`` links, one device read a link), and only then by
+a build. Query batches are padded to power-of-two buckets with the
+``EMPTY`` sentinel; pad rows are sliced off.
 
 A ``gss`` query drops its labels and its window (``normalize_query``); an
 ``lgs`` query always takes the scan (count-min cells: no keyed walk, no
@@ -26,16 +30,15 @@ planes), and an ``lgs`` label aggregate raises. A plain single-shard
 state (an object's ``.state``) is accepted and lifted to a fresh 1-shard
 handle over views of its tensors, so its planes live for one call; the
 objects pass their own handle, whose cache lives until their next insert.
-``PLANES_BUILD_COUNTS["build"]`` counts the plane builds (cache misses)
-in the process.
+``PLANES_BUILD_COUNTS`` counts the cache misses in the process.
 
 A list ``last`` is a horizon sweep: ``int32 [H, B]`` out, row ``i`` equal
 to ``last=lasts[i]``. ``"scan"`` loops the single-horizon reference;
 ``"cuda"`` answers every row from one horizon-stacked ``MultiPlanes``
 build (one cache entry keyed ``("multi", horizons)``) through the same
 kernels: an edge sweep in one launch of the fused edge kernel, the other
-kinds one horizon at a time. The reference's flush-delta plane
-maintenance is not ported: every new handle rebuilds its planes.
+kinds one horizon at a time. One flush delta folds into every horizon
+of such an entry at once.
 """
 
 from __future__ import annotations
@@ -57,8 +60,18 @@ from .spec import SketchSpec
 from .state import ShardedState
 
 PLANES_CACHE_CAP = 8
+# the longest chain of un-queried flushes a handle folds before it
+# rebuilds instead: N links cost N folds at the next query, and past a few
+# one build is cheaper and frees the links' buffers
+MAX_DELTA_CHAIN = 8
 _PLANES_ATTR = "_query_planes_cache"
-PLANES_BUILD_COUNTS = {"build": 0}
+_PENDING_ATTR = "_planes_pending"
+# plane-cache misses in the process: "build" full builds, "delta" misses
+# served by folding pending flush deltas into the parent's planes,
+# "evict" LRU drops; "build-multi" and "delta-multi" are the
+# horizon-stacked entries' share of the first two
+PLANES_BUILD_COUNTS = {"build": 0, "delta": 0, "evict": 0,
+                       "build-multi": 0, "delta-multi": 0}
 
 
 @dataclass(frozen=True)
@@ -173,31 +186,119 @@ def _with_global_window(shards):
     return dataclasses.replace(shards, cur_widx=g)
 
 
-def query_planes(spec: SketchSpec, state: ShardedState, last=None):
-    """The window-reduced ``QueryPlanes`` for ``(state, last)``, memoized on
-    the handle object in an LRU of ``PLANES_CACHE_CAP`` entries keyed by
-    the clamped horizon (``last=None`` and ``last>=k`` share one entry)."""
-    shards = state.live()
-    k = spec.config.effective_k
-    horizon = k if last is None else min(int(last), k)
-    return _cached(state, horizon, lambda: _q.build_query_planes(
-        spec.config, _with_global_window(shards), horizon))
-
-
-def _cached(state: ShardedState, ckey, build):
-    """The handle's LRU entry ``ckey``, made by ``build()`` on a miss."""
+def _cache(state: ShardedState) -> OrderedDict:
     cache = getattr(state, _PLANES_ATTR, None)
     if cache is None:
         cache = OrderedDict()
         setattr(state, _PLANES_ATTR, cache)
-    if ckey in cache:
-        cache.move_to_end(ckey)
-        return cache[ckey]
+    return cache
+
+
+def _cache_put(cache: OrderedDict, ckey, planes) -> None:
+    """Insert as most recent; evict the least recent past the cap."""
+    cache.pop(ckey, None)
     while len(cache) >= PLANES_CACHE_CAP:
         cache.popitem(last=False)
-    PLANES_BUILD_COUNTS["build"] += 1
-    cache[ckey] = planes = build()
+        PLANES_BUILD_COUNTS["evict"] += 1
+    cache[ckey] = planes
+
+
+def _multi_slice_hit(cache: OrderedDict, horizon: int):
+    """A single-horizon miss served by the most recent horizon-stacked
+    entry that covers ``horizon``: its row, with no build and no fold
+    (neither count moves); the hit refreshes the entry's recency."""
+    for mkey in reversed(list(cache)):
+        if isinstance(mkey, tuple) and horizon in mkey[1]:
+            cache.move_to_end(mkey)
+            return _q.slice_horizon(cache[mkey], mkey[1].index(horizon))
+    return None
+
+
+def planes_delta_base(state: ShardedState):
+    """The ``(base planes, prior delta chain)`` the next flush into
+    ``state`` should extend, or None when the handle holds nothing a delta
+    could keep warm (then the flush records no delta at all: a handle
+    that was never queried ingests with no delta work). Called by
+    ``sketch.ingest`` on the handle it is about to consume."""
+    cache = getattr(state, _PLANES_ATTR, None)
+    if cache:  # resolved planes on this handle: one fresh link suffices
+        return dict(cache), []
+    pend = getattr(state, _PENDING_ATTR, None)
+    if pend is not None and len(pend[1]) < MAX_DELTA_CHAIN:
+        return pend
+    return None
+
+
+def attach_planes_delta(state: ShardedState, base: dict, chain: list,
+                        delta) -> None:
+    """Hang ``(base planes, chain + [delta])`` on a fresh ingest handle;
+    ``query_planes`` folds it on the handle's first miss."""
+    setattr(state, _PENDING_ATTR, (base, chain + [delta]))
+
+
+def _resolve_pending(state: ShardedState, ckey, apply_one):
+    """Serve a miss by folding the handle's pending flush deltas into the
+    parent's cached entry ``ckey``: the planes, or None when the parent
+    never cached ``ckey`` or a link's flush moved the ring on some row
+    (reset a slot, advanced the window or spanned subwindows; the chain is
+    then useless for every horizon and is dropped). One device read a
+    link (``ok``), paid on the first query of the handle. The base's
+    counter planes own their storage; its key planes are never read."""
+    pend = getattr(state, _PENDING_ATTR, None)
+    if pend is None:
+        return None
+    base, deltas = pend
+    if ckey not in base:
+        return None
+    for d in deltas:
+        if not bool(d.ok.all()):
+            setattr(state, _PENDING_ATTR, None)
+            return None
+    planes = base[ckey]
+    # every link ok: the ring never moved across the chain, so every
+    # link's mask is the final state's; fold them all under it
+    for d in deltas:
+        planes = apply_one(planes, d)
+    PLANES_BUILD_COUNTS["delta"] += 1
     return planes
+
+
+def _lookup(state: ShardedState, ckey, fold, build,
+            hit=lambda cache: None):
+    """The handle's entry ``ckey``: a hit; else, on a miss, ``hit(cache)``
+    (a covering stacked entry's row), then the pending chain folded by
+    ``fold(planes, delta)``, then ``build()``. Returns ``(planes, how)``,
+    ``how`` in "hit", "slice", "delta", "build"."""
+    cache = _cache(state)
+    if ckey in cache:
+        cache.move_to_end(ckey)
+        return cache[ckey], "hit"
+    how, planes = "slice", hit(cache)
+    if planes is None:
+        how, planes = "delta", _resolve_pending(state, ckey, fold)
+    if planes is None:
+        PLANES_BUILD_COUNTS["build"] += 1
+        how, planes = "build", build()
+    _cache_put(cache, ckey, planes)
+    return planes, how
+
+
+def query_planes(spec: SketchSpec, state: ShardedState, last=None):
+    """The window-reduced ``QueryPlanes`` for ``(state, last)``, memoized on
+    the handle object in an LRU of ``PLANES_CACHE_CAP`` entries keyed by
+    the clamped horizon (``last=None`` and ``last>=k`` share one entry).
+    A miss takes a covering horizon-stacked entry's row, then the pending
+    delta chain, then a build."""
+    shards = state.live()
+    k = spec.config.effective_k
+    horizon = k if last is None else min(int(last), k)
+    return _lookup(
+        state, horizon,
+        lambda pl, d: _q.apply_planes_delta(
+            spec.config, _with_global_window(shards), pl, d, horizon),
+        lambda: _q.build_query_planes(
+            spec.config, _with_global_window(shards), horizon),
+        lambda cache: _multi_slice_hit(cache, horizon))[0]
 
 
 def _normalize_horizons(spec: SketchSpec, lasts):
@@ -213,18 +314,27 @@ def _normalize_horizons(spec: SketchSpec, lasts):
 def query_planes_multi(spec: SketchSpec, state: ShardedState, lasts):
     """The horizon-stacked ``MultiPlanes`` for every horizon in ``lasts``,
     built in one pass over the ring and memoized as one LRU entry keyed
-    ``("multi", uniq)``. Returns ``(planes, uniq)``: row ``i`` is horizon
-    ``uniq[i]`` (``_normalize_horizons``)."""
+    ``("multi", uniq)``; a miss folds the pending delta chain into every
+    horizon at once before it builds. Returns ``(planes, uniq)``: row
+    ``i`` is horizon ``uniq[i]`` (``_normalize_horizons``)."""
     shards = state.live()
     uniq, _ = _normalize_horizons(spec, lasts)
-    return _cached(state, ("multi", uniq), lambda: _q.build_query_planes_multi(
-        spec.config, _with_global_window(shards), uniq)), uniq
+    planes, how = _lookup(
+        state, ("multi", uniq),
+        lambda pl, d: _q.apply_planes_delta_multi(
+            spec.config, _with_global_window(shards), pl, d, uniq),
+        lambda: _q.build_query_planes_multi(
+            spec.config, _with_global_window(shards), uniq))
+    if how in ("build", "delta"):
+        PLANES_BUILD_COUNTS[how + "-multi"] += 1
+    return planes, uniq
 
 
 def clear_plane_cache(state: ShardedState) -> None:
-    """Drop the planes memoized on a handle (frees their device memory;
-    never needed for correctness)."""
+    """Drop the planes memoized on a handle and any pending delta chain
+    (frees their device memory; never needed for correctness)."""
     setattr(state, _PLANES_ATTR, None)
+    setattr(state, _PENDING_ATTR, None)
 
 
 def _per_shard(shards, fn):

@@ -801,3 +801,90 @@ def test_cuda_lgs_handle_matches_cpu_replay():
             obj.vertex_weight(b.src[i], b.src_label[i], le=b.edge_label[i])]
     for x, y in zip(out["cpu"], out["cuda"]):
         np.testing.assert_array_equal(x, y)
+
+
+# the streaming loop: flush deltas folded into planes on the card
+def _planes_leaves(p):
+    return [p.key, p.cw, p.pw, p.pool_key, p.pool_cw, p.pool_pw]
+
+
+def _sub_batch(rng, n, tlo, thi, nv=200):
+    return EdgeBatch.from_arrays(
+        rng.integers(0, nv, n), rng.integers(0, nv, n), rng.integers(0, 3, n),
+        rng.integers(0, 3, n), rng.integers(0, 6, n), rng.integers(1, 4, n),
+        np.sort(rng.integers(tlo, thi, n)))
+
+
+@pytest.mark.gpu
+def test_cuda_planes_delta_folds_equal_cold_builds():
+    """Single-subwindow flushes on the kernel route record their delta
+    around the insert and pool kernels; the folded planes (every horizon,
+    single and stacked) equal a cold build on the card and the CPU's
+    planes of the same stream. A flush that resets a slot (a window
+    advance) is built instead, still equal."""
+    _need_card()
+    rng = np.random.default_rng(23)
+    base = _sub_batch(rng, 2000, 0, 150)
+    flushes = [(_sub_batch(rng, 300, 125, 150), "delta"),  # live subwindow
+               (_sub_batch(rng, 300, 100, 125), "delta"),  # late: older slot
+               (_sub_batch(rng, 300, 150, 175), "build"),  # advance: reset
+               (_sub_batch(rng, 300, 150, 175), "delta")]
+    spec = skt.make_spec("lsketch", n_shards=4, config=CFG)
+    hs = [None, 1, 2]
+    sts = {dev: skt.ingest(spec, skt.create(spec, device=dev), base,
+                           path="cuda") for dev in ("cpu", "cuda")}
+    for b, want in flushes:
+        for dev, st in sts.items():
+            for h in hs:
+                skt.query_planes(spec, st, h)
+            skt.query_planes_multi(spec, st, hs)
+            sts[dev] = skt.ingest(spec, st, b, path="cuda")
+        st = sts["cuda"]
+        before = dict(skt.PLANES_BUILD_COUNTS)
+        got = [skt.query_planes(spec, st, h) for h in hs] + \
+            [skt.query_planes_multi(spec, st, hs)[0]]
+        moved = {k: skt.PLANES_BUILD_COUNTS[k] - v
+                 for k, v in before.items()}
+        other = "build" if want == "delta" else "delta"
+        assert moved[want] == len(hs) + 1 and moved[other] == 0, moved
+        cold = skt.ShardedState(st.live())
+        cpu = sts["cpu"]
+        for g, c, r in zip(got, [skt.query_planes(spec, cold, h)
+                                 for h in hs] +
+                           [skt.query_planes_multi(spec, cold, hs)[0]],
+                           [skt.query_planes(spec, cpu, h) for h in hs] +
+                           [skt.query_planes_multi(spec, cpu, hs)[0]]):
+            for x, y, z in zip(_planes_leaves(g), _planes_leaves(c),
+                               _planes_leaves(r)):
+                assert torch.equal(x, y) and torch.equal(x.cpu(), z)
+    for x, y in zip(skt.to_numpy(sts["cuda"]), skt.to_numpy(sts["cpu"])):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.gpu
+def test_cuda_async_ingestor_equals_ingest():
+    """``AsyncIngestor`` on the card (the kernel route, queries between
+    the submissions on delta-kept planes) ends leaf for leaf equal to
+    synchronous ``ingest``, and its answers equal the synchronous
+    handle's at every query."""
+    _need_card()
+    rng = np.random.default_rng(29)
+    spec = skt.make_spec("lsketch", n_shards=4, config=CFG)
+    b = _sub_batch(rng, 6000, 0, 100, nv=400)  # 4 subwindows, ~2 cuts each
+    cuts = np.flatnonzero(np.diff(b.time // CFG.subwindow_size)) + 1
+    cuts = sorted(set([0, len(b)] + cuts.tolist() +
+                      list(range(0, len(b), 700))))
+    q = skt.QueryBatch.edges(b.src[:64], b.src_label[:64], b.dst[:64],
+                             b.dst_label[:64], last=[None, 1, 3])
+    sync = skt.create(spec, device="cuda")
+    ing = skt.AsyncIngestor(spec, path="cuda", device="cuda")
+    for i, (a, z) in enumerate(zip(cuts[:-1], cuts[1:])):
+        ing.submit(b.slice(a, z))
+        sync = skt.ingest(spec, sync, b.slice(a, z), path="cuda")
+        if i % 2:
+            assert torch.equal(skt.query(spec, ing.state, q, path="cuda"),
+                               skt.query(spec, sync, q, path="scan"))
+    final = ing.flush()
+    assert skt.PLANES_BUILD_COUNTS["delta"] > 0
+    for x, y in zip(skt.to_numpy(final), skt.to_numpy(sync)):
+        np.testing.assert_array_equal(x, y)

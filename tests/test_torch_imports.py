@@ -210,6 +210,25 @@ def test_chip_smoke_rehearses_on_the_cpu(monkeypatch, capsys):
     assert profile["profile_launches"] == 0  # the CPU launches nothing
     del state
 
+    # phase S at a tiny size: 16 subwindows of about 2 batches each
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda: None)
+    for name, value in (("STREAM_EDGES", 6000), ("STREAM_FLUSH", 200)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    s_out = chip_smoke.stream_phase(cfg, spec, dev, tag)
+    out = capsys.readouterr().out
+    assert "phase S1 loop" in out and "phase S3 last=4" in out
+    assert out.count("leaf for leaf: equal") == 6
+    n_rounds = s_out["rounds_delta"] + s_out["rounds_build"]
+    assert s_out["rounds_delta"] >= s_out["rounds_build"] == 16
+    assert n_rounds == s_out["batches"]
+    assert s_out["check_mismatches"] == s_out["truth_violations"] == 0
+    assert s_out["checked_rounds"] == sorted(
+        set(range(0, n_rounds, 8)) | {n_rounds - 1})
+    # a link: ok and slot [S], C and P at one slot, the pool's at one slot
+    assert s_out["link_bytes"] == spec.n_shards * (
+        1 + 4 + 4 * cfg.d * cfg.d * 2 * (1 + cfg.c) +
+        4 * cfg.pool_capacity * (1 + cfg.c))
+
     # phase O at a tiny size: the GSS replay runs in its child process
     from repro_torch.core import LGSConfig, gss_config
     for name, value in (("OBJ_EDGES", 6000), ("N_SCALAR", 12),
@@ -233,7 +252,6 @@ def test_chip_smoke_rehearses_on_the_cpu(monkeypatch, capsys):
 
     # L1-L3 at the reduced Qwen3 config: the kernel's plain version on the
     # CPU, so the card-only launch and TF32 checks are not run
-    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda: None)
     flash_cases = (("small", 1, 4, 2, 96, 16, torch.float32),
                    ("bf16", 1, 4, 2, 70, 32, torch.bfloat16))
     for name, value in (("LM_REDUCED", True), ("PREFILL_LEN", 64),
@@ -257,7 +275,8 @@ def test_chip_smoke_rehearses_on_the_cpu(monkeypatch, capsys):
 
     kernels = chip_smoke.kernel_entries(
         results, {n: 0 for n in chip_smoke.KERNELS})
-    json.dumps({"kernels": kernels, "object": obj_out, **lm_out})
+    json.dumps({"kernels": kernels, "stream": s_out, "object": obj_out,
+                **lm_out})
     assert [k["mismatches"] for k in kernels] == [0] * 9
     assert {k["name"] for k in kernels} == set(chip_smoke.WRAPPERS) | set(
         chip_smoke.OBJECT_KERNELS) == set(chip_smoke.KERNELS)

@@ -76,6 +76,33 @@ Phases (any failure raises, so the exit code is non-zero):
      and the card's busy share), each final state equal to the loop's
      leaf for leaf; fold and build ms, the bytes of a delta link and the
      peak device memory;
+  R. (the S state freed) skew-aware routing at the deployment: phase 4's
+     stream in phase 4's flushes through ``AsyncIngestor`` with the
+     heavy-key detector (HEAT_THRESHOLD, SPLIT_REPLICAS); logs the splits
+     and the batch each came in, ``PARTITION_STATS`` beside the unrouted
+     partition of the same batches, per-shard pool use beside phase 4's
+     and edges/s; the final state equals a synchronous ``ingest`` replay
+     of the same batches under the spec each was partitioned with, leaf
+     for leaf, and N_QUERIES edge and vertex-out answers are one-sided
+     against the exact truth (est >= truth - pool_lost);
+  T. (the R states freed) the tenant pool: TENANTS tenants at TENANT_CFG
+     and TENANT_SHARDS shards in a ``TenantPool`` of TENANTS slots (the
+     deployment's 18.4 GB), tenant t the COMFS analog from seed t cut to
+     TENANT_EDGES edges on a clock TENANT_OFFSET * t subwindows ahead,
+     its batches cut at its own boundaries, the tenant spec routed by the
+     detector over the first round (and ``recommend_budget``'s table,
+     logged). T1 the pooled ingest (no scan-route edge); T2 each tenant
+     in turn against a standalone handle fed the same batches: the state
+     leaf for leaf, every ``query_many`` answer (kind x last x edge
+     label, TENANT_QUERIES a tenant) and ``top_k_many`` (k=16, and a
+     sweep); T3 a pooled edge dispatch is one probe launch, a vertex one
+     one scan launch, a ``top_k_many`` one decode; T4 the grouped entries
+     of the edge probe and the vertex scan against their plain versions
+     on the pool's planes, timed beside their byte bounds; T5 a tenant
+     past the pool's slots evicts the LRU tenant through a checkpoint,
+     which a query readmits into another slot with the same answers
+     (bytes, save and restore seconds); T6 pooled against standalone
+     query and ingest costs, recorded;
   O. (the 4-shard state freed) the object API at one shard over the
      COMFS analog at its own 500,000 edges, in batches cut at subwindow
      boundaries plus one straddling batch: O1 ``LSketch.insert`` at CFG
@@ -109,11 +136,13 @@ Phases (any failure raises, so the exit code is non-zero):
   8. one JSON line of the kernels and the end-to-end numbers, the card
      line, and the result line.
 
-Five paths count kernel launches, each from 0 just before it: the sketch
-path (phases 4 and 5), the analytics path (phase 6b, before its
+Seven paths count kernel launches, each from 0 just before it: the
+sketch path (phases 4 and 5), the analytics path (phase 6b, before its
 comparisons), the streaming loop (phase S1-S2, reported in its numbers),
-the object path (phase O, before its comparisons; the single-sketch
-rows' launches) and the prefill (L2, the kernel forward). Each kernel's
+the routed ingest (phase R, with its queries), the pool path (phase
+T1-T3; the grouped rows' launches), the object path (phase O, before its
+comparisons; the single-sketch rows' launches) and the prefill (L2, the
+kernel forward). Each kernel's
 ``launches`` in the JSON line is from the path it was ported for.
 TF32 is off throughout (the models are f32), except in the one forward
 of L2 that shows the tolerance would catch it.
@@ -184,6 +213,8 @@ from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.sketch.ingest import (StackedBatch,  # noqa: E402
                                        _degenerate_batch, _partition_stack)
+from repro_torch.telemetry.stream_stats import \
+    PARTITION_STATS  # noqa: E402
 
 
 def _tool(name: str):
@@ -252,6 +283,23 @@ STREAM_FLUSH = 16_384
 SWEEP = (None, 1, 4)
 CHECK_EVERY = 8
 
+# phase R, routing at the main deployment: phase 4's stream and flushes
+# through AsyncIngestor with the heavy-key detector
+HEAT_THRESHOLD = 0.02
+SPLIT_REPLICAS = 4
+
+# phase T, the tenant pool: TENANTS tenants at _lsk_cfg(COMFS, d=1024,
+# k=8, window=True) and TENANT_SHARDS shards each, in a pool of TENANTS
+# slots (16 rows of ~1.15 GB: the main deployment's 18.4 GB); tenant t
+# the COMFS analog from seed t cut to TENANT_EDGES edges, its clock
+# offset by TENANT_OFFSET * t subwindows; TENANT_QUERIES queries a tenant
+TENANTS = 8
+TENANT_SHARDS = 2
+TENANT_CFG = dataclasses.replace(CFG, d=1024)
+TENANT_EDGES = 250_000
+TENANT_OFFSET = 3
+TENANT_QUERIES = 128
+
 # the LM phases: Qwen3-8B at full width (configs/qwen3_8b.py)
 LM_ARCH = "qwen3-8b"
 LM_REDUCED = False
@@ -291,6 +339,11 @@ ANALYTICS_PATH = ("cell_decode_kernel_sharded",
                   "sketch_query_kernel_sharded", "vertex_scan_kernel_sharded")
 OBJECT_PATH = MAIN_PATH + ("cell_decode_kernel_sharded",)
 STREAM_PATH = MAIN_PATH[:3]  # phase S asks edge queries only
+# the grouped entries' rows (phase T): the wrapper whose launches each
+# counts on the pool path
+GROUPED_KERNELS = {
+    "sketch_query_kernel_sharded (grouped)": "sketch_query_kernel_sharded",
+    "vertex_scan_kernel_sharded (grouped)": "vertex_scan_kernel_sharded"}
 # the single-sketch entries' rows: the wrapper whose launches each counts
 OBJECT_KERNELS = {"sketch_insert_kernel": "sketch_insert_kernel_sharded",
                   "sketch_query_kernel": "sketch_query_kernel_sharded",
@@ -330,6 +383,17 @@ KERNELS = {
         source="src/repro_torch/csrc/vertex_scan.cu",
         replaces="src/repro/kernels/vertex_scan/kernel.py:69",
         entry="kernels/vertex_scan/ops.py::vertex_query_pallas"),
+    # the grouped entries: a pooled stack of tenants, each block of rows
+    # against its own tenant's queries, in one launch
+    "sketch_query_kernel_sharded (grouped)": dict(
+        source="src/repro_torch/csrc/sketch_query.cu",
+        replaces="src/repro/kernels/sketch_query/kernel.py:113",
+        entry="kernels/sketch_query/kernel.py::edge_query_kernel(groups=)"),
+    "vertex_scan_kernel_sharded (grouped)": dict(
+        source="src/repro_torch/csrc/vertex_scan.cu",
+        replaces="src/repro/kernels/vertex_scan/kernel.py:99",
+        entry="kernels/vertex_scan/kernel.py::vertex_scan_kernel_sharded"
+              "(groups=)"),
 }
 
 
@@ -2477,6 +2541,484 @@ def stream_phase(cfg, spec, dev, tag):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase R: skew-aware routing at the main deployment
+# --------------------------------------------------------------------------
+
+def _pool_use(state) -> dict:
+    """Per-shard pool occupancy and pool_lost of a handle."""
+    sh = state.live()
+    return dict(pool_used=(sh.pool_key[..., 0] != -1).sum(1).tolist(),
+                pool_lost=sh.pool_lost.tolist())
+
+
+def _vertex_truth(stream, k: int, vertices) -> np.ndarray:
+    """Exact windowed out-weight of each vertex (``GroundTruth``'s window
+    rule over the stream's columns: one pass, not one a query)."""
+    ws = max(1, stream.spec.window_size // k)
+    widx = stream.time.astype(np.int64) // ws
+    live = widx > widx.max() - k
+    tot = np.bincount(stream.src[live], weights=stream.weight[live],
+                      minlength=int(stream.src.max()) + 1)
+    return tot[np.asarray(vertices)].astype(np.int64)
+
+
+def route_phase(cfg, spec, stream, flushes, p4, dev, tag):
+    """Phase R: phase 4's stream and flushes through ``AsyncIngestor``
+    with the heavy-key detector (HEAT_THRESHOLD, SPLIT_REPLICAS), launches
+    counted from 0 over the ingest and the queries. Logs the splits with
+    the batch each came in, ``PARTITION_STATS`` beside the unrouted
+    partition of the same batches, the per-shard pool use beside phase
+    4's, and edges/s. Holds the final state, leaf for leaf, to synchronous
+    ``ingest`` of the same batches, each under the spec it was partitioned
+    with, and N_QUERIES edge and vertex-out answers one-sided against the
+    exact truth. Returns (the launches, the numbers)."""
+    batches = [stream.slice(a, z) for a, z in flushes]
+    PARTITION_STATS.reset()
+    for b in batches:  # the unrouted partition of the same batches
+        _partition_stack(spec, b)
+    plain_stats = PARTITION_STATS.snapshot()
+    PARTITION_STATS.reset()
+    qi = query_inputs(cfg, stream)
+    qs = (query_batch(qi, "edge", False, None),
+          query_batch(qi, "vertex-out", False, None))
+
+    def path():
+        ing = skt.AsyncIngestor(spec, path="cuda", device=dev,
+                                heat_threshold=HEAT_THRESHOLD,
+                                split_replicas=SPLIT_REPLICAS)
+        specs, splits, prev = [], [], set()
+        _sync()
+        t0 = time.perf_counter()
+        for i, b in enumerate(batches):
+            ing.submit(b)  # partitioned under ing.spec after the detector
+            cur = set(ing.spec.routing.splits) if ing.spec.routing else set()
+            splits += [(list(e), i) for e in sorted(cur - prev)]
+            prev = cur
+            specs.append(ing.spec)
+        final = ing.flush()
+        _sync()
+        sec = time.perf_counter() - t0
+        return final, specs, splits, sec, [skt.query(spec, final, q,
+                                                     path="cuda")
+                                           for q in qs]
+
+    names = MAIN_PATH if dev.type == "cuda" else ()
+    (final, specs, splits, sec, answers), launches = count_launches(
+        names, path)
+    routed_stats = PARTITION_STATS.snapshot()
+    use = _pool_use(final)
+    n = len(stream)
+    det = skt.HeavyKeyDetector()  # the detector's share: its updates alone
+    _, det_s = _timed(lambda: [det.update(b.src, b.src_label)
+                               for b in batches])
+    _log(f"phase R: {n} edges in {len(batches)} flushes through "
+         f"AsyncIngestor(heat_threshold={HEAT_THRESHOLD}, split_replicas="
+         f"{SPLIT_REPLICAS}) in {sec:.3f} s = {n / sec:.0f} edges/s, of "
+         f"which the detector's updates alone take {det_s:.3f} s (host "
+         f"clock); launches {launches} {tag}")
+    _log(f"phase R splits (src, src_label, replicas) and the batch each "
+         f"came in: {json.dumps(splits)}")
+    _log(f"phase R PARTITION_STATS routed {json.dumps(routed_stats)}; "
+         f"unrouted, the same batches {json.dumps(plain_stats)}")
+    _log(f"phase R pool use per shard {json.dumps(use)}; phase 4 "
+         f"(unrouted) {json.dumps(p4)}")
+    if not splits:
+        raise AssertionError("phase R: the detector split no key")
+
+    replay = skt.create(spec, device=dev)
+    for b, sp in zip(batches, specs):
+        replay = skt.ingest(sp, replay, b, path="cuda")
+    differ = _leaves_differ(final, replay)
+    _log(f"phase R final state vs synchronous ingest of the same batches "
+         f"under the spec each was partitioned with, leaf for leaf: "
+         f"{'equal' if not differ else 'DIFFER ' + str(differ)} {tag}")
+    if differ:
+        raise AssertionError(f"phase R: the routed state differs in "
+                             f"{differ}")
+    del replay
+    torch.cuda.empty_cache()
+
+    lost = int(final.live().pool_lost.sum())
+    gt = GroundTruth(stream.spec, cfg.k).insert_stream(stream)
+    truth = {"edge": np.array([gt.edge_weight(int(a), int(b))
+                               for a, b in zip(qi["src"], qi["dst"])]),
+             "vertex-out": _vertex_truth(stream, cfg.k, qi["v"])}
+    for j in range(4):  # the one-pass truth is GroundTruth's
+        v = int(qi["v"][j])
+        if truth["vertex-out"][j] != gt.vertex_weight(v):
+            raise AssertionError("phase R: the vertex truth differs from "
+                                 "GroundTruth")
+    under = {}
+    for (kind, t), est in zip(truth.items(), answers):
+        est = est.cpu().numpy().astype(np.int64)
+        under[kind] = int((est < t - lost).sum())
+        _log(f"phase R {kind}: {len(t)} answers vs the exact truth: est >= "
+             f"truth - pool_lost ({lost}) fails {under[kind]}; exact "
+             f"{float((est == t).mean()):.4f}, mean over-count "
+             f"{float((est - t).mean()):.4f}")
+    if any(under.values()):
+        raise AssertionError("phase R: an estimate under-counts the truth")
+    return launches, dict(edges=n, batches=len(batches), edges_per_s=n / sec,
+                          detector_s=det_s, splits=splits, partition_routed=routed_stats,
+                          partition_unrouted=plain_stats, pool=use,
+                          pool_phase4=p4, truth_violations=under)
+
+
+# --------------------------------------------------------------------------
+# phase T: the tenant pool
+# --------------------------------------------------------------------------
+
+def tenant_streams(cfg):
+    """Each tenant's stream (the COMFS analog from seed t, TENANT_EDGES
+    long, its clock offset by TENANT_OFFSET * t subwindows), its batches
+    cut at its own subwindow boundaries, and its query inputs."""
+    out = []
+    for t in range(TENANTS):
+        st = generate(dataclasses.replace(COMFS, n_edges=TENANT_EDGES),
+                      seed=t, weighted=True)
+        st = dataclasses.replace(st, time=st.time + np.int32(
+            TENANT_OFFSET * t * cfg.subwindow_size))
+        batches, _ = stream_batches(cfg, st)
+        out.append((st, batches, query_inputs(cfg, st)))
+    return out
+
+
+def _tenant_queries(qi):
+    """Phase T2's query batches of one tenant, by (kind, last, label)."""
+    sl = slice(0, TENANT_QUERIES)
+    return {(kind, last, le): query_batch(qi, kind, le, last, sl)
+            for kind in KINDS for last in (None, 1) for le in (False, True)}
+
+
+def _tenant_topk(spec, state, pool=None):
+    """Phase T2's top-k calls: k=16 vertex out and in, edge and label at
+    last=None, and a heavy_vertices sweep at SWEEP, on a standalone
+    handle or (``pool``) through ``top_k_many`` for every tenant."""
+    calls = {"vertex-out": ("heavy_vertices", "vertex", {"direction": "out"}),
+             "vertex-in": ("heavy_vertices", "vertex", {"direction": "in"}),
+             "edge": ("heavy_edges", "edge", {}),
+             "label": ("top_labels", "label", {"direction": "out"}),
+             "sweep": ("heavy_vertices", "vertex",
+                       {"direction": "out", "horizons": list(SWEEP)})}
+    out = {}
+    for label, (fn, kind, kw) in calls.items():
+        if pool is None:
+            out[label] = [x.cpu() for x in getattr(skt, fn)(
+                spec, state, 16, path="cuda", **kw)]
+        else:
+            before = cell_decode_kernel_sharded.launches
+            got = pool.top_k_many(range(TENANTS), kind=kind, k=16, **kw)
+            decodes = cell_decode_kernel_sharded.launches - before
+            if pool.device.type == "cuda" and decodes != 1:
+                raise AssertionError(f"phase T3: top_k_many {label} took "
+                                     f"{decodes} decode launches, not 1")
+            out[label] = [[x.cpu() for x in g] for g in got]
+    return out
+
+
+def grouped_nbytes(cfg, planes, q, groups, kind, H=1, direction="out"):
+    """Bytes a grouped launch must move: each group's bytes as its rows
+    alone would (``probe_nbytes`` / ``scan_nbytes``), the edge probe's
+    block table counted once."""
+    S = planes.key.shape[0]
+    per, Lq = S // groups, q[0].shape[0] // groups
+    total = 0
+    for g in range(groups):
+        rows, qs = slice(g * per, (g + 1) * per), slice(g * Lq, (g + 1) * Lq)
+        if kind == "edge":
+            src, la, dst, lb, le = (x[qs] for x in q)
+            pr = edge_probes(cfg, precompute(cfg, src, la),
+                             precompute(cfg, dst, lb))
+            le_idx = hsh.edge_label_bucket(le, cfg.c, cfg.seed)
+            total += probe_nbytes(cfg, pr, le_idx, planes.key[rows], H,
+                                  (planes.pool_key[rows], cfg.pool_probes))
+        else:
+            lines, f, le_idx = (x[qs] for x in q)
+            total += scan_nbytes(cfg, lines, f, le_idx, planes.key[rows],
+                                 direction)
+    if kind == "edge":
+        total -= (groups - 1) * 2 * cfg.n_blocks * 4
+    return total
+
+
+def check_grouped_kernels(cfg, spec, pool, tq, dev, tag) -> dict:
+    """Phase T4: the grouped entries of the edge probe (H = 1 and the
+    SWEEP stack) and the vertex scan (out and in) against their plain
+    versions on the pool's planes and the tenants' queries, exactly;
+    CUDA-event medians, the plain version's time and the byte bound."""
+    G = pool.n_slots
+    state = pool.state
+    planes = skt.query_planes(spec, state, None, groups=G)
+    multi, uniq = skt.query_planes_multi(spec, state, list(SWEEP), groups=G)
+    t = lambda k: torch.from_numpy(np.concatenate(  # noqa: E731
+        [qi[k][:TENANT_QUERIES] for qi in tq])).to(dev)
+    q = [t(k) for k in ("src", "src_label", "dst", "dst_label", "le")]
+    pairs = []
+    for pl in (planes, multi):
+        for le in (q[4], None):
+            got = edge_query_kernel(cfg, pl, *q[:4], le, groups=G)
+            want = edge_query_plain(cfg, pl, *q[:4], le, groups=G)
+            pairs += list(zip(got, want))
+    _sync()
+    mism, err = diff(pairs)
+    del pairs
+    one, sweep = (cfg, planes, *q), (cfg, multi, *q)
+    times = event_times(lambda: edge_query_kernel(*one, groups=G), 20)
+    sweep_t = event_times(lambda: edge_query_kernel(*sweep, groups=G), 20)
+    plain_ms = event_ms(lambda: edge_query_plain(*one, groups=G), 3)
+    nbytes = grouped_nbytes(cfg, planes, q, G, "edge")
+    sweep_bytes = grouped_nbytes(cfg, planes, q, G, "edge", H=len(uniq))
+    _log(f"phase T4 edge probe, grouped entry (G={G}, {TENANT_QUERIES} "
+         f"queries a group) vs plain: mismatches={mism} (H=1 and the "
+         f"H={len(uniq)} sweep, with and without the label); H=1 median "
+         f"{np.median(times):.4f} ms (CUDA events, 20 launches), plain "
+         f"{plain_ms:.3f} ms, byte bound {1e3 * nbytes / HBM_BYTES_PER_S:.7f}"
+         f" ms; sweep median {np.median(sweep_t):.4f} ms, byte bound "
+         f"{1e3 * sweep_bytes / HBM_BYTES_PER_S:.7f} ms {tag}")
+    rows = {"sketch_query_kernel_sharded (grouped)": dict(
+        mismatches=mism, max_abs_err=err, ms=float(np.median(times)),
+        plain_ms=plain_ms, nbytes=nbytes,
+        sweep_ms=float(np.median(sweep_t)),
+        bound_ms_sweep=1e3 * sweep_bytes / HBM_BYTES_PER_S,
+        shape=f"S={planes.key.shape[0]} G={G} Lq={TENANT_QUERIES}")}
+
+    v = torch.from_numpy(np.concatenate([qi["v"][:TENANT_QUERIES]
+                                         for qi in tq])).to(dev)
+    lv = torch.from_numpy(np.concatenate([qi["lv"][:TENANT_QUERIES]
+                                          for qi in tq])).to(dev)
+    pre, lines = scan_lines(cfg, v, lv)
+    le_idx = hsh.edge_label_bucket(q[4], cfg.c, cfg.seed)
+    v_args = (lines, pre.f.contiguous(), le_idx, planes.key, planes.cw,
+              planes.pw)
+    res = {}
+    for direction in ("out", "in"):
+        kw = dict(r=cfg.r, F=cfg.F, direction=direction, groups=G)
+        pairs = []
+        for lab in (le_idx, None):
+            a = (lines, v_args[1], lab) + v_args[3:]
+            pairs += list(zip(vertex_scan_kernel_sharded(*a, **kw),
+                              vertex_scan_plain(*a, **kw)))
+        _sync()
+        m, e = diff(pairs)
+        del pairs
+        ts = event_times(lambda: vertex_scan_kernel_sharded(*v_args, **kw),
+                         20)
+        p_ms = event_ms(lambda: vertex_scan_plain(*v_args, **kw), 3)
+        nb = grouped_nbytes(cfg, planes, (lines, pre.f, le_idx), G, "scan",
+                            direction=direction)
+        res[direction] = (m, e, float(np.median(ts)), p_ms, nb)
+        _log(f"phase T4 vertex scan[{direction}], grouped entry (G={G}) vs "
+             f"plain: mismatches={m}; median {np.median(ts):.4f} ms (CUDA "
+             f"events, 20 launches), plain {p_ms:.3f} ms, byte bound "
+             f"{1e3 * nb / HBM_BYTES_PER_S:.4f} ms {tag}")
+    vo, vn = res["out"], res["in"]
+    rows["vertex_scan_kernel_sharded (grouped)"] = dict(
+        mismatches=vo[0] + vn[0], max_abs_err=max(vo[1], vn[1]), ms=vo[2],
+        plain_ms=vo[3], nbytes=vo[4], direction="out", ms_in=vn[2],
+        plain_ms_in=vn[3], bound_ms_in=1e3 * vn[4] / HBM_BYTES_PER_S,
+        shape=f"S={planes.key.shape[0]} G={G} Lq={TENANT_QUERIES}")
+    if any(r["mismatches"] for r in rows.values()):
+        raise AssertionError("phase T4: a grouped entry disagrees with its "
+                             "plain version")
+    return rows
+
+
+def tenant_path(spec, streams, pool, dev, tag):
+    """Phase T1-T3 (launches counted from 0 over them): the pooled ingest,
+    every tenant's ``query_many`` batches and ``top_k_many`` calls."""
+    n_rounds = max(len(b) for _, b, _ in streams)
+    scan_before = eng.ROUTE_EDGES["scan"]
+    round_ms = []
+    t_all = time.perf_counter()
+    for r in range(n_rounds):
+        rnd = {t: b[r] for t, (_, b, _) in enumerate(streams) if r < len(b)}
+        _, sec = _timed(lambda: pool.submit(rnd))
+        round_ms.append(1e3 * sec)
+    _, sec = _timed(pool.flush)
+    round_ms[-1] += 1e3 * sec
+    ingest_s = time.perf_counter() - t_all
+    n = sum(len(s) for s, _, _ in streams)
+    scan = eng.ROUTE_EDGES["scan"] - scan_before
+    _log(f"phase T1 pooled ingest: {n} edges of {TENANTS} tenants in "
+         f"{n_rounds} rounds, {ingest_s:.3f} s = {n / ingest_s:.0f} edges/s;"
+         f" scan-route edges {scan}; a round (submit, synchronised) median "
+         f"{np.median(round_ms):.3f} ms {tag}")
+    if scan:
+        raise AssertionError("phase T1: a pooled round took the scan route")
+    answers, launched = {}, {}
+    tqs = [_tenant_queries(qi) for _, _, qi in streams]
+    for key in tqs[0]:
+        pairs = [(t, tq[key]) for t, tq in enumerate(tqs)]
+        pool.query_many(pairs, path="cuda")  # the planes: set-up
+        before = {k: WRAPPERS[k].launches for k in MAIN_PATH[2:]}
+        got, sec = _timed(lambda: pool.query_many(pairs, path="cuda"))
+        launched[key] = {k: WRAPPERS[k].launches - v
+                         for k, v in before.items()}
+        answers[key] = ([g.cpu() for g in got], sec)
+    for (kind, _, _), moved in launched.items():
+        want = {"edge": (1, 0), "vertex-out": (0, 1), "vertex-in": (0, 1),
+                "label": (0, 0)}[kind]
+        got = (moved["sketch_query_kernel_sharded"],
+               moved["vertex_scan_kernel_sharded"])
+        if dev.type == "cuda" and got != want:
+            raise AssertionError(f"phase T3: a pooled {kind} dispatch "
+                                 f"launched {got} (probe, scan), not {want}")
+    _log(f"phase T3 a pooled dispatch's launches (edge probe, vertex scan):"
+         f" edge {tuple(launched[('edge', None, False)].values())}, vertex "
+         f"{tuple(launched[('vertex-out', None, False)].values())}, label "
+         f"{tuple(launched[('label', None, False)].values())} {tag}")
+    topk = _tenant_topk(spec, None, pool)
+    return dict(round_ms=round_ms, ingest_s=ingest_s, edges=n,
+                rounds=n_rounds, answers=answers, topk=topk, tqs=tqs)
+
+
+def tenant_phase(dev, tag):
+    """Phase T: TENANTS tenants of TENANT_CFG at TENANT_SHARDS shards in a
+    ``TenantPool`` of TENANTS slots, each on its own clock; the tenant
+    spec routed by the detector over the first round. T1-T3 counted
+    (``tenant_path``), T2 every tenant against a standalone handle fed
+    the same batches, T4 the grouped kernel entries, T5 an eviction and a
+    readmission through checkpoints, T6 pooled against standalone costs.
+    Returns (the grouped kernel rows, the launches, the numbers)."""
+    import tempfile
+
+    cfg = TENANT_CFG
+    base = skt.make_spec("lsketch", n_shards=TENANT_SHARDS, config=cfg)
+    streams = tenant_streams(cfg)
+    det = skt.HeavyKeyDetector()
+    for st, batches, _ in streams:
+        det.update(batches[0].src, batches[0].src_label)
+    budget = skt.recommend_budget(base, det)
+    hot = [(s, l, TENANT_SHARDS) for s, l, _ in det.hot_keys(HEAT_THRESHOLD)]
+    spec = base.replace(routing=budget.routing.merged(hot))
+    _log(f"phase T: {TENANTS} tenants x {TENANT_SHARDS} shards of {cfg} "
+         f"({state_bytes(cfg) * TENANTS * TENANT_SHARDS} bytes pooled); "
+         f"streams of {TENANT_EDGES} edges, clocks offset by "
+         f"{TENANT_OFFSET} subwindows a tenant, batches <= {STREAM_FLUSH} "
+         f"cut at each tenant's own boundaries; recommend_budget over the "
+         f"first round: {json.dumps(budget.to_json())}; the detector's "
+         f"keys past {HEAT_THRESHOLD}: {hot}; tenant routing "
+         f"{spec.routing.splits}")
+    if not spec.routing:
+        raise AssertionError("phase T: the tenant spec holds no split")
+    with tempfile.TemporaryDirectory() as tmp:
+        pool = skt.TenantPool(spec, n_slots=TENANTS, directory=tmp,
+                              path="cuda", device=dev)
+        for t in range(TENANTS):
+            pool.attach(t)
+        names = ("sketch_insert_kernel_sharded", "pool_pass_kernel_sharded",
+                 "sketch_query_kernel_sharded", "vertex_scan_kernel_sharded",
+                 "cell_decode_kernel_sharded") if dev.type == "cuda" else ()
+        out, launches = count_launches(names, lambda: tenant_path(
+            spec, streams, pool, dev, tag))
+        _log(f"phase T pool-path launches: {launches} {tag}")
+        out.update(tenant_checks(spec, streams, pool, out, dev, tag))
+        rows = check_grouped_kernels(cfg, spec, pool,
+                                     [qi for _, _, qi in streams], dev, tag)
+        out.update(tenant_evict(spec, pool, out["tqs"], tmp, dev, tag))
+        del pool
+    torch.cuda.empty_cache()
+    out.pop("answers"), out.pop("topk"), out.pop("tqs")
+    return rows, launches, out
+
+
+def tenant_checks(spec, streams, pool, out, dev, tag) -> dict:
+    """Phase T2 and T6: each tenant in turn against a standalone handle
+    fed the same batches (ingest timed a batch), leaf for leaf, every
+    pooled answer and top-k against the standalone ones; then freed."""
+    single_ms = {}  # round -> standalone ingest ms summed over tenants
+    single_q = []
+    bad = []
+    for t, (st, batches, _) in enumerate(streams):
+        h = skt.create(spec, device=dev)
+        for r, b in enumerate(batches):
+            _sync()
+            t0 = time.perf_counter()
+            h = skt.ingest(spec, h, b, path="cuda")
+            _sync()
+            single_ms[r] = single_ms.get(r, 0.0) + \
+                1e3 * (time.perf_counter() - t0)
+        _, mine = pool.handle_of(t)
+        differ = _leaves_differ(h, mine)
+        del mine
+        if differ:
+            bad.append((t, "state", differ))
+        for key, q in out["tqs"][t].items():
+            want = skt.query(spec, h, q, path="cuda")
+            if key == ("edge", None, False):  # T6: a standalone call, timed
+                _, sec = _timed(lambda: skt.query(spec, h, q, path="cuda"))
+                single_q.append(sec)
+            if not torch.equal(out["answers"][key][0][t], want.cpu()):
+                bad.append((t, key))
+        for label, got in _tenant_topk(spec, h).items():
+            if not all(torch.equal(a, b) for a, b in zip(
+                    out["topk"][label][t], got)):
+                bad.append((t, "top-k " + label))
+        del h
+        torch.cuda.empty_cache()
+    _log(f"phase T2 every tenant vs a standalone {TENANT_SHARDS}-shard "
+         f"handle fed the same batches: handle_of leaf for leaf, "
+         f"{len(out['tqs'][0])} query_many batches of {TENANT_QUERIES} a "
+         f"tenant and 5 top-k calls (k=16; one sweep {list(SWEEP)}): "
+         f"{'all equal' if not bad else 'DIFFER ' + str(bad[:8])} {tag}")
+    if bad:
+        raise AssertionError(f"phase T2: {len(bad)} differences")
+    pooled_q = out["answers"][("edge", None, False)][1]
+    nq = TENANTS * TENANT_QUERIES
+    rounds = sorted(single_ms)
+    ratio = [single_ms[r] / out["round_ms"][r] for r in rounds]
+    _log(f"phase T6 (recorded, not claimed): an edge query_many of {nq} "
+         f"queries {1e6 * pooled_q / nq:.3f} us/query against "
+         f"{TENANTS} standalone query calls {1e6 * sum(single_q) / nq:.3f} "
+         f"us/query; a pooled ingest round median "
+         f"{np.median(out['round_ms']):.3f} ms against {TENANTS} "
+         f"standalone ingests of the same batches median "
+         f"{np.median([single_ms[r] for r in rounds]):.3f} ms (standalone "
+         f"/ pooled by round, median {np.median(ratio):.3f}) {tag}")
+    return dict(pooled_query_us=1e6 * pooled_q / nq,
+                standalone_query_us=1e6 * sum(single_q) / nq,
+                pooled_round_ms=float(np.median(out["round_ms"])),
+                standalone_round_ms=float(np.median(
+                    [single_ms[r] for r in rounds])),
+                pooled_edges_per_s=out["edges"] / out["ingest_s"])
+
+
+def tenant_evict(spec, pool, tqs, tmp, dev, tag) -> dict:
+    """Phase T5: attaching one tenant more than the pool holds evicts the
+    least recently used one through a checkpoint; querying it again
+    readmits it into another slot, with the same answers."""
+    import os
+
+    lru, slot = 0, pool.slot_of(0)
+    keys = [("edge", None, True), ("vertex-out", 1, True),
+            ("label", None, False)]
+    before = [pool.query(lru, tqs[lru][k], path="cuda").cpu() for k in keys]
+    pool.query_many([(t, tqs[t][keys[1]]) for t in range(TENANTS)],
+                    path="cuda")  # touched first: tenant 0 is the LRU
+    _, save_s = _timed(lambda: pool.attach("extra"))
+    if lru in pool.tenants or pool.slot_of("extra") != slot:
+        raise AssertionError("phase T5: the LRU tenant was not evicted")
+    where = os.path.join(tmp, f"tenant-{lru}")
+    nbytes = sum(os.path.getsize(os.path.join(d, f))
+                 for d, _, fs in os.walk(where) for f in fs)
+    extra = skt.saved_extra(where)
+    _, restore_s = _timed(lambda: skt.restore(spec, where, device=dev))
+    torch.cuda.empty_cache()
+    after = [pool.query(lru, tqs[lru][k], path="cuda").cpu() for k in keys]
+    same = all(torch.equal(a, b) for a, b in zip(before, after))
+    _log(f"phase T5 attach of a {TENANTS + 1}th tenant evicted tenant "
+         f"{lru} (slot {slot}; manifest extra {extra}) in {save_s:.3f} s "
+         f"(the checkpoint's save and the slot's clearing); its checkpoint "
+         f"{nbytes} bytes; a restore alone {restore_s:.3f} s; readmitted "
+         f"into slot {pool.slot_of(lru)}: answers "
+         f"{'equal' if same else 'DIFFER'} to those before eviction {tag}")
+    if not same or pool.slot_of(lru) == slot or \
+            extra != {"tenant_id": str(lru)}:
+        raise AssertionError("phase T5: the readmitted tenant differs")
+    return dict(checkpoint_bytes=nbytes, evict_s=save_s, restore_s=restore_s)
+
+
 def deployment():
     """The spec, the seeded stream and its flushes ``[(a, z)]``, with the
     index of the boundary-spanning flush."""
@@ -2558,6 +3100,7 @@ def main() -> int:
     (state, edges_per_s, kernel_edges_per_s, answers), launches = \
         count_launches(MAIN_PATH, main_path)
     peak = torch.cuda.max_memory_allocated()
+    p4 = _pool_use(state)  # beside phase R's
     _log(f"phase 5 main-path launches: {launches}; peak device memory "
          f"{peak} bytes {tag}")
     results.update(check_pool_kernel(capture, tag))  # phase 3b
@@ -2587,6 +3130,17 @@ def main() -> int:
     stream_out = stream_phase(cfg, spec, dev, tag)  # phase S
     torch.cuda.empty_cache()
 
+    r_launches, route_out = route_phase(cfg, spec, stream, flushes, p4, dev,
+                                        tag)  # phase R
+    route_out["launches"] = r_launches
+    torch.cuda.empty_cache()
+
+    t_rows, t_launches, tenant_out = tenant_phase(dev, tag)  # phase T
+    results.update(t_rows)
+    launches.update({k: t_launches[w] for k, w in GROUPED_KERNELS.items()})
+    tenant_out["launches"] = t_launches
+    torch.cuda.empty_cache()
+
     obj_rows, o_launches, obj_out = object_phase(dev, tag)  # phase O
     results.update(obj_rows)
     launches.update({k: o_launches[w] for k, w in OBJECT_KERNELS.items()})
@@ -2609,7 +3163,8 @@ def main() -> int:
                       "analytics_peak_memory_bytes": a_peak,
                       "ingest_edges_per_s": edges_per_s,
                       "ingest_kernel_route_edges_per_s": kernel_edges_per_s,
-                      "stream": stream_out, "object": obj_out,
+                      "stream": stream_out, "route": route_out,
+                      "tenant": tenant_out, "object": obj_out,
                       **profile, **lm_out,
                       "seconds": seconds}), flush=True)
     print(card_line(), flush=True)

@@ -38,6 +38,12 @@
 // contract (rows / cols / keys / label bucket in; w, wl, go_pool out; no
 // pool), lsk_edge_query takes raw queries and writes w, wl [H, S, B]
 // after the pool.
+//
+// Groups (a pooled stack of tenants, repro/sketch/tenant.py): with G
+// groups the fused entry takes G x B queries, group g's B in a row, and
+// shard row sh answers only the queries of its own group sh / (S / G):
+// the grid stays S x B, so a pooled batch costs what G separate handles'
+// batches would, in one launch. G = 1 is the plain stack.
 #include "addressing.cuh"
 
 #define LSK_QGROUP 16          // lanes per (shard, query)
@@ -67,6 +73,7 @@ struct LskQueryArgs {
   int* wl;             // [H, S, B]
   int* go_pool;        // [S, B] (contract entry only)
   int H, S, B, s, d, c, Q, probes, n_blocks, F, r;
+  int per;  // shard rows a group: queries of row sh start at (sh/per) B
   uint32_t seed;
 };
 
@@ -113,6 +120,7 @@ __global__ void __launch_bounds__(LSK_QTHREADS)
   const unsigned gmask = 0xFFFFu << (threadIdx.x & 16);
   const int sh = (int)(g / a.B);
   const int q = (int)(g - (int64_t)sh * a.B);
+  const int qi = (sh / a.per) * a.B + q;  // this row's group's query q
   const int64_t plane = 2 * (int64_t)a.d * a.d;
   const int* kp = a.key + sh * plane;
 
@@ -121,19 +129,19 @@ __global__ void __launch_bounds__(LSK_QTHREADS)
   int64_t cell = 0;
   int match = 0, stop;
   if constexpr (FUSED) {
-    va = lsk_precompute(a.src[q], a.la[q], a.blocks, a.n_blocks, a.F,
+    va = lsk_precompute(a.src[qi], a.la[qi], a.blocks, a.n_blocks, a.F,
                         a.seed);
-    vb = lsk_precompute(a.dst[q], a.lb[q], a.blocks, a.n_blocks, a.F,
+    vb = lsk_precompute(a.dst[qi], a.lb[qi], a.blocks, a.n_blocks, a.F,
                         a.seed);
-    if (a.le != nullptr) le = lsk_edge_label_bucket(a.le[q], a.c, a.seed);
+    if (a.le != nullptr) le = lsk_edge_label_bucket(a.le[qi], a.c, a.seed);
     stop = lsk_walk(kp, a.s, a.d, lane, gmask,
                     [&](int pi, int* row, int* col, int* key) {
                       lsk_edge_probe(va, vb, a.r, a.F, pi, row, col, key);
                     },
                     &cell, &match);
   } else {
-    if (a.le != nullptr) le = a.le[q];
-    const int64_t qs = (int64_t)q * a.s;
+    if (a.le != nullptr) le = a.le[qi];
+    const int64_t qs = (int64_t)qi * a.s;
     stop = lsk_walk(kp, a.s, a.d, lane, gmask,
                     [&](int pi, int* row, int* col, int* key) {
                       *row = a.rows[qs + pi];
@@ -196,7 +204,7 @@ __global__ void __launch_bounds__(LSK_QTHREADS)
 static int lsk_launch_probe(const LskQueryArgs& a, bool fused, void* stream) {
   const long long n = (long long)a.S * a.B;
   if (n == 0 || a.H == 0) return 0;
-  if (a.s <= 0 || a.d <= 0 || a.c <= 0 || a.H < 0 ||
+  if (a.s <= 0 || a.d <= 0 || a.c <= 0 || a.H < 0 || a.per <= 0 ||
       n * LSK_QGROUP > 0x7FFFFFFFLL * LSK_QTHREADS)
     return (int)cudaErrorInvalidValue;
   const int blocks =
@@ -230,14 +238,16 @@ extern "C" int lsk_sketch_query(const int* rows, const int* cols,
   a.H = 1;
   a.S = S;
   a.B = nq;
+  a.per = S;
   a.s = s;
   a.d = d;
   a.c = c;
   return lsk_launch_probe(a, false, stream);
 }
 
-// Raw edge queries (src, la, dst, lb, le [B]; le null without the label)
-// against H horizons of planes: w, wl [H, S, B] after the pool lookup.
+// Raw edge queries (src, la, dst, lb, le [G x B]; le null without the
+// label) against H horizons of planes: w, wl [H, S, B] after the pool
+// lookup, shard row sh answering group sh / (S / G)'s B queries.
 extern "C" int lsk_edge_query(const int* src, const int* la, const int* dst,
                               const int* lb, const int* le, const int* blocks,
                               const int* key_plane, const int* cw,
@@ -246,9 +256,11 @@ extern "C" int lsk_edge_query(const int* src, const int* la, const int* dst,
                               int* w_out, int* wl_out, int H, int S, int B,
                               int s, int d, int c, int Q, int probes,
                               int n_blocks, int F, int r, int seed,
-                              void* stream) {
+                              int groups, void* stream) {
   if (Q <= 0 || probes < 0 || n_blocks <= 0 || F <= 0 || r <= 0 ||
-      (long long)Q + probes > 0x7FFFFFFFLL)
+      groups <= 0 || S % groups != 0 ||
+      (long long)Q + probes > 0x7FFFFFFFLL ||
+      (long long)groups * B > 0x7FFFFFFFLL)
     return (int)cudaErrorInvalidValue;
   LskQueryArgs a = {};
   a.src = src;
@@ -268,6 +280,7 @@ extern "C" int lsk_edge_query(const int* src, const int* la, const int* dst,
   a.H = H;
   a.S = S;
   a.B = B;
+  a.per = S / groups;
   a.s = s;
   a.d = d;
   a.c = c;

@@ -31,6 +31,13 @@
 //      with no reference exits. Match keys carry the column in the tile;
 //      each warp reads rows of the tile, 32 consecutive words a row: one
 //      128-byte load, so the whole key plane is read once.
+//   Groups (a pooled stack of tenants, repro/sketch/tenant.py): with G
+//   groups the queries are G x Lq, group g's Lq in a row, and shard row sh
+//   answers only its own group's, g = sh / (S / G). The sort keys each
+//   reference by (group, line), so block (line, sh) reads the references
+//   of its group on its line and nothing else: a pooled batch costs what
+//   G separate handles' batches would, in one launch. G = 1 is the plain
+//   stack.
 //   Shared memory holds a chunk of a line's (or tile's) references: a
 //   table of their match keys (f, i[, column]) with a dense id each, the
 //   cw sum of each key and, with the edge label, its c per-label pw sums.
@@ -64,17 +71,20 @@
 #define LSK_SCAN_OUT_THREADS 256
 #define LSK_SCAN_IN_THREADS 512
 
-// 1a. each reference's rank in its line (a line outside [0, d) ranks -1)
+// 1a. each reference's rank in its (group, line) bin, bin g * d + line
+// for query q of group g = q / Lq (a line outside [0, d) ranks -1)
 __global__ void lsk_scan_hist_kernel(const int* __restrict__ lines,
-                                     int n_ref, int d, int* cnt, int* rank) {
+                                     int n_ref, int r, int Lq, int d,
+                                     int* cnt, int* rank) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n_ref) return;
   const int line = lines[t];
-  rank[t] = (line >= 0 && line < d) ? atomicAdd(cnt + line, 1) : -1;
+  const int bin = (t / r / Lq) * d + line;
+  rank[t] = (line >= 0 && line < d) ? atomicAdd(cnt + bin, 1) : -1;
 }
 
-// 1b. off[j] = references on lines before j, off[d] = all (one block of
-// 1024 threads walks the d counts in steps of 1024)
+// 1b. off[j] = references in bins before j, off[n] = all (one block of
+// 1024 threads walks the n = G x d counts in steps of 1024)
 __global__ void __launch_bounds__(1024)
     lsk_scan_offsets_kernel(const int* __restrict__ cnt, int d, int* off) {
   __shared__ int warp_x[32];
@@ -109,18 +119,19 @@ __global__ void __launch_bounds__(1024)
   if (threadIdx.x == 0) off[d] = carry;
 }
 
-// 1c. the references in line order, each as one record (reference
-// t = q * r + i, f[q], le[q] or 0, its line)
+// 1c. the references in (group, line) order, each as one record
+// (reference t = q * r + i, f[q], le[q] or 0, its line)
 __global__ void lsk_scan_scatter_kernel(const int* __restrict__ lines,
                                         const int* __restrict__ f,
                                         const int* __restrict__ le,
                                         const int* __restrict__ rank,
                                         const int* __restrict__ off,
-                                        int n_ref, int r, int4* sorted) {
+                                        int n_ref, int r, int Lq, int d,
+                                        int4* sorted) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n_ref || rank[t] < 0) return;
   const int q = t / r, line = lines[t];
-  sorted[off[line] + rank[t]] =
+  sorted[off[(q / Lq) * d + line] + rank[t]] =
       make_int4(t, f[q], le != nullptr ? le[q] : 0, line);
 }
 
@@ -268,18 +279,20 @@ __device__ __forceinline__ void lsk_scan_append(int* count, int* hcell,
   }
 }
 
-// one atomic per reference with a non-zero sum
+// one atomic per reference with a non-zero sum, at its query's place
+// q - q0 in the block's group
 __device__ void lsk_scan_flush(LskScanChunk& ch, const unsigned* kwl, int m,
-                               int c, unsigned* w_out, unsigned* wl_out) {
+                               int c, int q0, unsigned* w_out,
+                               unsigned* wl_out) {
   __syncthreads();
   for (int t = threadIdx.x; t < m; t += blockDim.x) {
     const int id = ch.rk[t];
     if (id < 0) continue;
     const unsigned w = ch.kw[id];
-    if (w != 0u) atomicAdd(w_out + ch.rq[t], w);
+    if (w != 0u) atomicAdd(w_out + ch.rq[t] - q0, w);
     if (kwl != nullptr) {
       const unsigned wl = kwl[id * c + ch.rl[t]];
-      if (wl != 0u) atomicAdd(wl_out + ch.rq[t], wl);
+      if (wl != 0u) atomicAdd(wl_out + ch.rq[t] - q0, wl);
     }
   }
   __syncthreads();  // the chunk is reloaded next
@@ -362,13 +375,17 @@ __global__ void __launch_bounds__(THREADS)
                     const int* __restrict__ off,
                     const int* __restrict__ key_plane,
                     const int* __restrict__ cw, const int* __restrict__ pw,
-                    unsigned* w_out, unsigned* wl_out, int nq, int r, int d,
-                    int c, int F, int fsh, int with_le, int chunk) {
-  // "out": block (line, shard); "in": block (tile of 32 columns, shard)
+                    unsigned* w_out, unsigned* wl_out, int Lq, int per,
+                    int r, int d, int c, int F, int fsh, int with_le,
+                    int chunk) {
+  // "out": block (line, shard); "in": block (tile of 32 columns, shard);
+  // either reads the bins of its shard's group only
   const int line = IN ? blockIdx.x * LSK_SCAN_TILE : blockIdx.x;
   const int sh = blockIdx.y;
-  const int lo = off[line];
-  const int n = off[IN ? min(line + LSK_SCAN_TILE, d) : line + 1] - lo;
+  const int grp = sh / per;
+  const int* goff = off + grp * d;
+  const int lo = goff[line];
+  const int n = goff[IN ? min(line + LSK_SCAN_TILE, d) : line + 1] - lo;
   if (n == 0) return;
   __shared__ LskScanChunk ch;
   extern __shared__ int4 dyn4[];
@@ -381,8 +398,8 @@ __global__ void __launch_bounds__(THREADS)
     lsk_scan_cells<IN, U, THREADS>(ch, kwl, hcell, hkid, sorted, lo + c0, m,
                                    key_plane, cw, pw, sh, line, r, d, c, F,
                                    fsh);
-    lsk_scan_flush(ch, kwl, m, c, w_out + (long long)sh * nq,
-                   wl_out + (long long)sh * nq);
+    lsk_scan_flush(ch, kwl, m, c, grp * Lq, w_out + (long long)sh * Lq,
+                   wl_out + (long long)sh * Lq);
   }
 }
 
@@ -391,14 +408,19 @@ __global__ void __launch_bounds__(THREADS)
 #define LSK_MAX_DEVICES 64
 static bool g_scan_attr[LSK_MAX_DEVICES];  // the attribute is set once
 
-// scratch: sorted [nq * r] int4 records, then cnt [d], off [d + 1] and
-// rank [nq * r] ints
+// nq = G x Lq queries, group g's Lq in a row; w_out, wl_out [S, Lq].
+// scratch: sorted [nq * r] int4 records, then cnt [G d], off [G d + 1]
+// and rank [nq * r] ints
 extern "C" int lsk_vertex_scan(const int* lines, const int* f, const int* le,
                                const int* key_plane, const int* cw,
                                const int* pw, int* w_out, int* wl_out,
                                int* scratch, int S, int nq, int r, int d,
-                               int c, int F, int direction_in, void* stream) {
+                               int c, int F, int direction_in, int groups,
+                               void* stream) {
+  if (groups <= 0 || S % groups != 0 || nq % groups != 0)
+    return (int)cudaErrorInvalidValue;
   if ((long long)S * nq == 0) return 0;
+  const int Lq = nq / groups, per = S / groups;
   // references a block takes at once ("out" blocks are many and short:
   // a smaller chunk keeps their shared memory small); a chunk's per-label
   // sums fill at most LSK_SCAN_LSUMS ints
@@ -407,25 +429,27 @@ extern "C" int lsk_vertex_scan(const int* lines, const int* f, const int* le,
       le != nullptr ? min(most_refs, LSK_SCAN_LSUMS / c) : most_refs;
   if (r <= 0 || d <= 0 || F <= 0 || c <= 0 || chunk <= 0 ||
       (long long)F * r * LSK_SCAN_TILE > 0x7FFFFFFFLL ||
-      2LL * d * d > 0x7FFFFFFFLL ||
+      2LL * d * d > 0x7FFFFFFFLL || (long long)groups * d > 0x7FFFFFFFLL ||
       (long long)nq * r * 4 > 0x7FFFFFFFLL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int n_ref = nq * r;
   int4* sorted = (int4*)scratch;
+  const int bins = groups * d;
   int* cnt = scratch + 4 * n_ref;
-  int* off = cnt + d;
-  int* rank = off + d + 1;
+  int* off = cnt + bins;
+  int* rank = off + bins + 1;
   cudaError_t err;
-  if ((err = cudaMemsetAsync(w_out, 0, sizeof(int) * S * nq, st)) ||
-      (err = cudaMemsetAsync(wl_out, 0, sizeof(int) * S * nq, st)) ||
-      (err = cudaMemsetAsync(cnt, 0, sizeof(int) * d, st)))
+  if ((err = cudaMemsetAsync(w_out, 0, sizeof(int) * (size_t)S * Lq, st)) ||
+      (err = cudaMemsetAsync(wl_out, 0, sizeof(int) * (size_t)S * Lq, st)) ||
+      (err = cudaMemsetAsync(cnt, 0, sizeof(int) * (size_t)bins, st)))
     return (int)err;
   const int g = (n_ref + 255) / 256;
-  lsk_scan_hist_kernel<<<g, 256, 0, st>>>(lines, n_ref, d, cnt, rank);
-  lsk_scan_offsets_kernel<<<1, 1024, 0, st>>>(cnt, d, off);
+  lsk_scan_hist_kernel<<<g, 256, 0, st>>>(lines, n_ref, r, Lq, d, cnt,
+                                          rank);
+  lsk_scan_offsets_kernel<<<1, 1024, 0, st>>>(cnt, bins, off);
   lsk_scan_scatter_kernel<<<g, 256, 0, st>>>(lines, f, le, rank, off, n_ref,
-                                             r, sorted);
+                                             r, Lq, d, sorted);
   unsigned* w = (unsigned*)w_out;
   unsigned* wl = (unsigned*)wl_out;
   const int with_le = le != nullptr;
@@ -456,12 +480,12 @@ extern "C" int lsk_vertex_scan(const int* lines, const int* f, const int* le,
     lsk_scan_kernel<true, LSK_SCAN_IN>
         <<<dim3((d + LSK_SCAN_TILE - 1) / LSK_SCAN_TILE, S),
            LSK_SCAN_IN_THREADS, smem, st>>>(sorted, off, key_plane, cw, pw, w,
-                                            wl, nq, r, d, c, F, fsh,
+                                            wl, Lq, per, r, d, c, F, fsh,
                                             with_le, chunk);
   else
     lsk_scan_kernel<false, LSK_SCAN_OUT>
         <<<dim3(d, S), LSK_SCAN_OUT_THREADS, smem, st>>>(
-            sorted, off, key_plane, cw, pw, w, wl, nq, r, d, c, F, fsh,
+            sorted, off, key_plane, cw, pw, w, wl, Lq, per, r, d, c, F, fsh,
             with_le, chunk);
   return (int)cudaGetLastError();
 }

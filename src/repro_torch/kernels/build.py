@@ -30,8 +30,8 @@ SIGNATURES = {
     "lsk_sketch_insert": [_P] * 18 + [_I] * 9 + [_P],
     "lsk_pool_pass": [_P] * 13 + [_I] * 7 + [_P],
     "lsk_sketch_query": [_P] * 10 + [_I] * 5 + [_P],
-    "lsk_edge_query": [_P] * 14 + [_I] * 12 + [_P],
-    "lsk_vertex_scan": [_P] * 9 + [_I] * 7 + [_P],
+    "lsk_edge_query": [_P] * 14 + [_I] * 13 + [_P],
+    "lsk_vertex_scan": [_P] * 9 + [_I] * 8 + [_P],
     "lsk_cell_decode": [_P] * 5 + [_I] * 5 + [_P],
     "lsk_flash_attention": [_P] * 4 + [_I] * 8 + [_P],
 }

@@ -15,6 +15,11 @@ total, then ascending identity (edges lexicographic on ``(src, dst)``, as
 one int64 key); outputs are ``[k]`` padded with ``(-1, 0)``. The ranking
 uses stable sorts only — neither ``torch.topk`` nor ``argmax`` documents
 its tie order on the card.
+
+With ``groups=G`` (a pooled stack of tenants, ``sketch.tenant``) the
+owners of every row are decoded in one launch and each block of
+``S // G`` rows is ranked on its own: the outputs gain a leading [G] axis,
+row g equal to the ranking of group g's rows alone.
 """
 
 from __future__ import annotations
@@ -116,34 +121,71 @@ def _flatten_rows(vids, planes: QueryPlanes, col: int):
     return ident, w
 
 
+def _rows(planes: QueryPlanes, sl: slice) -> QueryPlanes:
+    return QueryPlanes(*(getattr(planes, f)[sl] for f in (
+        "key", "cw", "pw", "pool_key", "pool_cw", "pool_pw")))
+
+
+def _by_group(planes: QueryPlanes, owners, groups, rank):
+    """``rank(planes, *owners)`` over all rows, or with ``groups`` over
+    each block of rows alone, stacked on a leading [G] axis."""
+    if groups is None:
+        return rank(planes, *owners)
+    per = planes.cw.shape[0] // groups
+    outs = []
+    for g in range(groups):
+        sl = slice(g * per, (g + 1) * per)
+        outs.append(rank(_rows(planes, sl), *(o[sl] for o in owners)))
+    return tuple(torch.stack(xs) for xs in zip(*outs))
+
+
 def heavy_vertices_planes(cfg: LSketchConfig, planes: QueryPlanes, k: int,
-                          *, direction: str = "out", kernel: bool = True):
-    """Top-k (packed vid [k], weight [k]) by windowed out/in weight."""
-    vs, vd = decode_cell_owners(cfg, planes, kernel=kernel)
+                          *, direction: str = "out", kernel: bool = True,
+                          groups: int | None = None, owners=None):
+    """Top-k (packed vid [k], weight [k]) by windowed out/in weight.
+    ``owners`` (``decode_cell_owners`` of the same key plane) skips the
+    decode."""
     col = 0 if direction == "out" else 1
-    ident, w = _flatten_rows(vs if col == 0 else vd, planes, col)
-    (ids,), ws = segment_topk((ident,), w, k)
-    return ids, ws
+
+    def rank(pl, vids):
+        ident, w = _flatten_rows(vids, pl, col)
+        (ids,), ws = segment_topk((ident,), w, k)
+        return ids, ws
+
+    if owners is None:
+        owners = decode_cell_owners(cfg, planes, kernel=kernel)
+    return _by_group(planes, (owners[col],), groups, rank)
 
 
 def heavy_edges_planes(cfg: LSketchConfig, planes: QueryPlanes, k: int, *,
-                       kernel: bool = True):
+                       kernel: bool = True, groups: int | None = None,
+                       owners=None):
     """Top-k edges by windowed weight: (src [k], dst [k], weight [k])."""
-    vs, vd = decode_cell_owners(cfg, planes, kernel=kernel)
-    src, w = _flatten_rows(vs, planes, 0)
-    dst, _ = _flatten_rows(vd, planes, 1)
-    (s, t), ws = segment_topk((src, dst), w, k)
-    return s, t, ws
+    def rank(pl, vs, vd):
+        src, w = _flatten_rows(vs, pl, 0)
+        dst, _ = _flatten_rows(vd, pl, 1)
+        (s, t), ws = segment_topk((src, dst), w, k)
+        return s, t, ws
+
+    if owners is None:
+        owners = decode_cell_owners(cfg, planes, kernel=kernel)
+    return _by_group(planes, owners, groups, rank)
 
 
 def top_labels_planes(cfg: LSketchConfig, planes: QueryPlanes, k: int, *,
-                      direction: str = "out", kernel: bool = True):
+                      direction: str = "out", kernel: bool = True,
+                      groups: int | None = None, owners=None):
     """Top-k (vertex-label block [k], weight [k]) by windowed out/in weight
     — the decoded vid's block id is its label block."""
-    vs, vd = decode_cell_owners(cfg, planes, kernel=kernel)
     col = 0 if direction == "out" else 1
-    vid, w = _flatten_rows(vs if col == 0 else vd, planes, col)
-    # floor division keeps dead rows negative (-1 // span == -1)
-    blk = torch.div(vid, 2048 * cfg.F, rounding_mode="floor")
-    (blocks,), ws = segment_topk((blk,), w, k)
-    return blocks, ws
+
+    def rank(pl, vids):
+        vid, w = _flatten_rows(vids, pl, col)
+        # floor division keeps dead rows negative (-1 // span == -1)
+        blk = torch.div(vid, 2048 * cfg.F, rounding_mode="floor")
+        (blocks,), ws = segment_topk((blk,), w, k)
+        return blocks, ws
+
+    if owners is None:
+        owners = decode_cell_owners(cfg, planes, kernel=kernel)
+    return _by_group(planes, (owners[col],), groups, rank)

@@ -19,7 +19,10 @@ and both count in ``sketch_query_kernel_sharded.launches``:
   independent key and pool_key are read from row 0). Returns (w,
   w_label), each int32 [H, S, B]. ``edge_query_plain`` is its twin: the
   host addressing, the walk's plain version and the vectorized pool
-  lookup (the reference's ``edge_query_planes`` body).
+  lookup (the reference's ``edge_query_planes`` body). With ``groups=G``
+  (a pooled stack of tenants) the queries are ``[G * B]``, group g's B in
+  a row, and shard row s answers only group ``s // (S // G)``'s: the
+  outputs stay [H, S, B], and no row probes another group's queries.
 
 A wrapper takes the plain version only for CPU tensors; for CUDA tensors
 it launches the kernel or raises.
@@ -109,8 +112,9 @@ def _horizon_leaves(planes):
             planes.pool_cw[None], planes.pool_pw[None])
 
 
-def edge_query_plain(cfg, planes, src, la, dst, lb, le):
-    key, pool_key, cw, pw, pool_cw, pool_pw = _horizon_leaves(planes)
+def _edge_plain_rows(cfg, key, pool_key, cw, pw, pool_cw, pool_pw, src, la,
+                     dst, lb, le):
+    """The plain edge query of one block of shard rows: w, wl [H, S, B]."""
     pa, pb = precompute(cfg, src, la), precompute(cfg, dst, lb)
     pr = edge_probes(cfg, pa, pb)
     le_idx = None if le is None else \
@@ -136,6 +140,21 @@ def edge_query_plain(cfg, planes, src, la, dst, lb, le):
     return w.to(torch.int32), wl.to(torch.int32)
 
 
+def edge_query_plain(cfg, planes, src, la, dst, lb, le, groups: int = 1):
+    leaves = _horizon_leaves(planes)
+    S, G = leaves[0].shape[0], groups
+    B, per = src.shape[0] // G, S // G
+    outs = []
+    for g in range(G):  # each block of rows against its own queries
+        rows = slice(g * per, (g + 1) * per)
+        qs = slice(g * B, (g + 1) * B)
+        key, pool_key, *counters = leaves
+        outs.append(_edge_plain_rows(
+            cfg, key[rows], pool_key[rows], *(x[:, rows] for x in counters),
+            src[qs], la[qs], dst[qs], lb[qs], None if le is None else le[qs]))
+    return tuple(torch.cat(xs, dim=1) for xs in zip(*outs))
+
+
 _BLOCKS: dict = {}
 
 
@@ -157,9 +176,10 @@ def _i32(x: int) -> int:
     return ((x & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000
 
 
-def edge_query_kernel(cfg, planes, src, la, dst, lb, le):
+def edge_query_kernel(cfg, planes, src, la, dst, lb, le, groups: int = 1):
     if planes.key.device.type == "cpu":
-        return edge_query_plain(cfg, planes, src, la, dst, lb, le)
+        return edge_query_plain(cfg, planes, src, la, dst, lb, le,
+                                groups=groups)
     # no views of the counters: a QueryPlanes' leaves go as they are (H = 1)
     multi = planes.cw.dim() == 5
     key = planes.key[0] if multi else planes.key
@@ -167,10 +187,13 @@ def edge_query_kernel(cfg, planes, src, la, dst, lb, le):
     H = planes.cw.shape[0] if multi else 1
     lead = (H,) if multi else ()
     S, Q = key.shape[0], pool_key.shape[1]
-    d, c, B = cfg.d, cfg.c, src.shape[0]
+    d, c, B = cfg.d, cfg.c, src.shape[0] // groups
+    if groups < 1 or S % groups or B * groups != src.shape[0]:
+        raise ValueError(f"edge query: {src.shape[0]} queries and {S} "
+                         f"rows do not split into {groups} groups")
     _check((src, la, dst, lb, le, key, planes.cw, planes.pw, pool_key,
             planes.pool_cw, planes.pool_pw),
-           ((B,),) * 5 + ((S, 2, d, d), lead + (S, 2, d, d),
+           ((groups * B,),) * 5 + ((S, 2, d, d), lead + (S, 2, d, d),
                           lead + (S, 2, d, d, c), (S, Q, 2), lead + (S, Q),
                           lead + (S, Q, c)), "edge query")
     if Q != cfg.pool_capacity:
@@ -181,6 +204,6 @@ def edge_query_kernel(cfg, planes, src, la, dst, lb, le):
                _block_table(cfg, key.device), key, planes.cw, planes.pw,
                pool_key, planes.pool_cw, planes.pool_pw, out[0], out[1], H, S,
                B, cfg.s, d, c, Q, cfg.pool_probes, cfg.n_blocks, cfg.F, cfg.r,
-               _i32(cfg.seed))
+               _i32(cfg.seed), groups)
     sketch_query_kernel_sharded.launches += 1
     return out[0], out[1]

@@ -15,16 +15,28 @@ from .kernel import edge_query_kernel
 
 
 def edge_query_planes(cfg: LSketchConfig, planes, src, dst, labels,
-                      with_le: bool = True):
+                      with_le: bool = True, groups: int | None = None):
     """src/dst: int32 [B]; labels: (lA, lB, le) int32 [B] each (``le`` is
     ignored without ``with_le``). On ``QueryPlanes`` returns (w, w_label),
     each [S, B] per-shard partials; the caller sums over the shard axis.
     On horizon-stacked ``MultiPlanes`` (5-dim ``cw``, as the reference
     accepts) every horizon is answered by the same launch and the outputs
-    come back [H, B], already summed over the shards (int32 wrap)."""
+    come back [H, B], already summed over the shards (int32 wrap).
+
+    ``groups=G`` (a pooled stack, ``sketch.tenant``): the queries are
+    ``[G * Lq]``, group g's ``Lq`` in a row, each block of ``S // G``
+    rows answers only its group's, and the outputs come back summed
+    within each group: [G, Lq] on ``QueryPlanes``, [H, G, Lq] on
+    ``MultiPlanes``. One launch either way."""
     la, lb, le = labels
     w, wl = edge_query_kernel(cfg, planes, src, la, dst, lb,
-                              le if with_le else None)  # [H, S, B]
+                              le if with_le else None,
+                              groups=groups or 1)  # [H, S, B]
+    if groups is not None:
+        H, S, B = w.shape
+        out = tuple(x.view(H, groups, S // groups, B).sum(
+            2, dtype=torch.int64).to(torch.int32) for x in (w, wl))
+        return out if planes.cw.dim() == 5 else (out[0][0], out[1][0])
     if planes.cw.dim() == 4:
         return w[0], wl[0]
     return tuple(x.sum(1, dtype=torch.int64).to(torch.int32)

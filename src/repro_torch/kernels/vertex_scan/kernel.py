@@ -13,7 +13,10 @@ only for CPU tensors; for CUDA tensors it launches the kernel or raises.
 
 lines [nq, r] absolute candidate rows (out) or columns (in); f [nq];
 le [nq] or None; key_plane/cw [S, 2, d, d]; pw [S, 2, d, d, c].
-Returns (w, w_label), each [S, nq].
+Returns (w, w_label), each [S, nq]. With ``groups=G`` (a pooled stack of
+tenants) the nq = G * Lq queries come group by group, shard row s takes
+only group ``s // (S // G)``'s, and the outputs are [S, Lq]: no row scans
+for another group's queries.
 """
 
 from __future__ import annotations
@@ -29,8 +32,8 @@ def _sum32(x, dim):
     return x.sum(dim=dim, dtype=torch.int64).to(torch.int32)
 
 
-def vertex_scan_plain(lines, f, le, key_plane, cw, pw, *, r: int, F: int,
-                      direction: str = "out"):
+def _scan_plain_rows(lines, f, le, key_plane, cw, pw, *, r: int, F: int,
+                     direction: str = "out"):
     S = key_plane.shape[0]
     nq = lines.shape[0]
     w = torch.zeros((S, nq), dtype=torch.int32, device=lines.device)
@@ -56,11 +59,26 @@ def vertex_scan_plain(lines, f, le, key_plane, cw, pw, *, r: int, F: int,
     return w.to(torch.int32), wl.to(torch.int32)
 
 
+def vertex_scan_plain(lines, f, le, key_plane, cw, pw, *, r: int, F: int,
+                      direction: str = "out", groups: int = 1):
+    S, G = key_plane.shape[0], groups
+    Lq, per = lines.shape[0] // G, S // G
+    outs = []
+    for g in range(G):  # each block of rows against its own queries
+        rows, qs = slice(g * per, (g + 1) * per), slice(g * Lq, (g + 1) * Lq)
+        outs.append(_scan_plain_rows(
+            lines[qs], f[qs], None if le is None else le[qs],
+            key_plane[rows], cw[rows], pw[rows], r=r, F=F,
+            direction=direction))
+    return tuple(torch.cat(xs) for xs in zip(*outs))
+
+
 def vertex_scan_kernel_sharded(lines, f, le, key_plane, cw, pw, *, r: int,
-                               F: int, direction: str = "out"):
+                               F: int, direction: str = "out",
+                               groups: int = 1):
     if key_plane.device.type == "cpu":
         return vertex_scan_plain(lines, f, le, key_plane, cw, pw, r=r, F=F,
-                                 direction=direction)
+                                 direction=direction, groups=groups)
     if direction not in ("out", "in"):
         raise ValueError(f"unknown direction {direction!r}")
     build.check_cuda(lines, f, le, key_plane, cw, pw)
@@ -71,14 +89,18 @@ def vertex_scan_kernel_sharded(lines, f, le, key_plane, cw, pw, *, r: int,
             tuple(key_plane.shape) != (S, 2, d, d) or \
             cw.shape != key_plane.shape or pw.shape[:4] != key_plane.shape:
         raise ValueError("vertex scan: bad shapes")
-    out = torch.empty((2, S, nq), dtype=torch.int32, device=key_plane.device)
-    # the references in line order (4-int records), then the line counts,
-    # offsets and each reference's rank in its line
-    scratch = torch.empty(5 * nq * r + 2 * d + 1, dtype=torch.int32,
-                          device=key_plane.device)
+    if groups < 1 or S % groups or nq % groups:
+        raise ValueError(f"vertex scan: {nq} queries and {S} rows do not "
+                         f"split into {groups} groups")
+    out = torch.empty((2, S, nq // groups), dtype=torch.int32,
+                      device=key_plane.device)
+    # the references in (group, line) order (4-int records), then the bin
+    # counts, offsets and each reference's rank in its bin
+    scratch = torch.empty(5 * nq * r + 2 * groups * d + 1,
+                          dtype=torch.int32, device=key_plane.device)
     build.call("lsk_vertex_scan", lines, f, le, key_plane, cw, pw, out[0],
                out[1], scratch, S, nq, r, d, pw.shape[-1], F,
-               int(direction == "in"))
+               int(direction == "in"), groups)
     vertex_scan_kernel_sharded.launches += 1
     return out[0], out[1]
 

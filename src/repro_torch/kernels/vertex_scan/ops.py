@@ -6,6 +6,13 @@
 Vertex aggregates run the line scan on the kernel, plus the pool lookup.
 Label aggregates are a dense masked reduction in plain PyTorch — the
 reference has no kernel for them either.
+
+Every entry takes ``groups=G`` for a pooled stack of tenants
+(``sketch.tenant``): the queries are ``[G * Lq]``, group g's ``Lq`` in a
+row, and each block of ``S // G`` shard rows answers only its own group's
+(the scan through the kernel's grouped entry, the pool and label
+reductions as ``[G, S // G, Lq, ...]``), so no row computes another
+tenant's queries. The partials come back ``[S, Lq]``.
 """
 
 from __future__ import annotations
@@ -32,30 +39,41 @@ def scan_lines(cfg: LSketchConfig, vertex, lv):
     return pre, (pre.start[:, None] + pos).to(torch.int32).contiguous()
 
 
-def pool_lookup(planes: QueryPlanes, vid, le_idx, direction: str = "out"):
+def pool_lookup(planes: QueryPlanes, vid, le_idx, direction: str = "out",
+                groups: int = 1):
     """The pool's share of a vertex aggregate: every shard's pool entries
-    whose endpoint id on the query's side is ``vid``, a dense ``[S, B, Q]``
-    match. Returns (w, w_label or None), each [S, B]."""
+    whose endpoint id on the query's side is ``vid``, a dense
+    ``[G, S / G, Lq, Q]`` match of each block of rows against its group's
+    queries. Returns (w, w_label or None), each [S, Lq]."""
     col = 0 if direction == "out" else 1
-    pm = planes.pool_key[:, :, col][:, None, :] == vid[None, :, None]
-    w = _sum32(torch.where(pm, planes.pool_cw[:, None, :], 0), -1)
+    S, Q = planes.pool_cw.shape
+    G = groups
+    per, Lq = S // G, vid.shape[0] // G
+    pk = planes.pool_key[:, :, col].view(G, per, 1, Q)
+    pm = pk == vid.view(G, 1, Lq, 1)  # [G, per, Lq, Q]
+    pcw = planes.pool_cw.view(G, per, 1, Q)
+    w = _sum32(torch.where(pm, pcw, 0), -1).view(S, Lq)
     if le_idx is None:
         return w, None
-    lw = planes.pool_pw[:, :, le_idx.long()].permute(0, 2, 1)  # [S, B, Q]
-    return w, _sum32(torch.where(pm, lw, 0), -1)
+    ppw = planes.pool_pw.view(G, per, Q, -1).transpose(2, 3)  # [G,per,c,Q]
+    lw = torch.gather(ppw, 2, le_idx.long().view(G, 1, Lq, 1).expand(
+        G, per, Lq, Q))  # [G, per, Lq, Q]
+    return w, _sum32(torch.where(pm, lw, 0), -1).view(S, Lq)
 
 
 def vertex_query_planes(cfg: LSketchConfig, planes: QueryPlanes, vertex,
-                        labels, direction: str = "out", with_le: bool = True):
-    """vertex: int32 [B]; labels: (lv, le). Returns (w, w_label), each
-    [S, B] per-shard partials."""
+                        labels, direction: str = "out", with_le: bool = True,
+                        groups: int = 1):
+    """vertex: int32 [B] (``[G * Lq]`` with ``groups=G``); labels: (lv,
+    le). Returns (w, w_label), each [S, B] (``[S, Lq]``) per-shard
+    partials."""
     lv, le = labels
     pre, lines = scan_lines(cfg, vertex, lv)
     le_idx = hsh.edge_label_bucket(le, cfg.c, cfg.seed) if with_le else None
     w, wl = vertex_scan_kernel_sharded(
         lines, pre.f.contiguous(), le_idx, planes.key, planes.cw, planes.pw,
-        r=cfg.r, F=cfg.F, direction=direction)
-    pw, pwl = pool_lookup(planes, pre.vid, le_idx, direction)
+        r=cfg.r, F=cfg.F, direction=direction, groups=groups)
+    pw, pwl = pool_lookup(planes, pre.vid, le_idx, direction, groups)
     w = w + pw
     if pwl is not None:
         wl = wl + pwl
@@ -64,25 +82,29 @@ def vertex_query_planes(cfg: LSketchConfig, planes: QueryPlanes, vertex,
 
 def label_aggregate_planes(cfg: LSketchConfig, planes: QueryPlanes, vlabel,
                            edge_label=None, direction: str = "out",
-                           with_le: bool = False):
+                           with_le: bool = False, groups: int = 1):
     """Vertex-label aggregates (Alg. 4 lines 10-14): every occupied cell in
     the label's block rows (out) / columns (in) plus matching pool entries.
-    Returns (w, w_label) [S, B]. The label plane is reduced one (shard,
-    twin) at a time, so no ``pw``-sized temporary is made."""
+    Returns (w, w_label) [S, B] (``[S, Lq]`` with ``groups``). The label
+    plane is reduced one (shard, twin) at a time, so no ``pw``-sized
+    temporary is made."""
     vlabel = torch.as_tensor(vlabel).to(torch.int32)
     dev = vlabel.device
-    S = planes.cw.shape[0]
+    S, G = planes.cw.shape[0], groups
+    per, Lq = S // G, vlabel.shape[0] // G
     le_idx = hsh.edge_label_bucket(edge_label, cfg.c, cfg.seed).long() \
         if with_le else None
     starts, widths = cfg.block_start_width(dev)
     m = hsh.vertex_label_block(vlabel, cfg.n_blocks, cfg.seed).long()
     rows = torch.arange(cfg.d, dtype=torch.int32, device=dev)
-    in_block = (rows[None, :] >= starts[m][:, None]) & (
-        rows[None, :] < (starts[m] + widths[m])[:, None])  # [B, d]
+    in_block = ((rows[None, :] >= starts[m][:, None]) & (
+        rows[None, :] < (starts[m] + widths[m])[:, None])).view(
+            G, 1, Lq, cfg.d)
     occ = planes.key != EMPTY  # [S, 2, d, d]
     line_dim = 3 if direction == "out" else 2  # the axis summed away
     axis_tot = _sum32(torch.where(occ, planes.cw, 0), (1, line_dim))  # [S, d]
-    w = _sum32(torch.where(in_block[None], axis_tot[:, None, :], 0), -1)
+    w = _sum32(torch.where(in_block, axis_tot.view(G, per, 1, cfg.d), 0),
+               -1).view(S, Lq)
     wl = torch.zeros_like(w)
     if with_le:
         per_lbl = torch.zeros((S, cfg.d, cfg.c), dtype=torch.int64,
@@ -92,17 +114,22 @@ def label_aggregate_planes(cfg: LSketchConfig, planes: QueryPlanes, vlabel,
                 per_lbl[s] += torch.where(occ[s, tz, ..., None],
                                           planes.pw[s, tz], 0).sum(
                     line_dim - 2, dtype=torch.int64)
-        lw = per_lbl.to(torch.int32)[:, :, le_idx].permute(0, 2, 1)  # [S,B,d]
-        wl = _sum32(torch.where(in_block[None], lw, 0), -1)
+        lw = torch.gather(  # [G, per, Lq, d]: each row's group's labels
+            per_lbl.to(torch.int32).view(G, per, cfg.d, cfg.c).transpose(
+                2, 3), 2, le_idx.view(G, 1, Lq, 1).expand(G, per, Lq, cfg.d))
+        wl = _sum32(torch.where(in_block, lw, 0), -1).view(S, Lq)
     col = 0 if direction == "out" else 1
     pcol = planes.pool_key[:, :, col]  # [S, Q]
+    Q = pcol.shape[1]
     pm_blocks, _, _ = hsh.unpack_vertex_id(pcol, cfg.F)
-    pmatch = (pcol != EMPTY)[:, None, :] & \
-        (pm_blocks[:, None, :] == m[None, :, None])  # [S, B, Q]
-    w = w + _sum32(torch.where(pmatch, planes.pool_cw[:, None, :], 0), -1)
+    pmatch = (pcol != EMPTY).view(G, per, 1, Q) & \
+        (pm_blocks.view(G, per, 1, Q) == m.view(G, 1, Lq, 1))
+    pcw = planes.pool_cw.view(G, per, 1, Q)
+    w = w + _sum32(torch.where(pmatch, pcw, 0), -1).view(S, Lq)
     if with_le:
-        plw = planes.pool_pw[:, :, le_idx].permute(0, 2, 1)  # [S, B, Q]
-        wl = wl + _sum32(torch.where(pmatch, plw, 0), -1)
+        plw = torch.gather(planes.pool_pw.view(G, per, Q, -1).transpose(
+            2, 3), 2, le_idx.view(G, 1, Lq, 1).expand(G, per, Lq, Q))
+        wl = wl + _sum32(torch.where(pmatch, plw, 0), -1).view(S, Lq)
     return w.to(torch.int32), wl.to(torch.int32)
 
 

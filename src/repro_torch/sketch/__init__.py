@@ -3,29 +3,44 @@
     spec  = make_spec("lsketch", n_shards=4, d=128, n_blocks=4, ...)
     state = create(spec)                       # on the card by default
     state = ingest(spec, state, edge_batch)    # in place; old handle spent
-    ing   = AsyncIngestor(spec); ing.submit(b); state = ing.state
+    ing   = AsyncIngestor(spec, heat_threshold=0.02); ing.submit(b)
     w     = query(spec, state, QueryBatch.edges(src, la, dst, lb))
     W     = query(spec, state, QueryBatch.vertices(v, lv, last=[None, 1]))
     vids, weights = heavy_vertices(spec, state, k=16, last=1)
+    save(spec, state, ckpt_dir); state = restore(spec, ckpt_dir)
+    pool  = TenantPool(spec, n_slots=8); pool.submit({"a": b1, "b": b2})
 """
 
 from __future__ import annotations
 
-from .spec import KINDS, SketchSpec, make_spec, shard_assignment
+from .spec import (KINDS, SketchSpec, make_spec, shard_assignment,
+                   shard_assignment_vids)
+from .routing import (BudgetReport, HeavyKeyDetector, RoutingTable,
+                      prune_routing, recommend_budget, routed_assignment,
+                      routed_assignment_vids)
 from .state import (ShardedState, create, from_numpy, stack_states,
                     to_numpy, unstack_state)
 from .ingest import AsyncIngestor, ingest, ingest_single
 from .query import (MAX_DELTA_CHAIN, PLANES_BUILD_COUNTS, QueryBatch,
-                    clear_plane_cache, query, query_planes,
-                    query_planes_multi, resolve_query_path)
+                    clear_plane_cache, default_query_path, query,
+                    query_planes, query_planes_multi, resolve_query_path)
 from .analytics import (heavy_edges, heavy_vertices, reachable_many,
                         top_labels)
+from .checkpoint import restore, save, saved_extra, saved_spec
+from .tenant import PoolFullError, TenantPool
 
 __all__ = [
-    "KINDS", "SketchSpec", "make_spec", "shard_assignment", "ShardedState",
-    "create", "from_numpy", "stack_states", "to_numpy", "unstack_state",
+    "KINDS", "SketchSpec", "make_spec", "shard_assignment",
+    "shard_assignment_vids",
+    "BudgetReport", "HeavyKeyDetector", "RoutingTable", "prune_routing",
+    "recommend_budget", "routed_assignment", "routed_assignment_vids",
+    "ShardedState", "create", "from_numpy", "stack_states", "to_numpy",
+    "unstack_state",
     "AsyncIngestor", "ingest", "ingest_single", "QueryBatch",
     "MAX_DELTA_CHAIN", "PLANES_BUILD_COUNTS", "query", "query_planes",
-    "query_planes_multi", "clear_plane_cache", "resolve_query_path",
+    "query_planes_multi", "clear_plane_cache", "default_query_path",
+    "resolve_query_path",
     "heavy_vertices", "heavy_edges", "top_labels", "reachable_many",
+    "restore", "save", "saved_extra", "saved_spec",
+    "PoolFullError", "TenantPool",
 ]

@@ -20,6 +20,11 @@ An ``lgs`` sketch raises ``NotImplementedError`` (its cells store no keys
 to decode); a ``gss`` sketch has no window, so ``last=`` is dropped and a
 ``horizons=`` sweep repeats its one answer. A plain single-shard state is
 lifted to a 1-shard handle over views of its tensors.
+
+``grouped_top_k`` is the pooled form ``TenantPool.top_k_many`` rides: the
+grouped planes of a pooled handle, the cell owners decoded once for every
+tenant (and every horizon of a sweep: the keys do not depend on it), and
+each tenant's block of rows ranked alone.
 """
 
 from __future__ import annotations
@@ -30,7 +35,8 @@ import torch
 from repro_torch.core import queries as _cq
 from repro_torch.core.lsketch import precompute
 from repro_torch.kernels.heavy_hitters.ops import (
-    heavy_edges_planes, heavy_vertices_planes, top_labels_planes)
+    decode_cell_owners, heavy_edges_planes, heavy_vertices_planes,
+    top_labels_planes)
 
 from .query import (_normalize_horizons, _with_global_window, query_planes,
                     query_planes_multi, resolve_query_path)
@@ -43,14 +49,14 @@ _SCAN_BYTES = 1 << 28
 
 
 def _planes_topk(cfg, planes, kind: str, k: int, direction: str, *,
-                 kernel: bool):
+                 kernel: bool, groups=None, owners=None):
+    kw = dict(kernel=kernel, groups=groups, owners=owners)
     if kind == "vertex":
         return heavy_vertices_planes(cfg, planes, k, direction=direction,
-                                     kernel=kernel)
+                                     **kw)
     if kind == "edge":
-        return heavy_edges_planes(cfg, planes, k, kernel=kernel)
-    return top_labels_planes(cfg, planes, k, direction=direction,
-                             kernel=kernel)
+        return heavy_edges_planes(cfg, planes, k, **kw)
+    return top_labels_planes(cfg, planes, k, direction=direction, **kw)
 
 
 def _handle(state) -> ShardedState:
@@ -100,6 +106,45 @@ def _analytics(spec: SketchSpec, state, kind: str, k: int,
     planes = _cq.build_query_planes(
         cfg, _with_global_window(state.live()), last)
     return _planes_topk(cfg, planes, kind, k, direction, kernel=False)
+
+
+def grouped_top_k(spec: SketchSpec, state: ShardedState, groups: int,
+                  kind: str = "vertex", k: int = 10, *,
+                  direction: str = "out", last=None, horizons=None):
+    """Per-group top-k of a pooled handle whose ``groups`` blocks of rows
+    are independent sketches: each leaf ``[G, k]``, or ``[H, G, k]`` for
+    ``horizons=`` (row i equal to ``last=horizons[i]``), group g's row
+    equal to the same top-k of a standalone handle over its rows alone.
+    One decode launch serves every group and every horizon."""
+    if spec.kind == "lgs":
+        raise NotImplementedError(
+            "LGS cells store no keys — the reversible cell-owner decode "
+            "needs LSketch/GSS")
+    if horizons is not None and last is not None:
+        raise ValueError("pass either last= (one horizon) or horizons= "
+                         "(a sweep), not both")
+    cfg = spec.config
+    if horizons is not None:
+        horizons = list(horizons)
+        if not horizons:
+            raise ValueError("horizons= needs at least one horizon")
+        if spec.kind == "gss":  # no window ring: one ranking fits all
+            out = grouped_top_k(spec, state, groups, kind, k,
+                                direction=direction)
+            return tuple(x[None].expand((len(horizons),) + x.shape)
+                         for x in out)
+        _, sel = _normalize_horizons(spec, horizons)
+        planes, uniq = query_planes_multi(spec, state, horizons,
+                                          groups=groups)
+        owners = decode_cell_owners(cfg, _cq.slice_horizon(planes, 0))
+        rows = [_planes_topk(cfg, _cq.slice_horizon(planes, i), kind, k,
+                             direction, kernel=True, groups=groups,
+                             owners=owners) for i in range(len(uniq))]
+        return tuple(torch.stack(xs) for xs in zip(*[rows[i] for i in sel]))
+    planes = query_planes(spec, state, None if spec.kind == "gss" else last,
+                          groups=groups)
+    return _planes_topk(cfg, planes, kind, k, direction, kernel=True,
+                        groups=groups)
 
 
 def heavy_vertices(spec: SketchSpec, state: ShardedState, k: int = 10, *,

@@ -4,9 +4,11 @@
 
 ``ingest(spec, state, batch)``:
   1. the host partitions the time-ordered batch by the shard hash of its
-     source endpoint (numpy, stable, so every shard's rows stay in stream
-     order) and pads every shard's row to one bucketed length
-     (replicate-last, masked by a per-shard ``n_valid``);
+     source endpoint, or by the spec's routing table for split hot keys
+     (``routing.routed_assignment``; numpy, stable, so every shard's rows
+     stay in stream order), pads every shard's row to one bucketed
+     length (replicate-last, masked by a per-shard ``n_valid``) and
+     records the round in ``telemetry.stream_stats.PARTITION_STATS``;
   2. one stacked insert (``engine.insert.insert_stacked_fused_impl``)
      updates the handle's tensors in place — the CUDA kernel route for a
      single-subwindow flush on ``path="cuda"``, the stream-order scan
@@ -26,7 +28,10 @@ scatter-add per shard.
 reference does: each ``submit`` dispatches the staged batch, then
 partitions its own while the card finishes the dispatch's last kernels.
 Dispatches keep submission order, and ``flush()``/``.state`` give exactly
-the handle synchronous ``ingest`` of the same batches gives.
+the handle synchronous ``ingest`` of the same batches gives, each batch
+partitioned under the spec it was submitted with. With
+``heat_threshold`` set, a ``HeavyKeyDetector`` rides the host half and
+splits a source endpoint that crosses the threshold from that batch on.
 
 ``ingest_single`` is the unstacked one-shard path the objects (``LSketch``,
 ``GSS``, ``LGS``) ride: no partition, the engine's path choice on the
@@ -43,8 +48,11 @@ from repro_torch.core.types import EdgeBatch
 from repro_torch.engine import insert as eng_insert
 from repro_torch.engine.window import pad_to_bucket
 
+from repro_torch.telemetry.stream_stats import PARTITION_STATS
+
 from . import query as _query
-from .spec import SketchSpec, shard_assignment
+from .routing import HeavyKeyDetector, routed_assignment
+from .spec import SketchSpec
 from .state import ShardedState, create
 
 _FIELDS = ("src", "dst", "src_label", "dst_label", "edge_label", "weight",
@@ -104,14 +112,17 @@ def _shard_bucket(n: int, floor: int = 64) -> int:
 
 
 def _partition_stack(spec: SketchSpec, batch: EdgeBatch):
-    """Host-side stable hash partition -> (dict of int32 ``[n_shards, L]``
-    numpy arrays, n_valid int32 ``[n_shards]``)."""
+    """Host-side stable partition under the spec's routing -> (dict of
+    int32 ``[n_shards, L]`` numpy arrays, n_valid int32 ``[n_shards]``);
+    the round's shard counts go to ``PARTITION_STATS``."""
     fields = {f: np.asarray(getattr(batch, f), np.int32) for f in _FIELDS}
-    sid = shard_assignment(spec, fields["src"], fields["src_label"])
+    sid = routed_assignment(spec, fields["src"], fields["dst"],
+                            fields["src_label"])
     n_sh = spec.n_shards
     index = [np.flatnonzero(sid == s) for s in range(n_sh)]
     counts = np.array([len(ix) for ix in index], np.int32)
     L = _shard_bucket(max(int(counts.max()), 1), floor=64)
+    PARTITION_STATS.record(counts, L)
     out = {f: np.zeros((n_sh, L), np.int32) for f in _FIELDS}
     for s, ix in enumerate(index):
         m = len(ix)
@@ -210,32 +221,55 @@ class AsyncIngestor:
     Like ``ingest``, every dispatch spends the previous handle: query the
     handle ``flush()`` returns before the next ``submit``.
 
-    The reference's skew-aware routing (``heat_threshold``, ``detector``,
-    ``split_replicas``) needs the routing table and the heavy-key detector,
-    which are not ported yet: those arguments raise."""
+    Skew-aware routing: with ``heat_threshold`` set, a
+    ``HeavyKeyDetector`` (``detector``, or a fresh one) sees every
+    batch's source endpoints before it is partitioned, and a key past
+    ``heat_threshold`` of the stream so far is split over
+    ``split_replicas`` shards (default: all) from this batch on, by
+    ``self.spec = spec.with_splits(...)``. The spec keeps its identity,
+    history stays where it was placed (queries sum every shard), and
+    ``.spec.routing`` holds the live table."""
 
     def __init__(self, spec: SketchSpec, state: ShardedState | None = None,
                  path: str = "auto", heat_threshold: float | None = None,
-                 detector=None, split_replicas: int | None = None,
-                 device=None):
-        if heat_threshold is not None or detector is not None \
-                or split_replicas is not None:
-            raise NotImplementedError(
-                "skew-aware routing needs sketch/routing.py "
-                "(HeavyKeyDetector, SketchSpec.with_splits), which the "
-                "port does not have yet")
+                 detector: HeavyKeyDetector | None = None,
+                 split_replicas: int | None = None, device=None):
         self.spec = spec
         self.path = path
+        self.heat_threshold = heat_threshold
+        self.detector = detector
+        if detector is None and heat_threshold is not None:
+            self.detector = HeavyKeyDetector()
+        self.split_replicas = split_replicas
         self._state = state if state is not None else create(spec, device)
         self._staged = None  # (cols, counts) awaiting dispatch
+
+    def _observe(self, batch: EdgeBatch) -> None:
+        """Update the heavy-key summary and apply any new splits before
+        this batch is partitioned."""
+        self.detector.update(np.asarray(batch.src),
+                             np.asarray(batch.src_label))
+        split = {(s, l) for s, l, _ in self.spec.routing.splits} \
+            if self.spec.routing else set()
+        reps = self.split_replicas or self.spec.n_shards
+        new = [(s, l, reps) for s, l, _ in
+               self.detector.hot_keys(self.heat_threshold)
+               if (s, l) not in split]
+        if new:
+            self.spec = self.spec.with_splits(new)
 
     def submit(self, batch: EdgeBatch) -> None:
         """Enqueue a time-ordered batch: partition it now, dispatch it on
         the next ``submit``/``flush``."""
         if len(batch) == 0:
             return
+        if self.spec.kind == "gss":
+            batch = _degenerate_batch(batch)
+        if self.detector is not None and self.heat_threshold is not None \
+                and self.spec.n_shards > 1:
+            self._observe(batch)
         self._dispatch_staged()  # the card takes batch N ...
-        self._staged = _stage(self.spec, batch)  # ... the host N+1
+        self._staged = _partition_stack(self.spec, batch)  # ... host N+1
 
     def flush(self) -> ShardedState:
         """Dispatch any staged batch; returns the fully applied handle."""

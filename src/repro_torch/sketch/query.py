@@ -13,7 +13,8 @@ shard and sums the shard partials (hash partitioning makes them disjoint):
   * ``"auto"`` is ``"cuda"`` for a CUDA state and ``"scan"`` for a CPU one.
 
 Every shard queries under the fleet-wide newest subwindow index (a
-lagging shard must not count ring slots the combined stream expired).
+lagging shard must not count ring slots the combined stream expired); a
+pooled handle's planes (``groups=``) lift it per tenant block instead.
 The planes are memoized on the handle object, keyed by the clamped
 horizon ``min(last or k, k)``, in a small LRU (``PLANES_CACHE_CAP``);
 ingest returns a new handle, so the cache is never stale. A miss is
@@ -108,13 +109,19 @@ class QueryBatch:
                    edge_label=edge_label, direction=direction, last=last)
 
 
+def default_query_path(device=None) -> str:
+    """The kernel route for a state on the card, the dense scan on the
+    CPU."""
+    return "cuda" if torch.device(device or "cpu").type == "cuda" \
+        else "scan"
+
+
 def resolve_query_path(path: str = "auto", device=None,
                        kind: str = "lsketch") -> str:
     """Normalize a query path name to "scan" | "cuda"; an ``lgs`` sketch
     always takes "scan"."""
     if path == "auto":
-        path = "cuda" if torch.device(device or "cpu").type == "cuda" \
-            else "scan"
+        path = default_query_path(device)
     if path not in ("scan", "cuda"):
         raise ValueError(f"unknown query path {path!r}")
     return "scan" if kind == "lgs" else path
@@ -179,11 +186,23 @@ def normalize_query(q: QueryBatch, device=None, kind: str = "lsketch"):
     raise ValueError(f"unknown query kind {q.kind!r}")
 
 
+def _with_group_window(shards, groups: int = 1):
+    """A view of the stack in which every shard carries its window group's
+    newest subwindow index (the handle's own tensors are not touched).
+    One group is a plain sharded handle: the fleet reconciles to one
+    ``cur_widx``. A pooled handle (``sketch.tenant``) stacks ``groups``
+    tenants' shard blocks; each block reconciles only within itself, as
+    ``groups`` independent handles would."""
+    cw = shards.cur_widx
+    per = cw.shape[0] // groups
+    g = cw.reshape(groups, per).amax(dim=1, keepdim=True)
+    return dataclasses.replace(shards,
+                               cur_widx=g.expand(groups, per).reshape(-1))
+
+
 def _with_global_window(shards):
-    """A view of the stack in which every shard carries the fleet-wide
-    newest subwindow index (the handle's own tensors are not touched)."""
-    g = shards.cur_widx.max().expand(shards.cur_widx.shape)
-    return dataclasses.replace(shards, cur_widx=g)
+    """Every shard under the fleet-wide newest subwindow index."""
+    return _with_group_window(shards, 1)
 
 
 def _cache(state: ShardedState) -> OrderedDict:
@@ -203,14 +222,30 @@ def _cache_put(cache: OrderedDict, ckey, planes) -> None:
     cache[ckey] = planes
 
 
-def _multi_slice_hit(cache: OrderedDict, horizon: int):
-    """A single-horizon miss served by the most recent horizon-stacked
-    entry that covers ``horizon``: its row, with no build and no fold
+def _multi_horizons_of(ckey, mkey):
+    """The horizons of stacked entry ``mkey`` if it is the family of the
+    single-horizon key ``ckey``, else None. The families pair ``horizon``
+    with ``("multi", hs)`` and ``("pooled", g, h)`` with
+    ``("multi-pooled", g, hs)``."""
+    if not isinstance(mkey, tuple):
+        return None
+    if isinstance(ckey, int):
+        return mkey[1] if mkey[0] == "multi" else None
+    if ckey[0] == "pooled" and mkey[0] == "multi-pooled" \
+            and mkey[1] == ckey[1]:
+        return mkey[2]
+    return None
+
+
+def _multi_slice_hit(cache: OrderedDict, ckey, horizon: int):
+    """A single-horizon miss served by the most recent stacked entry of
+    its family that covers ``horizon``: its row, with no build and no fold
     (neither count moves); the hit refreshes the entry's recency."""
     for mkey in reversed(list(cache)):
-        if isinstance(mkey, tuple) and horizon in mkey[1]:
+        hs = _multi_horizons_of(ckey, mkey)
+        if hs is not None and horizon in hs:
             cache.move_to_end(mkey)
-            return _q.slice_horizon(cache[mkey], mkey[1].index(horizon))
+            return _q.slice_horizon(cache[mkey], hs.index(horizon))
     return None
 
 
@@ -283,22 +318,26 @@ def _lookup(state: ShardedState, ckey, fold, build,
     return planes, how
 
 
-def query_planes(spec: SketchSpec, state: ShardedState, last=None):
+def query_planes(spec: SketchSpec, state: ShardedState, last=None, *,
+                 groups: int = 1):
     """The window-reduced ``QueryPlanes`` for ``(state, last)``, memoized on
     the handle object in an LRU of ``PLANES_CACHE_CAP`` entries keyed by
     the clamped horizon (``last=None`` and ``last>=k`` share one entry).
     A miss takes a covering horizon-stacked entry's row, then the pending
-    delta chain, then a build."""
+    delta chain, then a build. With ``groups > 1`` (a pooled handle) each
+    of the ``groups`` blocks of rows lifts its window on its own, and the
+    entry is keyed ``("pooled", groups, horizon)``."""
     shards = state.live()
     k = spec.config.effective_k
     horizon = k if last is None else min(int(last), k)
+    ckey = horizon if groups == 1 else ("pooled", groups, horizon)
     return _lookup(
-        state, horizon,
+        state, ckey,
         lambda pl, d: _q.apply_planes_delta(
-            spec.config, _with_global_window(shards), pl, d, horizon),
+            spec.config, _with_group_window(shards, groups), pl, d, horizon),
         lambda: _q.build_query_planes(
-            spec.config, _with_global_window(shards), horizon),
-        lambda cache: _multi_slice_hit(cache, horizon))[0]
+            spec.config, _with_group_window(shards, groups), horizon),
+        lambda cache: _multi_slice_hit(cache, ckey, horizon))[0]
 
 
 def _normalize_horizons(spec: SketchSpec, lasts):
@@ -311,20 +350,24 @@ def _normalize_horizons(spec: SketchSpec, lasts):
     return uniq, [uniq.index(h) for h in hs]
 
 
-def query_planes_multi(spec: SketchSpec, state: ShardedState, lasts):
+def query_planes_multi(spec: SketchSpec, state: ShardedState, lasts, *,
+                       groups: int = 1):
     """The horizon-stacked ``MultiPlanes`` for every horizon in ``lasts``,
     built in one pass over the ring and memoized as one LRU entry keyed
-    ``("multi", uniq)``; a miss folds the pending delta chain into every
-    horizon at once before it builds. Returns ``(planes, uniq)``: row
-    ``i`` is horizon ``uniq[i]`` (``_normalize_horizons``)."""
+    ``("multi", uniq)`` (``("multi-pooled", groups, uniq)`` with the
+    per-group window lift of a pooled handle); a miss folds the pending
+    delta chain into every horizon at once before it builds. Returns
+    ``(planes, uniq)``: row ``i`` is horizon ``uniq[i]``
+    (``_normalize_horizons``)."""
     shards = state.live()
     uniq, _ = _normalize_horizons(spec, lasts)
+    ckey = ("multi", uniq) if groups == 1 else ("multi-pooled", groups, uniq)
     planes, how = _lookup(
-        state, ("multi", uniq),
+        state, ckey,
         lambda pl, d: _q.apply_planes_delta_multi(
-            spec.config, _with_global_window(shards), pl, d, uniq),
+            spec.config, _with_group_window(shards, groups), pl, d, uniq),
         lambda: _q.build_query_planes_multi(
-            spec.config, _with_global_window(shards), uniq))
+            spec.config, _with_group_window(shards, groups), uniq))
     if how in ("build", "delta"):
         PLANES_BUILD_COUNTS[how + "-multi"] += 1
     return planes, uniq

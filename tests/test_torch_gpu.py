@@ -888,3 +888,154 @@ def test_cuda_async_ingestor_equals_ingest():
     assert skt.PLANES_BUILD_COUNTS["delta"] > 0
     for x, y in zip(skt.to_numpy(final), skt.to_numpy(sync)):
         np.testing.assert_array_equal(x, y)
+
+
+def _pooled_planes_cpu(groups, per=2, seed=41):
+    """Planes of a pool of ``groups`` tenants at ``per`` rows each (CPU),
+    tenant g in slot g on a clock offset by 3g subwindows, tenant 1 empty;
+    with the raw queries of every group ([groups * 96]) and their
+    addressing."""
+    rng = np.random.default_rng(seed)
+    spec = skt.make_spec("lsketch", n_shards=per, config=CFG)
+    pool = skt.TenantPool(spec, n_slots=groups, device="cpu")
+    for g in range(groups):
+        pool.attach(g)
+        if g == 1:
+            continue
+        n = 400
+        t0 = 3 * g * CFG.subwindow_size
+        pool.ingest(g, EdgeBatch.from_arrays(
+            rng.integers(0, 90, n), rng.integers(0, 90, n),
+            rng.integers(0, 3, n), rng.integers(0, 3, n),
+            rng.integers(0, 6, n), rng.integers(1, 4, n),
+            np.sort(rng.integers(t0, t0 + 150, n))))
+    planes = skt.query_planes(spec, pool.state, 2, groups=groups)
+    q = [_t(rng.integers(0, hi, groups * 96)) for hi in (90, 3, 90, 3, 6)]
+    return planes, q
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("groups", [1, 3])
+def test_cuda_grouped_entries_match_plain(groups):
+    """The grouped entries on the card against their plain versions on a
+    pool's planes, with an empty group: the edge probe at H = 1 and on a
+    three-horizon stack (one launch each), the vertex scan out and in
+    (one launch each), the label aggregate and the grouped top-k (one
+    decode). At G = 1 each equals the ungrouped entry."""
+    _need_card()
+    from repro_torch.kernels.heavy_hitters import ops as hh
+    from repro_torch.kernels.vertex_scan import ops as vs
+    planes, q = _pooled_planes_cpu(groups)
+    gpu = lambda p: dataclasses.replace(p, **{  # noqa: E731
+        f.name: getattr(p, f.name).cuda() for f in dataclasses.fields(p)})
+    cp = gpu(planes)
+    qc = [x.cuda() for x in q]
+    for pl, plc in ((planes, cp), (_stack3(planes), _stack3(cp))):
+        for le in (4, None):
+            lab = None if le is None else q[le]
+            before = sketch_query_kernel_sharded.launches
+            got = edge_query_kernel(CFG, plc, *qc[:4], None if le is None
+                                    else qc[le], groups=groups)
+            torch.cuda.synchronize()
+            assert sketch_query_kernel_sharded.launches == before + 1
+            want = edge_query_plain(CFG, pl, *q[:4], lab, groups=groups)
+            for a, b in zip(got, want):
+                assert a.shape[-1] == 96 and torch.equal(a.cpu(), b)
+            if groups == 1:
+                one = edge_query_kernel(CFG, plc, *qc[:4], None if le is None
+                                        else qc[le])
+                assert all(torch.equal(a, b) for a, b in zip(got, one))
+    pre, lines = vs.scan_lines(CFG, q[0], q[1])
+    bucket = th.edge_label_bucket(q[4], CFG.c, CFG.seed)
+    for direction in ("out", "in"):
+        for lab in (bucket, None):
+            kw = dict(r=CFG.r, F=CFG.F, direction=direction)
+            want = vertex_scan_plain(lines, pre.f, lab, planes.key,
+                                     planes.cw, planes.pw, groups=groups,
+                                     **kw)
+            before = vertex_scan_kernel_sharded.launches
+            got = vertex_scan_kernel_sharded(
+                lines.cuda(), pre.f.cuda(), None if lab is None
+                else lab.cuda(), cp.key, cp.cw, cp.pw, groups=groups, **kw)
+            torch.cuda.synchronize()
+            assert vertex_scan_kernel_sharded.launches == before + 1
+            for a, b in zip(got, want):
+                assert torch.equal(a.cpu(), b)
+        for fn, args in ((vs.vertex_query_planes, (0, (1, 4))),
+                         (vs.label_aggregate_planes, (1, 4))):
+            pick = lambda xs, i: tuple(pick(xs, j) for j in i) \
+                if isinstance(i, tuple) else xs[i]  # noqa: E731
+            want = fn(CFG, planes, *(pick(q, i) for i in args),
+                      direction=direction, with_le=True, groups=groups)
+            got = fn(CFG, cp, *(pick(qc, i) for i in args),
+                     direction=direction, with_le=True, groups=groups)
+            for a, b in zip(got, want):
+                assert torch.equal(a.cpu(), b)
+    for rank in (hh.heavy_vertices_planes, hh.heavy_edges_planes,
+                 hh.top_labels_planes):
+        before = cell_decode_kernel_sharded.launches
+        got = rank(CFG, cp, 8, groups=groups)
+        assert cell_decode_kernel_sharded.launches == before + 1
+        want = rank(CFG, planes, 8, groups=groups)
+        for a, b in zip(got, want):
+            assert a.shape[0] == groups and torch.equal(a.cpu(), b)
+
+
+@pytest.mark.gpu
+def test_cuda_tenant_pool_matches_cpu_twin():
+    """A small ``TenantPool`` on the card (kernel route, routed tenant
+    spec, tenants on offset clocks, an eviction and a readmission) and
+    its CPU twin: leaf for leaf, every ``query_many`` answer and the
+    grouped top-k equal; a pooled edge dispatch is one probe launch."""
+    _need_card()
+    import tempfile
+    rng = np.random.default_rng(43)
+    spec = skt.make_spec("lsketch", n_shards=2, config=CFG).with_splits(
+        [(5, 2, 2)])
+    dirs = [tempfile.mkdtemp() for _ in range(2)]
+    pools = {dev: skt.TenantPool(spec, n_slots=3, directory=dirs[i],
+                                 device=dev)
+             for i, dev in enumerate(("cuda", "cpu"))}
+    sub = CFG.subwindow_size
+    for rnd in range(4):
+        batch = {}
+        for t in range(4 if rnd == 3 else 3):  # tenant 3 evicts the LRU
+            n = 300
+            t0 = (rnd + 2 * t) * sub
+            src = rng.integers(0, 90, n)
+            src[::3] = 5
+            batch[t] = EdgeBatch.from_arrays(
+                src, rng.integers(0, 90, n), src % 3, rng.integers(0, 3, n),
+                rng.integers(0, 6, n), rng.integers(1, 4, n),
+                np.sort(rng.integers(t0, t0 + sub, n)))
+        for pool in pools.values():
+            pool.submit(batch)
+    for pool in pools.values():
+        assert 0 not in pool.tenants  # the LRU tenant of the last round
+        pool.attach(0)  # readmitted from its checkpoint
+    states = {dev: p.state for dev, p in pools.items()}
+    for x, y in zip(skt.to_numpy(states["cuda"]),
+                    skt.to_numpy(states["cpu"])):
+        np.testing.assert_array_equal(x, y)
+    Q = skt.QueryBatch
+    v = rng.integers(0, 90, 40)
+    tenants = sorted(pools["cuda"].tenants)
+    for qb in (Q.edges(v, v % 3, v[::-1], v[::-1] % 3, last=2),
+               Q.edges(v, v % 3, v[::-1], v[::-1] % 3, edge_label=v % 6),
+               Q.vertices(v, v % 3, direction="in", last=1),
+               Q.labels(np.arange(3), edge_label=[0, 1, 2])):
+        pairs = [(t, qb) for t in tenants]
+        before = sketch_query_kernel_sharded.launches
+        got = pools["cuda"].query_many(pairs, path="cuda")
+        if qb.kind == "edge":
+            assert sketch_query_kernel_sharded.launches == before + 1
+        want = pools["cpu"].query_many(pairs, path="cuda")
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+    for kind in ("vertex", "edge", "label"):
+        got = pools["cuda"].top_k_many(tenants, kind=kind, k=8,
+                                       horizons=[None, 1])
+        want = pools["cpu"].top_k_many(tenants, kind=kind, k=8,
+                                       horizons=[None, 1])
+        for a, b in zip(got, want):
+            assert all(torch.equal(x.cpu(), y) for x, y in zip(a, b))

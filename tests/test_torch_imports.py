@@ -229,6 +229,30 @@ def test_chip_smoke_rehearses_on_the_cpu(monkeypatch, capsys):
         1 + 4 + 4 * cfg.d * cfg.d * 2 * (1 + cfg.c) +
         4 * cfg.pool_capacity * (1 + cfg.c))
 
+    # phase R on the tiny deployment's stream and flushes
+    p4 = chip_smoke._pool_use(tskt.create(spec, device="cpu"))
+    _, r_out = chip_smoke.route_phase(cfg, spec, stream, flushes, p4, dev,
+                                      tag)
+    out = capsys.readouterr().out
+    assert "phase R final state" in out and "leaf for leaf: equal" in out
+    assert r_out["splits"] and r_out["splits"][0][1] == 0
+    assert r_out["truth_violations"] == {"edge": 0, "vertex-out": 0}
+    assert r_out["partition_routed"]["rounds"] == len(flushes)
+
+    # phase T at a tiny size: 4 tenants of d=16 in a pool of 4 slots
+    import dataclasses
+    tcfg = dataclasses.replace(cfg, d=16)
+    for name, value in (("TENANTS", 4), ("TENANT_EDGES", 3000),
+                        ("TENANT_QUERIES", 16), ("TENANT_CFG", tcfg)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    t_rows, _, t_out = chip_smoke.tenant_phase(dev, tag)
+    out = capsys.readouterr().out
+    for phase in ("T1", "T2", "T3", "T4", "T5", "T6"):
+        assert f"phase {phase} " in out, phase
+    assert "all equal" in out and "answers equal" in out
+    assert t_out["checkpoint_bytes"] > 0
+    results.update(t_rows)
+
     # phase O at a tiny size: the GSS replay runs in its child process
     from repro_torch.core import LGSConfig, gss_config
     for name, value in (("OBJ_EDGES", 6000), ("N_SCALAR", 12),
@@ -277,9 +301,10 @@ def test_chip_smoke_rehearses_on_the_cpu(monkeypatch, capsys):
         results, {n: 0 for n in chip_smoke.KERNELS})
     json.dumps({"kernels": kernels, "stream": s_out, "object": obj_out,
                 **lm_out})
-    assert [k["mismatches"] for k in kernels] == [0] * 9
+    assert [k["mismatches"] for k in kernels] == [0] * 11
     assert {k["name"] for k in kernels} == set(chip_smoke.WRAPPERS) | set(
-        chip_smoke.OBJECT_KERNELS) == set(chip_smoke.KERNELS)
+        chip_smoke.OBJECT_KERNELS) | set(chip_smoke.GROUPED_KERNELS) == set(
+        chip_smoke.KERNELS)
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     assert all(keys <= set(k) for k in kernels)
@@ -321,6 +346,15 @@ def test_chip_smoke_rehearses_on_the_cpu(monkeypatch, capsys):
             cfg.pool_capacity * 4 * (3 + cfg.c) + 2 * cfg.n_blocks * 4 +
             96 * (5 * 4 + 2 * 4),
             "vertex_scan_kernel": plane // S + 96 * ((cfg.r + 2) * 4 + 2 * 4)}
+    # the grouped entries on the pool's planes: 4 tenants x 2 rows of
+    # d=16, 16 queries a tenant
+    St, G, Lq = 8, 4, 16
+    plane_t = St * 2 * 16 * 16 * 4 * (2 + cfg.c)
+    most["sketch_query_kernel_sharded (grouped)"] = plane_t + \
+        St * cfg.pool_capacity * 4 * (3 + cfg.c) + 2 * cfg.n_blocks * 4 + \
+        G * Lq * 5 * 4 + 2 * St * Lq * 4
+    most["vertex_scan_kernel_sharded (grouped)"] = plane_t + \
+        G * Lq * (cfg.r + 2) * 4 + 2 * St * Lq * 4
     for k in kernels:
         if k["name"] == "flash_attention_kernel":
             continue  # operations bound, checked above

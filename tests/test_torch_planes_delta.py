@@ -442,5 +442,5 @@ def test_async_ingestor_flush_contract():
     ref = tskt.ingest(spec, tskt.create(spec, device=CPU), batch)
     for x, y in zip(tskt.to_numpy(st1), tskt.to_numpy(ref)):
         np.testing.assert_array_equal(x, y)
-    with pytest.raises(NotImplementedError, match="routing"):
-        tskt.AsyncIngestor(spec, device=CPU, heat_threshold=0.1)
+    routed = tskt.AsyncIngestor(spec, device=CPU, heat_threshold=0.1)
+    assert isinstance(routed.detector, tskt.HeavyKeyDetector)

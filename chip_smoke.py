@@ -103,6 +103,31 @@ Phases (any failure raises, so the exit code is non-zero):
      which a query readmits into another slot with the same answers
      (bytes, save and restore seconds); T6 pooled against standalone
      query and ingest costs, recorded;
+  V. the sketch server at the deployment: V1 phase 4's stream in phase
+     4's flushes through ``SketchServer(heat_threshold=HEAT_THRESHOLD,
+     split_replicas=SPLIT_REPLICAS, horizons=SERVER_HORIZONS)``; V2
+     SERVER_REQUESTS interleaved requests (every kind, with and without
+     the edge label, last in SERVER_LASTS) in one flush and again kind by
+     kind (µs a request; one probe or scan launch a group); V3 every
+     answer equal to ``skt.query`` on the served state, samples equal to
+     the scan path, ``top_k`` equal to ``skt.heavy_*`` on the scan path,
+     reachability of sampled in-window edges, ``budget_report()`` and
+     ``serving_summary()``; V4 pool mode at phase T's tenants, every
+     answer equal to a per-tenant ``query_many``; V5 ``serve --mode
+     sketch`` for every kind and in pool mode with a sweep, as
+     concurrent processes (each must exit 0); V6 ``BigramSketch`` on the
+     card against a CPU twin;
+  M. merge, reshard and restore: M1 a tenant at phase T's size resharded
+     on the card 2 -> 4, 2 -> 1 and with the prune, each leaf for leaf
+     against the plain host replay of a CPU copy (seconds of both, split
+     into decode, claim and scatter); M3 the tenant's checkpoint
+     restored at 4 and 1 shards (equal to M1's reshards), GSS at GSS_CFG
+     resharded 1 -> 2 against the plain replay, LGS at LGS_CFG restored
+     2 -> 1 (``merge_all``) and 2 -> 3, ``merge_all`` against its CPU
+     copy's; M2 phase V's state resharded 4 -> 4 under
+     ``budget_report().routing`` and 4 -> 2: per-shard occupancy before
+     and after, vertex and label answers conserved where nothing was
+     dropped, edge answers one-sided against ``GroundTruth``;
   O. (the 4-shard state freed) the object API at one shard over the
      COMFS analog at its own 500,000 edges, in batches cut at subwindow
      boundaries plus one straddling batch: O1 ``LSketch.insert`` at CFG
@@ -136,6 +161,10 @@ Phases (any failure raises, so the exit code is non-zero):
   8. one JSON line of the kernels and the end-to-end numbers, the card
      line, and the result line.
 
+Phases V and M count launches, each run from 0, on four more paths:
+the single-handle server (V1-V2), the pool-mode server (V4),
+``BigramSketch`` (V6) and the reshards (M1, M2, M3 summed); each kernel
+row gains them as ``launches_new_paths``.
 Seven paths count kernel launches, each from 0 just before it: the
 sketch path (phases 4 and 5), the analytics path (phase 6b, before its
 comparisons), the streaming loop (phase S1-S2, reported in its numbers),
@@ -157,6 +186,7 @@ import dataclasses
 import importlib.util
 import json
 import multiprocessing
+import os
 import re
 import shutil
 import subprocess
@@ -208,13 +238,17 @@ from repro_torch.kernels.vertex_scan.kernel import (  # noqa: E402
     vertex_scan_kernel_sharded, vertex_scan_plain)
 from repro_torch.kernels.vertex_scan.ops import (  # noqa: E402
     pool_lookup, scan_lines, vertex_query_pallas)
+from repro_torch.data.tokens import (DEFAULT_BAND_VOCAB,  # noqa: E402
+                                     SyntheticCorpus, TokenPipelineConfig)
 from repro_torch.launch.serve import DecodeServer, Request  # noqa: E402
+from repro_torch.launch.serve_sketch import SketchServer  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.sketch.ingest import (StackedBatch,  # noqa: E402
                                        _degenerate_batch, _partition_stack)
-from repro_torch.telemetry.stream_stats import \
-    PARTITION_STATS  # noqa: E402
+from repro_torch.sketch.reshard import RESHARD_SPLIT  # noqa: E402
+from repro_torch.telemetry.stream_stats import (  # noqa: E402
+    PARTITION_STATS, BigramSketch)
 
 
 def _tool(name: str):
@@ -299,6 +333,21 @@ TENANT_CFG = dataclasses.replace(CFG, d=1024)
 TENANT_EDGES = 250_000
 TENANT_OFFSET = 3
 TENANT_QUERIES = 128
+
+# phase V, the sketch server at the main deployment: phase 4's stream and
+# flushes through SketchServer(heat_threshold=HEAT_THRESHOLD,
+# split_replicas=SPLIT_REPLICAS, horizons=SERVER_HORIZONS), then
+# SERVER_REQUESTS interleaved requests (KINDS x edge label x SERVER_LASTS);
+# pool mode at phase T's tenants; the CLI at its defaults (CLI_ARGS adds
+# flags); BigramSketch over BIGRAM_STEPS corpus batches of BIGRAM_BATCH
+# (sequences, tokens) each
+SERVER_REQUESTS = 4096
+SERVER_HORIZONS = (1, 8)
+SERVER_LASTS = (None, 1, 8)
+SERVER_TOPK = 16
+CLI_ARGS = ()
+BIGRAM_STEPS = 8
+BIGRAM_BATCH = (4, 256)
 
 # the LM phases: Qwen3-8B at full width (configs/qwen3_8b.py)
 LM_ARCH = "qwen3-8b"
@@ -2430,8 +2479,12 @@ def ingest_pass(spec, batches, dev, pipelined: bool, profiled: bool):
 
 
 def _leaves_differ(a, b) -> list:
-    return [n for n, x, y in zip(LEAVES, a.live().leaves(),
-                                 b.live().leaves()) if not torch.equal(x, y)]
+    """Leaf names where two handles differ (``b``'s leaves compared on
+    ``a``'s device)."""
+    xs, ys = a.live().leaves(), b.live().leaves()
+    names = LGS_LEAVES if len(xs) == len(LGS_LEAVES) else LEAVES
+    return [n for n, x, y in zip(names, xs, ys)
+            if x.shape != y.shape or not torch.equal(x, y.to(x.device))]
 
 
 def stream_phase(cfg, spec, dev, tag):
@@ -2884,14 +2937,8 @@ def tenant_phase(dev, tag):
     import tempfile
 
     cfg = TENANT_CFG
-    base = skt.make_spec("lsketch", n_shards=TENANT_SHARDS, config=cfg)
     streams = tenant_streams(cfg)
-    det = skt.HeavyKeyDetector()
-    for st, batches, _ in streams:
-        det.update(batches[0].src, batches[0].src_label)
-    budget = skt.recommend_budget(base, det)
-    hot = [(s, l, TENANT_SHARDS) for s, l, _ in det.hot_keys(HEAT_THRESHOLD)]
-    spec = base.replace(routing=budget.routing.merged(hot))
+    spec, budget, hot = tenant_spec(cfg, streams)
     _log(f"phase T: {TENANTS} tenants x {TENANT_SHARDS} shards of {cfg} "
          f"({state_bytes(cfg) * TENANTS * TENANT_SHARDS} bytes pooled); "
          f"streams of {TENANT_EDGES} edges, clocks offset by "
@@ -3019,6 +3066,607 @@ def tenant_evict(spec, pool, tqs, tmp, dev, tag) -> dict:
     return dict(checkpoint_bytes=nbytes, evict_s=save_s, restore_s=restore_s)
 
 
+# --------------------------------------------------------------------------
+# phase V: the sketch server
+# --------------------------------------------------------------------------
+
+def server_requests(qi, n: int) -> list:
+    """``n`` interleaved requests ``(kind, args)``: request i is kind
+    ``KINDS[i % 4]``, with the edge label when ``(i // 4)`` is odd, at
+    ``last = SERVER_LASTS[(i // 8) % 3]``, on query input ``i % N``."""
+    out = []
+    for i in range(n):
+        kind, j = KINDS[i % 4], i % len(qi["src"])
+        a = {"last": SERVER_LASTS[(i // 8) % 3]}
+        if (i // 4) % 2:
+            a["le"] = int(qi["le"][j])
+        if kind == "edge":
+            a.update(src=int(qi["src"][j]), la=int(qi["src_label"][j]),
+                     dst=int(qi["dst"][j]), lb=int(qi["dst_label"][j]))
+        elif kind == "label":
+            a.update(lv=int(qi["labels"][j]))
+        else:
+            a.update(v=int(qi["v"][j]), lv=int(qi["lv"][j]),
+                     direction=kind[7:])
+        out.append(("edge" if kind == "edge" else kind[:6], a))
+    return out
+
+
+def _groups(server, handles) -> dict:
+    """The server's request groups of ``handles``: group key -> requests,
+    in submission order."""
+    groups = {}
+    for r in handles:
+        groups.setdefault(server._group_key(r), []).append(r)
+    return groups
+
+
+def serve_requests(server, reqs):
+    """Submit ``reqs`` and flush, synchronised; returns (the request
+    handles, seconds, the wrappers' launches over it)."""
+    before = {n: w.launches for n, w in WRAPPERS.items()}
+    _sync()
+    t0 = time.perf_counter()
+    handles = [server.submit(kind, **a) for kind, a in reqs]
+    server.flush()
+    _sync()
+    sec = time.perf_counter() - t0
+    return handles, sec, {n: w.launches - before[n]
+                          for n, w in WRAPPERS.items()}
+
+
+def _check_group_launches(groups, moved, what) -> None:
+    """One edge-probe launch per edge group and one vertex-scan launch per
+    vertex group (label groups reduce planes: none)."""
+    want = (sum(k[0] == "edge" for k in groups),
+            sum(k[0] == "vertex" for k in groups))
+    got = (moved["sketch_query_kernel_sharded"],
+           moved["vertex_scan_kernel_sharded"])
+    if got != want:
+        raise AssertionError(f"{what}: {got} (probe, scan) launches for "
+                             f"{want} (edge, vertex) groups")
+
+
+def server_single(spec, stream, flushes, qi, dev, tag):
+    """Phases V1-V2 (launches counted from 0 over them): phase 4's
+    batches through the server's ingest, the mixed requests in one flush
+    and again kind by kind, and the analytics."""
+    server = SketchServer(spec, heat_threshold=HEAT_THRESHOLD,
+                          split_replicas=SPLIT_REPLICAS,
+                          horizons=list(SERVER_HORIZONS), device=dev)
+    batches = [stream.slice(a, z) for a, z in flushes]
+    _sync()
+    t0 = time.perf_counter()
+    for b in batches:
+        server.ingest(b)
+    server.state  # drains the pipeline
+    _sync()
+    ingest_s = time.perf_counter() - t0
+    n = len(stream)
+    reqs = server_requests(qi, SERVER_REQUESTS)
+    handles, sec, moved = serve_requests(server, reqs)
+    groups = _groups(server, handles)
+    if dev.type == "cuda":
+        _check_group_launches(groups, moved, "phase V2 mixed flush")
+    by_kind = {}
+    for kind in KINDS:
+        sub = [r for i, r in enumerate(reqs) if KINDS[i % 4] == kind]
+        hs, s, mv = serve_requests(server, sub)
+        if dev.type == "cuda":
+            _check_group_launches(_groups(server, hs), mv,
+                                  f"phase V2 {kind} flush")
+        by_kind[kind] = dict(requests=len(sub), us=1e6 * s / len(sub))
+    topk = {kind: [x.cpu() for x in server.top_k(kind, SERVER_TOPK)]
+            for kind in ("vertex", "edge", "label")}
+    _log(f"phase V1 server ingest: {n} edges in {len(batches)} batches "
+         f"through SketchServer(heat_threshold={HEAT_THRESHOLD}, "
+         f"split_replicas={SPLIT_REPLICAS}, horizons="
+         f"{list(SERVER_HORIZONS)}) in {ingest_s:.3f} s = "
+         f"{n / ingest_s:.0f} edges/s (host clock, synchronised; the "
+         f"detector and the prewarm of every horizon after each batch "
+         f"included) {tag}")
+    _log(f"phase V2 {len(handles)} mixed requests in {len(groups)} groups, "
+         f"one flush: {sec:.4f} s = {1e6 * sec / len(handles):.3f} us a "
+         f"request; launches {moved}; by kind alone (us a request): "
+         f"{json.dumps({k: round(v['us'], 3) for k, v in by_kind.items()})}"
+         f" {tag}")
+    return server, dict(ingest_s=ingest_s, edges_per_s=n / ingest_s,
+                        mixed_s=sec, mixed_us=1e6 * sec / len(handles),
+                        groups=len(groups), mixed_launches=moved,
+                        by_kind=by_kind), handles, groups, topk
+
+
+def server_checks(spec, server, handles, groups, topk, qi, tag) -> dict:
+    """Phase V3: every answer equal to ``skt.query`` on ``server.state``
+    for its group (timed: the bare batched query), the first
+    N_SCAN_SAMPLE of each group equal to the scan path's, top-k equal to
+    ``skt.heavy_*`` on the scan path, and reachability of sampled
+    in-window edges."""
+    state = server.state
+    mism, bare = 0, {}
+    for (kind, with_le, last, direction), rs in groups.items():
+        q = server._group_batch(kind, rs, with_le, last, direction)
+        got = torch.tensor([r.answer for r in rs], dtype=torch.int32)
+        want, sec = _timed(lambda: skt.query(spec, state, q, path="cuda"))
+        bare.setdefault(kind if kind != "vertex" else "vertex-" + direction,
+                        []).append((sec, len(rs)))
+        mism += int((want.cpu() != got).sum())
+        qs = server._group_batch(kind, rs[:N_SCAN_SAMPLE], with_le, last,
+                                 direction)
+        mism += int((skt.query(spec, state, qs, path="scan").cpu() !=
+                     got[:N_SCAN_SAMPLE]).sum())
+    calls = {"vertex": ("heavy_vertices", {"direction": "out"}),
+             "edge": ("heavy_edges", {}),
+             "label": ("top_labels", {"direction": "out"})}
+    for kind, (fn, kw) in calls.items():
+        want = getattr(skt, fn)(spec, state, SERVER_TOPK, path="scan", **kw)
+        mism += sum(int((a != b.cpu()).sum()) for a, b in zip(topk[kind],
+                                                               want))
+    bare_us = {k: 1e6 * sum(s for s, _ in v) / sum(n for _, n in v)
+               for k, v in bare.items()}
+    edge = [r for r in groups[("edge", False, None, "out")] if r.answer > 0]
+    pick = edge[:N_REACH]
+    reach, reach_s = _timed(lambda: server.reachable(
+        *[np.array([r.args[f] for r in pick], np.int32)
+          for f in ("src", "la", "dst", "lb")], max_hops=REACH_HOPS))
+    _log(f"phase V3 every answer vs skt.query on server.state by group, "
+         f"the first {N_SCAN_SAMPLE} of each vs the scan path, top_k "
+         f"(vertex, edge, label; k={SERVER_TOPK}) vs skt.heavy_* on the scan "
+         f"path: mismatches={mism}; the bare batched query (us a query, "
+         f"cached planes) {json.dumps({k: round(v, 3) for k, v in bare_us.items()})}; "
+         f"reachable on {len(pick)} sampled in-window edges "
+         f"(max_hops={REACH_HOPS}): {int(reach.sum())} in "
+         f"{1e3 * reach_s:.3f} ms {tag}")
+    if mism or not reach.all() or not pick:
+        raise AssertionError("phase V3: a served answer differs")
+    return dict(mismatches=mism, bare_us=bare_us, reach=len(pick),
+                reach_ms=1e3 * reach_s)
+
+
+def tenant_spec(cfg, streams):
+    """Phase T's tenant spec: the detector over every tenant's first
+    batch, ``recommend_budget``'s table and the keys past HEAT_THRESHOLD
+    split over TENANT_SHARDS. Returns (the spec, the budget report, the
+    detector's hot keys)."""
+    base = skt.make_spec("lsketch", n_shards=TENANT_SHARDS, config=cfg)
+    det = skt.HeavyKeyDetector()
+    for _, batches, _ in streams:
+        det.update(batches[0].src, batches[0].src_label)
+    budget = skt.recommend_budget(base, det)
+    hot = [(s, l, TENANT_SHARDS) for s, l, _ in det.hot_keys(HEAT_THRESHOLD)]
+    return base.replace(routing=budget.routing.merged(hot)), budget, hot
+
+
+def server_pool(dev, tag):
+    """Phase V4: phase T's tenants through a pool-mode server, interleaved
+    requests of every tenant in one flush (launches counted from 0 over
+    the ingest and the flush), each answer equal to a per-tenant
+    ``query_many`` call. Returns (the launches, the numbers)."""
+    cfg = TENANT_CFG
+    streams = tenant_streams(cfg)
+    spec, _, _ = tenant_spec(cfg, streams)
+    pool = skt.TenantPool(spec, n_slots=TENANTS, path="cuda", device=dev)
+    server = SketchServer(pool=pool, horizons=list(SERVER_HORIZONS))
+    n_rounds = max(len(b) for _, b, _ in streams)
+    n = sum(len(s) for s, _, _ in streams)
+    reqs = []
+    for t, (_, _, qi) in enumerate(streams):
+        sub = server_requests({k: v[:TENANT_QUERIES] for k, v in qi.items()},
+                              3 * TENANT_QUERIES)
+        reqs += [(kind, dict(a, tenant=t)) for kind, a in sub]
+    order = np.random.default_rng(SEED + 3).permutation(len(reqs))
+    reqs = [reqs[i] for i in order]  # tenants interleaved
+
+    def path():
+        _sync()
+        t0 = time.perf_counter()
+        for r in range(n_rounds):
+            server.ingest_many({t: b[r] for t, (_, b, _) in
+                                enumerate(streams) if r < len(b)})
+        server.state  # drains the pipeline
+        _sync()
+        return time.perf_counter() - t0, serve_requests(server, reqs)
+
+    names = MAIN_PATH if dev.type == "cuda" else ()
+    (ingest_s, (handles, sec, moved)), launches = count_launches(names, path)
+    groups = _groups(server, handles)
+    mism = 0
+    for (kind, with_le, last, direction), rs in groups.items():
+        for t in range(TENANTS):
+            mine = [r for r in rs if r.tenant == t]
+            if not mine:
+                continue
+            q = server._group_batch(kind, mine, with_le, last, direction)
+            want = pool.query_many([(t, q)], path="cuda")[0].cpu()
+            got = torch.tensor([r.answer for r in mine], dtype=torch.int32)
+            mism += int((want != got).sum())
+    if dev.type == "cuda":
+        _check_group_launches(groups, moved, "phase V4 pooled flush")
+    _log(f"phase V4 pool mode: {TENANTS} tenants x {TENANT_SHARDS} shards of "
+         f"d={cfg.d}, {n} edges in {n_rounds} rounds of ingest_many, "
+         f"{ingest_s:.3f} s = {n / ingest_s:.0f} edges/s; {len(handles)} "
+         f"interleaved requests in {len(groups)} groups, one flush "
+         f"{1e6 * sec / len(handles):.3f} us a request, launches {moved}; "
+         f"every answer vs a per-tenant TenantPool.query_many call: "
+         f"mismatches={mism} {tag}")
+    if mism:
+        raise AssertionError("phase V4: a pooled answer differs")
+    del server, pool
+    return launches, dict(edges=n, rounds=n_rounds, edges_per_s=n / ingest_s,
+                          requests=len(handles), groups=len(groups),
+                          us=1e6 * sec / len(handles), mismatches=mism)
+
+
+def server_cli(dev, tag) -> int:
+    """Phase V5: ``repro_torch.launch.serve --mode sketch`` at its
+    defaults for every kind, and once in pool mode with a sweep, as
+    concurrent processes; each must exit 0."""
+    root = Path(__file__).resolve().parent
+    runs = [["--sketch", k] for k in ("lsketch", "gss", "lgs")]
+    runs.append(["--tenants", "4", "--horizons", "1,2,4"])
+    extra = list(CLI_ARGS) + (["--device", "cpu"] if dev.type == "cpu"
+                              else [])
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--mode",
+         "sketch", *a, *extra], cwd=root, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for a in runs]
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=600)[0])
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    sec = time.perf_counter() - t0
+    for a, p, out in zip(runs, procs, outs):
+        keep = [x for x in out.splitlines()
+                if x.startswith(("ingested", "answered", "horizon"))]
+        _log(f"phase V5 serve --mode sketch {' '.join(a + extra)}: exit "
+             f"{p.returncode}: {' | '.join(keep)} {tag}")
+        if p.returncode != 0:
+            raise AssertionError(f"phase V5: {a} exited {p.returncode}:\n"
+                                 f"{out[-2000:]}")
+    _log(f"phase V5 {len(runs)} CLI runs side by side in {sec:.1f} s {tag}")
+    return len(runs)
+
+
+def server_bigram(dev, tag) -> tuple:
+    """Phase V6 (launches counted from 0 over its card half):
+    ``BigramSketch`` on the card fed BIGRAM_STEPS batches of the
+    synthetic corpus, held to a CPU twin: the state leaf for leaf, sampled
+    bigram weights (last in {None, 2}) and every band's volume and
+    drift."""
+    corpus = SyntheticCorpus(TokenPipelineConfig(
+        vocab_size=DEFAULT_BAND_VOCAB, batch_size=BIGRAM_BATCH[0],
+        seq_len=BIGRAM_BATCH[1], seed=SEED))
+    toks = [corpus.batch_at(s) for s in range(BIGRAM_STEPS)]
+
+    def card():
+        big = BigramSketch(device=dev)
+        for t in toks:
+            big.ingest_tokens(t)
+        flat = toks[-1].reshape(-1)
+        pairs = [(int(flat[i]), int(flat[i + 1])) for i in range(0, 64)]
+        return big, [big.bigram_weight(a, b, last=h)
+                     for a, b in pairs for h in (None, 2)], pairs
+
+    names = ("sketch_insert_kernel_sharded", "sketch_query_kernel_sharded") \
+        if dev.type == "cuda" else ()
+    (big, got, pairs), launches = count_launches(names, card)
+    twin = BigramSketch(device="cpu")
+    for t in toks:
+        twin.ingest_tokens(t)
+    want = [twin.bigram_weight(a, b, last=h) for a, b in pairs
+            for h in (None, 2)]
+    differ = _differs(twin.sketch.state, big.sketch.state)
+    bands = [(big.band_volume(b), big.drift(b)) for b in range(big.n_bands)]
+    same = got == want and not differ and bands == [
+        (twin.band_volume(b), twin.drift(b)) for b in range(twin.n_bands)]
+    _log(f"phase V6 BigramSketch: {BIGRAM_STEPS} steps of {toks[0].size} "
+         f"tokens on the card vs a CPU twin: state "
+         f"{'equal' if not differ else 'DIFFER ' + str(differ)}, "
+         f"{len(got)} bigram weights and {len(bands)} band volumes and "
+         f"drifts {'equal' if same else 'DIFFER'}; launches {launches} "
+         f"{tag}")
+    if not same:
+        raise AssertionError("phase V6: BigramSketch differs from its twin")
+    return launches, dict(steps=BIGRAM_STEPS, weights=len(got))
+
+
+def server_phase(spec, stream, flushes, dev, tag):
+    """Phase V: the sketch server at the deployment (V1-V3), in pool mode
+    at phase T's tenants (V4), its CLI (V5) and ``BigramSketch`` (V6).
+    Returns (launches by path, the numbers, and for phase M the served
+    handle with its live spec and ``budget_report()``)."""
+    qi = query_inputs(CFG, stream)
+    names = MAIN_PATH + ("cell_decode_kernel_sharded",) \
+        if dev.type == "cuda" else ()
+    (server, out, handles, groups, topk), launches = count_launches(
+        names, lambda: server_single(spec, stream, flushes, qi, dev, tag))
+    out.update(server_checks(spec, server, handles, groups, topk, qi, tag))
+    report = server.budget_report()
+    out.update(budget=report.to_json(), summary=server.serving_summary())
+    _log(f"phase V3 budget_report(): {json.dumps(out['budget'])}; "
+         f"serving_summary(): {out['summary']} {tag}")
+    state, live = server.state, server.live_spec
+    skt.clear_plane_cache(state)
+    del server, handles, groups
+    torch.cuda.empty_cache()
+    p_launches, out["pool"] = server_pool(dev, tag)
+    torch.cuda.empty_cache()
+    out["cli_runs"] = server_cli(dev, tag)
+    b_launches, out["bigram"] = server_bigram(dev, tag)
+    torch.cuda.empty_cache()
+    paths = {"server": launches, "server_pool": p_launches,
+             "bigram": b_launches}
+    out["launches"] = paths
+    return paths, out, (state, live, report.routing)
+
+
+# --------------------------------------------------------------------------
+# phase M: merge, reshard and restore
+# --------------------------------------------------------------------------
+
+def _occupancy(state) -> dict:
+    """Per-shard occupied matrix cells and pool entries, and pool_lost."""
+    sh = state.live()
+    return dict(cells=(sh.key != -1).flatten(1).sum(1).tolist(),
+                **_pool_use(state))
+
+
+def _cpu_handle(state):
+    return skt.ShardedState(_to_cpu(state.live()))
+
+
+RESHARD_PATH = ("sketch_insert_kernel_sharded", "pool_pass_kernel_sharded",
+                "cell_decode_kernel_sharded")
+
+
+def _add_launches(total: dict, more: dict) -> dict:
+    return {n: total.get(n, 0) + more[n] for n in more}
+
+
+def merge_tenant(dev, tag):
+    """Phase M1: one tenant at phase T's size (tenant 0's stream into
+    TENANT_SHARDS shards under phase T's routing), resharded on the card
+    2 -> 4, 2 -> 1 and 2 -> 4 with the prune (``detector=`` over the
+    tenant's whole stream, ``heat_threshold=`` just above its coolest
+    split key's share), each leaf for leaf against the plain replay of a
+    CPU copy. Returns (the launches, numbers, the handle, the spec, the
+    card results by case)."""
+    cfg = TENANT_CFG
+    streams = tenant_streams(cfg)
+    spec, _, _ = tenant_spec(cfg, streams)
+    stream, batches, _ = streams[0]
+    del streams
+    h = skt.create(spec, device=dev)
+    for b in batches:
+        h = skt.ingest(spec, h, b)
+    cpu = _cpu_handle(h)
+    det = skt.HeavyKeyDetector()
+    det.update(stream.src, stream.src_label)
+    counts = sorted(det.counts.get((s, l), 0) for s, l, _ in
+                    spec.routing.splits)
+    cut = (counts[0] + 1) / max(det.total, 1)
+    pruned = skt.prune_routing(spec.routing, det, cut)
+    cases = {"2->4": (4, {}), "2->1": (1, {}),
+             "2->4 pruned": (4, dict(detector=det, heat_threshold=cut))}
+
+    def card():
+        out = {}
+        for name, (m, kw) in cases.items():
+            res, sec = _timed(lambda: skt.reshard(spec, h, m, **kw))
+            out[name] = (res, sec, dict(RESHARD_SPLIT))
+        return out
+
+    names = RESHARD_PATH if dev.type == "cuda" else ()
+    got, launches = count_launches(names, card)
+    nums = {}
+    for name, (m, kw) in cases.items():
+        res, sec, split = got[name]
+        want, plain_s = _timed(lambda: skt.reshard(spec, cpu, m, **kw))
+        differ = _leaves_differ(res, want)
+        del want
+        _log(f"phase M1 reshard {name} of a {TENANT_SHARDS}-shard tenant "
+             f"(d={cfg.d}, {len(stream)} edges, {split['records']} records) "
+             f"on the card {sec:.4f} s (decode {split['decode_s']:.4f}, "
+             f"claim {split['claim_s']:.4f}, scatter "
+             f"{split['scatter_s']:.4f}) vs the plain replay on a CPU copy, "
+             f"leaf for leaf: {'equal' if not differ else 'DIFFER ' + str(differ)}"
+             f" ({plain_s:.3f} s) {tag}")
+        if differ:
+            raise AssertionError(f"phase M1: reshard {name} differs from "
+                                 f"the plain replay in {differ}")
+        nums[name] = dict(card_s=sec, plain_s=plain_s, **split)
+    _log(f"phase M1 the prune (threshold {cut:.3g}): routing "
+         f"{len(spec.routing.splits)} -> {len(pruned.splits)} split keys; "
+         f"launches {launches} {tag}")
+    if len(pruned.splits) >= len(spec.routing.splits):
+        raise AssertionError("phase M1: the prune removed no split")
+    res = {name: got[name][0] for name in cases}
+    return launches, nums, h, cpu, spec, batches, res
+
+
+def merge_deployment(spec, stream, state, routing, dev, tag):
+    """Phase M2: phase V's 4-shard state resharded on the card to 4 shards
+    under ``budget_report().routing`` and to 2: per-shard occupancy before
+    and after, vertex and label answers (last in SERVER_LASTS) equal where
+    the reshard drops nothing (else within what it dropped), edge answers
+    one-sided against ``GroundTruth``. Returns (launches, numbers)."""
+    cfg = spec.config
+    qi = query_inputs(cfg, stream)
+    kinds = [k for k in KINDS if k != "edge"]
+
+    def answers(st, sp):
+        out = {(k, h): skt.query(sp, st, query_batch(qi, k, False, h),
+                                 path="cuda").cpu()
+               for k in kinds for h in SERVER_LASTS}
+        out["edge"] = skt.query(sp, st, query_batch(qi, "edge", False, None),
+                                path="cuda").cpu()
+        skt.clear_plane_cache(st)
+        return out
+
+    before = answers(state, spec)
+    occ0 = _occupancy(state)
+    lost0 = int(state.live().pool_lost.sum())
+    gt = GroundTruth(stream.spec, cfg.k).insert_stream(stream)
+    truth = np.array([gt.edge_weight(int(a), int(b))
+                      for a, b in zip(qi["src"], qi["dst"])])
+    nums, launches, bad, under = {}, {}, 0, 0
+    for name, m, rt in (("4->4 routed", 4, routing), ("4->2", 2, None)):
+        sp = spec.replace(n_shards=m, routing=rt if rt is not None
+                          else spec.routing)
+        names = RESHARD_PATH if dev.type == "cuda" else ()
+        (res, sec), moved = count_launches(names, lambda: _timed(
+            lambda: skt.reshard(spec, state, m, routing=rt)))
+        launches = _add_launches(launches, moved)
+        split = dict(RESHARD_SPLIT)
+        after = answers(res, sp)
+        lost = int(res.live().pool_lost.sum())
+        added = lost - lost0
+        for key, a in after.items():
+            if key == "edge":
+                est = a.numpy().astype(np.int64)
+                under = int((est < truth - lost).sum())
+                bad += under
+                continue
+            b = before[key]
+            if added == 0:
+                bad += int((a != b).sum())
+            else:
+                bad += int(((a > b) | (a < b - added)).sum())
+        occ = _occupancy(res)
+        nums[name] = dict(card_s=sec, occupancy=occ, pool_lost_added=added,
+                          edge_under=under, **split)
+        _log(f"phase M2 reshard {name} of phase V's state ({split['records']}"
+             f" records): {sec:.4f} s on the card = decode "
+             f"{split['decode_s']:.4f} + claim {split['claim_s']:.4f} + "
+             f"scatter {split['scatter_s']:.4f} s; occupancy before "
+             f"{json.dumps(occ0)}, after {json.dumps(occ)}; pool_lost "
+             f"added {added}; vertex and label answers at last in "
+             f"{list(SERVER_LASTS)} and edge answers vs GroundTruth (est >= "
+             f"truth - pool_lost): violations so far {bad} {tag}")
+        del res
+        torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"phase M2: {bad} answers break conservation "
+                             f"or one-sidedness")
+    return launches, dict(cases=nums, occupancy_before=occ0, violations=bad)
+
+
+def merge_checkpoints(h, cpu, spec, batches, res, dev, tag):
+    """Phase M3 (the restores and the GSS reshard counted from 0): M1's
+    tenant saved at its shard count and restored at 4 and at 1 (each
+    equal to M1's reshard); GSS at GSS_CFG resharded 1 -> 2 against the
+    plain replay; LGS at LGS_CFG restored 2 -> 1 (equal to ``merge_all``)
+    and 2 -> 3 (the saved shards and an empty one); ``merge_all`` of M1's
+    tenant against its CPU copy's and, where ``shards_compatible``, a
+    one-shard ingest of the same batches."""
+    import tempfile
+
+    stream = generate(dataclasses.replace(COMFS, n_edges=TENANT_EDGES),
+                      seed=SEED, weighted=True)
+    gspec = skt.make_spec("gss", n_shards=1, config=GSS_CFG)
+    lspec = skt.make_spec("lgs", n_shards=2, config=LGS_CFG)
+    cuts = list(range(0, len(stream), MAX_FLUSH)) + [len(stream)]
+    parts = [stream.slice(a, z) for a, z in zip(cuts[:-1], cuts[1:])]
+    g = skt.create(gspec, device=dev)
+    lg = skt.create(lspec, device=dev)
+    for b in parts:
+        g = skt.ingest(gspec, g, b)
+        lg = skt.ingest(lspec, lg, b)
+    bad = []
+    with tempfile.TemporaryDirectory() as tmp:
+        skt.save(spec, h, f"{tmp}/tenant")
+        skt.save(lspec, lg, f"{tmp}/lgs")
+
+        def card():
+            out = {m: _timed(lambda: skt.restore(spec.replace(n_shards=m),
+                                                 f"{tmp}/tenant",
+                                                 device=dev))
+                   for m in (4, 1)}
+            out["gss"] = _timed(lambda: skt.reshard(gspec, g, 2))
+            out["lgs1"] = skt.restore(lspec.replace(n_shards=1),
+                                      f"{tmp}/lgs", device=dev)
+            out["lgs3"] = skt.restore(lspec.replace(n_shards=3),
+                                      f"{tmp}/lgs", device=dev)
+            return out
+
+        names = RESHARD_PATH if dev.type == "cuda" else ()
+        got, launches = count_launches(names, card)
+    for m, name in ((4, "2->4"), (1, "2->1")):
+        d = _leaves_differ(got[m][0], res[name])
+        if d:
+            bad.append((f"restore at {m}", d))
+    gplain, gplain_s = _timed(lambda: skt.reshard(gspec, _cpu_handle(g), 2))
+    gsplit = dict(RESHARD_SPLIT)
+    d = _leaves_differ(got["gss"][0], gplain)
+    _log(f"phase M3 gss reshard 1->2 at {GSS_CFG} ({gsplit['records']} "
+         f"records, one bin a shard) on the card {got['gss'][1]:.4f} s vs "
+         f"the plain replay on a CPU copy, leaf for leaf: "
+         f"{'equal' if not d else 'DIFFER ' + str(d)} ({gplain_s:.3f} s) "
+         f"{tag}")
+    if d:
+        bad.append(("gss", d))
+    merged = skt.merge_all(lspec, lg)
+    one = got["lgs1"].live()
+    if not all(torch.equal(x[0], y) for x, y in zip(one.leaves(),
+                                                    merged.leaves())):
+        bad.append(("lgs 2->1", "differs from merge_all"))
+    three = got["lgs3"].live()
+    empty = skt.create(lspec.replace(n_shards=1), device=dev).live()
+    if not all(torch.equal(x[:2], y) and torch.equal(x[2:], z)
+               for x, y, z in zip(three.leaves(), lg.live().leaves(),
+                                  empty.leaves())):
+        bad.append(("lgs 2->3", "differs from the saved shards + 1 empty"))
+    tm, tc = skt.merge_all(spec, h), skt.merge_all(spec, cpu)
+    if not all(torch.equal(x.cpu(), y) for x, y in zip(tm.leaves(),
+                                                       tc.leaves())):
+        bad.append(("merge_all", "card differs from its CPU copy"))
+    compatible = bool(skt.shards_compatible(spec, h))
+    if compatible:
+        one_spec = spec.replace(n_shards=1, routing=None)
+        single = skt.create(one_spec, device=dev)
+        for b in batches:
+            single = skt.ingest(one_spec, single, b)
+        if _leaves_differ(skt.ShardedState.lift(tm), single):
+            bad.append(("merge_all", "differs from a one-shard ingest"))
+    _log(f"phase M3 checkpoints: the tenant saved at {TENANT_SHARDS} shards "
+         f"restored at 4 ({got[4][1]:.3f} s) and at 1 ({got[1][1]:.3f} s) "
+         f"vs M1's reshards; lgs at {LGS_CFG} restored 2->1 vs merge_all "
+         f"and 2->3 vs the saved shards and an empty one; merge_all of the "
+         f"tenant vs its CPU copy's; shards_compatible={compatible}"
+         f"{' (merge_all vs a one-shard ingest too)' if compatible else ''}"
+         f": {'all equal' if not bad else 'DIFFER ' + str(bad)}; launches "
+         f"{launches} {tag}")
+    if bad:
+        raise AssertionError(f"phase M3: {bad}")
+    return launches, dict(restore4_s=got[4][1], restore1_s=got[1][1],
+                          gss_card_s=got["gss"][1], gss_plain_s=gplain_s,
+                          gss_records=gsplit["records"],
+                          shards_compatible=compatible)
+
+
+def merge_phase(stream, served, dev, tag):
+    """Phase M: M1 (a tenant resharded on the card vs the plain replay),
+    M2 (phase V's state resharded: conservation and one-sidedness) and M3
+    (restores across shard counts, GSS, LGS and ``merge_all``). Returns
+    (the launches of the reshard path, summed over its counted runs, and
+    the numbers)."""
+    state, live, routing = served
+    l1, m1, h, cpu, tspec, batches, res = merge_tenant(dev, tag)
+    l3, m3 = merge_checkpoints(h, cpu, tspec, batches, res, dev, tag)
+    del h, cpu, res
+    torch.cuda.empty_cache()
+    l2, m2 = merge_deployment(live, stream, state, routing, dev, tag)
+    launches = _add_launches(_add_launches(l1, l2), l3)
+    return launches, dict(m1=m1, m2=m2, m3=m3, launches=launches,
+                          m2_violations=m2["violations"])
+
+
 def deployment():
     """The spec, the seeded stream and its flushes ``[(a, z)]``, with the
     index of the boundary-spanning flush."""
@@ -3029,16 +3677,37 @@ def deployment():
     return spec, stream, list(zip(cuts[:-1], cuts[1:])), span_i
 
 
-def kernel_entries(results: dict, launches: dict) -> list:
+def _row_paths(name: str) -> tuple:
+    """The paths of phases V and M whose launches a kernel row counts: the
+    grouped entries on the pool-mode server, the single-sketch entries in
+    ``BigramSketch``, the sharded query kernels on the single-handle
+    server, and the write path and the decode on every server path and
+    the reshard."""
+    if name in GROUPED_KERNELS:
+        return ("server_pool",)
+    if name in OBJECT_KERNELS:
+        return ("bigram",)
+    if name in ("sketch_query_kernel_sharded", "vertex_scan_kernel_sharded"):
+        return ("server",)
+    if name == "flash_attention_kernel":
+        return ()
+    return ("server", "server_pool", "reshard")
+
+
+def kernel_entries(results: dict, launches: dict,
+                   new_paths: dict | None = None) -> list:
     """The ``kernels`` list of the JSON line. Each bound is the larger of
     the bytes the check counted over HBM_BYTES_PER_S and the time of the
     operations it counted, where it counted any (``ops_ms``, at the rate
     ``ops_rate`` names); ``library_ms`` is null where no single PyTorch
-    call computes the kernel's function."""
+    call computes the kernel's function. ``launches_new_paths`` gives each
+    row's wrapper launches on the paths of phases V and M
+    (``_row_paths``)."""
     out = []
     for kname, r in results.items():
         bytes_ms = 1e3 * r["nbytes"] / HBM_BYTES_PER_S
         ops_ms = r.get("ops_ms", 0.0)
+        wrapper = GROUPED_KERNELS.get(kname, OBJECT_KERNELS.get(kname, kname))
         out.append(dict(
             name=kname, route="cuda", **KERNELS[kname],
             launches=launches[kname],
@@ -3046,7 +3715,10 @@ def kernel_entries(results: dict, launches: dict) -> list:
                if k not in ("nbytes", "ops_ms", "library_ms")},
             bound_ms=max(bytes_ms, ops_ms),
             bound_by="operations" if ops_ms > bytes_ms else "bytes",
-            library_ms=r.get("library_ms")))
+            library_ms=r.get("library_ms"),
+            launches_new_paths={p: new_paths[p][wrapper]
+                                for p in _row_paths(kname)}
+            if new_paths else {}))
     return out
 
 
@@ -3141,6 +3813,13 @@ def main() -> int:
     tenant_out["launches"] = t_launches
     torch.cuda.empty_cache()
 
+    v_launches, server_out, served = server_phase(
+        spec, stream, flushes, dev, tag)  # phase V
+    m_launches, merge_out = merge_phase(stream, served, dev, tag)  # phase M
+    del served
+    torch.cuda.empty_cache()
+    new_paths = dict(v_launches, reshard=m_launches)
+
     obj_rows, o_launches, obj_out = object_phase(dev, tag)  # phase O
     results.update(obj_rows)
     launches.update({k: o_launches[w] for k, w in OBJECT_KERNELS.items()})
@@ -3158,13 +3837,15 @@ def main() -> int:
 
     seconds = time.perf_counter() - t_start
     _log(f"total {seconds:.1f} s")
-    print(json.dumps({"kernels": kernel_entries(results, launches),
+    print(json.dumps({"kernels": kernel_entries(results, launches,
+                                                new_paths),
                       "card": card, "peak_memory_bytes": peak,
                       "analytics_peak_memory_bytes": a_peak,
                       "ingest_edges_per_s": edges_per_s,
                       "ingest_kernel_route_edges_per_s": kernel_edges_per_s,
                       "stream": stream_out, "route": route_out,
-                      "tenant": tenant_out, "object": obj_out,
+                      "tenant": tenant_out, "server": server_out,
+                      "merge": merge_out, "object": obj_out,
                       **profile, **lm_out,
                       "seconds": seconds}), flush=True)
     print(card_line(), flush=True)

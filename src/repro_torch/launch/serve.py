@@ -8,8 +8,9 @@ from ``numpy.random.default_rng(seed)``.
 
 Usage: python -m repro_torch.launch.serve --arch smollm-135m --requests 8
        [--device cpu]
-(on the card unless ``--device cpu``; ``--mode sketch``, the graph-stream
-server, is not ported yet.)
+       python -m repro_torch.launch.serve --mode sketch [serve_sketch flags]
+(on the card unless ``--device cpu``; ``--mode sketch`` hands every other
+flag to the graph-stream server, ``launch/serve_sketch.py``.)
 """
 
 from __future__ import annotations
@@ -116,15 +117,24 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", default="lm", choices=["lm", "sketch"])
     ap.add_argument("--arch", default="smollm-135m")
-    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--requests", type=int, default=None,
+                    help="lm default: 4; sketch default: serve_sketch's own")
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--device", default=None,
                     help="default: the card; 'cpu' to run on the CPU")
-    args = ap.parse_args(argv)
+    args, rest = ap.parse_known_args(argv)
     if args.mode == "sketch":
-        raise NotImplementedError("--mode sketch (the graph-stream server) "
-                                  "is not ported yet (ROADMAP.md queue 1, "
-                                  "item 12)")
+        from .serve_sketch import main as sketch_main
+        if args.requests is not None:
+            rest += ["--requests", str(args.requests)]
+        if args.device is not None:
+            rest += ["--device", args.device]
+        sketch_main(rest)
+        return
+    if args.requests is None:
+        args.requests = 4
+    if rest:  # unknown flags are only forwarded in sketch mode
+        ap.error(f"unrecognized arguments: {' '.join(rest)}")
     dev = resolve_device(args.device)
     cfg = configs.get(args.arch, reduced=True)
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),

@@ -8,6 +8,8 @@
     W     = query(spec, state, QueryBatch.vertices(v, lv, last=[None, 1]))
     vids, weights = heavy_vertices(spec, state, k=16, last=1)
     save(spec, state, ckpt_dir); state = restore(spec, ckpt_dir)
+    state8 = reshard(spec, state, 8)           # balanced across 8 shards
+    plain = merge_all(spec, state)             # one plain state
     pool  = TenantPool(spec, n_slots=8); pool.submit({"a": b1, "b": b2})
 """
 
@@ -18,14 +20,15 @@ from .spec import (KINDS, SketchSpec, make_spec, shard_assignment,
 from .routing import (BudgetReport, HeavyKeyDetector, RoutingTable,
                       prune_routing, recommend_budget, routed_assignment,
                       routed_assignment_vids)
-from .state import (ShardedState, create, from_numpy, stack_states,
-                    to_numpy, unstack_state)
+from .state import (ShardedState, create, from_numpy, merge_all,
+                    shards_compatible, stack_states, to_numpy, unstack_state)
 from .ingest import AsyncIngestor, ingest, ingest_single
 from .query import (MAX_DELTA_CHAIN, PLANES_BUILD_COUNTS, QueryBatch,
                     clear_plane_cache, default_query_path, query,
                     query_planes, query_planes_multi, resolve_query_path)
 from .analytics import (heavy_edges, heavy_vertices, reachable_many,
                         top_labels)
+from .reshard import reshard
 from .checkpoint import restore, save, saved_extra, saved_spec
 from .tenant import PoolFullError, TenantPool
 
@@ -34,8 +37,8 @@ __all__ = [
     "shard_assignment_vids",
     "BudgetReport", "HeavyKeyDetector", "RoutingTable", "prune_routing",
     "recommend_budget", "routed_assignment", "routed_assignment_vids",
-    "ShardedState", "create", "from_numpy", "stack_states", "to_numpy",
-    "unstack_state",
+    "ShardedState", "create", "from_numpy", "merge_all", "shards_compatible",
+    "stack_states", "to_numpy", "unstack_state", "reshard",
     "AsyncIngestor", "ingest", "ingest_single", "QueryBatch",
     "MAX_DELTA_CHAIN", "PLANES_BUILD_COUNTS", "query", "query_planes",
     "query_planes_multi", "clear_plane_cache", "default_query_path",

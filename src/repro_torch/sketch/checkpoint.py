@@ -6,10 +6,10 @@ reference's key paths (``.shards/.key``, ... for lsketch and gss,
 ``.shards/.C``, ... for lgs). A checkpoint either package wrote restores
 in the other.
 
-``restore`` at the saved shard count returns the state on the requested
-device. Restoring into another shard count re-partitions the saved
-records (the reference's ``reshard``), which the port does not have yet
-(ROADMAP item 7): it raises.
+``restore`` returns the state on the requested device. Restoring into
+another shard count re-partitions the saved contents by key space
+(``reshard``) for ``lsketch`` and ``gss``; ``lgs`` (no keys) merges into
+shard 0 when shrinking and appends empty shards when growing.
 """
 
 from __future__ import annotations
@@ -18,8 +18,10 @@ from repro_torch.core.lgs import LGS_LEAVES
 from repro_torch.core.types import LEAVES
 from repro_torch.distributed.checkpoint import CheckpointManager
 
+from .reshard import reshard
 from .spec import SketchSpec
-from .state import ShardedState, from_numpy
+from .state import (ShardedState, _init, from_numpy, merge_all,
+                    stack_states, unstack_state)
 
 MANIFEST_KEY = "sketch_spec"
 
@@ -66,8 +68,11 @@ def restore(spec: SketchSpec, directory, step: int | None = None,
             device=None) -> ShardedState:
     """The handle saved in ``directory`` for ``spec``, on ``device`` (the
     card unless the caller names the CPU). The saved spec must be
-    compatible (same kind and config) and have ``spec.n_shards``
-    shards."""
+    compatible (same kind and config). A different ``n_shards`` reshards
+    ``lsketch``/``gss`` under the requested spec's routing (else the
+    saved one): vertex and label answers are conserved, edge answers stay
+    one-sided. ``lgs`` shrinks by ``merge_all`` into shard 0 and grows by
+    appending empty shards, both exact."""
     mgr = CheckpointManager(directory)
     step = mgr.latest_step() if step is None else step
     saved = saved_spec(directory, step)
@@ -76,10 +81,17 @@ def restore(spec: SketchSpec, directory, step: int | None = None,
             f"checkpoint holds an incompatible sketch: saved "
             f"{saved.kind}/{saved.config!r}, requested "
             f"{spec.kind}/{spec.config!r}")
-    if saved.n_shards != spec.n_shards:
-        raise NotImplementedError(
-            f"the checkpoint has {saved.n_shards} shards and the spec "
-            f"{spec.n_shards}: restoring across shard counts needs "
-            f"reshard, which the port does not have yet (ROADMAP item 7)")
     arrays, _ = mgr.restore(_keys(saved), step=step)
-    return from_numpy(spec, arrays, device)
+    state = from_numpy(saved, arrays, device)
+    if saved.n_shards == spec.n_shards:
+        return state
+    if spec.kind != "lgs":
+        routing = spec.routing if spec.routing is not None \
+            else saved.routing
+        return reshard(saved, state, spec.n_shards, routing=routing)
+    base = _init(spec, (), state.device)
+    if spec.n_shards > saved.n_shards:
+        olds = [unstack_state(state, i) for i in range(saved.n_shards)]
+        return stack_states(olds + [base] * (spec.n_shards - saved.n_shards))
+    return stack_states([merge_all(saved, state)] +
+                        [base] * (spec.n_shards - 1))

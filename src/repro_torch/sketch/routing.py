@@ -221,9 +221,7 @@ def prune_routing(table: RoutingTable, detector: HeavyKeyDetector,
     plain hash (``RoutingTable`` forbids ``n_replicas < 2``). Live ingest
     must not apply a pruned table: the pressure the split relieved would
     return while the history stays where it is. It is applied where the
-    records are re-placed, by a reshard (the reference's
-    ``reshard(..., detector=, heat_threshold=)``; ROADMAP item 7 for the
-    port).
+    records are re-placed: ``reshard(..., detector=, heat_threshold=)``.
     """
     if not table:
         return table

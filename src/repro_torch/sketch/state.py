@@ -17,6 +17,9 @@ order, which is the field order of the state class — ``LSketchState``
 slot_widx, cur_widx) or ``LGSState`` (C, P, slot_widx, cur_widx) — each
 with the leading shard axis of a ``ShardedState``, or without it for a
 plain single-shard state (``plain=True``; the objects' ``.state``).
+
+``merge_all`` reduces a handle to one plain state and
+``shards_compatible`` says when that is exact (``core.merge``).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import merge as _merge
 from repro_torch.core.lgs import LGS_LEAVES, lgs_init_leaves
 from repro_torch.core.types import LEAVES, init_leaves, \
     resolve_device
@@ -113,3 +117,22 @@ def to_numpy(state):
     if isinstance(state, ShardedState):
         state = state.live()
     return [x.cpu().numpy() for x in state.leaves()]
+
+
+def merge_all(spec: SketchSpec, state: ShardedState):
+    """Reduce the handle to one plain sketch state (counter addition with
+    per-slot window reconciliation, ``core.merge``). Bit-identical to
+    single-sketch ingest of the same stream iff ``shards_compatible``; on
+    a contended partition conflicting cells keep one key (prefer the
+    sharded ``query`` there)."""
+    if spec.kind == "lgs":
+        return _merge.lgs_merge_all(spec.config, state.live())
+    return _merge.merge_all(spec.config, state.live())
+
+
+def shards_compatible(spec: SketchSpec, state: ShardedState) -> torch.Tensor:
+    """0-dim bool tensor: the shards are exactly mergeable (no cross-shard
+    cell or pool-slot contention). Always True for LGS: it has no keys."""
+    if spec.kind == "lgs":
+        return torch.tensor(True, device=state.device)
+    return _merge.shard_keys_compatible(state.live())

@@ -1039,3 +1039,125 @@ def test_cuda_tenant_pool_matches_cpu_twin():
                                        horizons=[None, 1])
         for a, b in zip(got, want):
             assert all(torch.equal(x.cpu(), y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+def test_cuda_reshard_matches_plain_loop():
+    """``reshard`` on the card (the decode kernel, the claim walk through
+    the insert and pool kernels, the landing scatter) against the plain
+    host loop on the CPU, leaf for leaf: grow, shrink, a routing table and
+    the prune, on a crowded state with a lagging shard and pool overflow;
+    then ``restore`` across shard counts on the card."""
+    _need_card()
+    import tempfile
+    from repro_torch.sketch.routing import RoutingTable
+    cfg = LSketchConfig(d=16, n_blocks=2, F=256, r=4, s=4, c=4, k=4,
+                        window_size=100, pool_capacity=16, pool_probes=4)
+    spec = skt.make_spec("lsketch", n_shards=3, config=cfg).with_splits(
+        [(7, 1, 2)])
+    rng = np.random.default_rng(47)
+    st = skt.create(spec, device="cpu")
+    for t0 in (0, 50, 150):  # the last batch reaches one shard only
+        n = 400 if t0 < 150 else 60
+        src = rng.integers(0, 120, n) if t0 < 150 else np.full(n, 7)
+        st = skt.ingest(spec, st, EdgeBatch.from_arrays(
+            src, rng.integers(0, 120, n), np.where(src == 7, 1, src % 3),
+            rng.integers(0, 3, n), rng.integers(0, 6, n),
+            rng.integers(1, 4, n), np.sort(rng.integers(t0, t0 + 25, n))))
+    assert int(st.live().pool_lost.sum()) > 0
+    card = skt.ShardedState(st.live().map(lambda x: x.cuda()))
+    det = skt.HeavyKeyDetector(capacity=8)
+    det.update([1, 2, 3] * 50)
+    cases = [(1, {}), (2, {}), (5, {}),
+             (4, dict(routing=RoutingTable(((3, 0, 3),)))),
+             (4, dict(detector=det, heat_threshold=0.05))]
+    before = [w.launches for w in (cell_decode_kernel_sharded,
+                                   sketch_insert_kernel_sharded,
+                                   pool_pass_kernel_sharded)]
+    for m, kw in cases:
+        got = skt.reshard(spec, card, m, **kw)
+        assert got.device.type == "cuda"
+        want = skt.reshard(spec, st, m, **kw)
+        for x, y in zip(skt.to_numpy(got), skt.to_numpy(want)):
+            np.testing.assert_array_equal(x, y)
+    after = [w.launches for w in (cell_decode_kernel_sharded,
+                                  sketch_insert_kernel_sharded,
+                                  pool_pass_kernel_sharded)]
+    assert [a - b for a, b in zip(after, before)] == [len(cases)] * 3
+    with tempfile.TemporaryDirectory() as tmp:
+        skt.save(spec, card, tmp)
+        for m in (2, 4):
+            got = skt.restore(spec.replace(n_shards=m), tmp, device="cuda")
+            want = skt.restore(spec.replace(n_shards=m), tmp, device="cpu")
+            for x, y in zip(skt.to_numpy(got), skt.to_numpy(want)):
+                np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pooled", [False, True])
+def test_cuda_sketch_server_matches_cpu_twin(pooled):
+    """``SketchServer`` on the card (single handle with the detector and a
+    registered sweep, or pool mode) against its CPU twin on the same
+    stream and interleaved requests: the state leaf for leaf, every
+    answer and the top-k equal; one probe launch per edge group."""
+    _need_card()
+    from repro_torch.data.stream import PHONE, edge_batches, generate
+    from repro_torch.launch.serve_sketch import SketchServer, build_spec
+    stream = generate(dataclasses.replace(PHONE, n_edges=6000,
+                                          n_vertices=300), seed=3)
+    spec = build_spec("lsketch", PHONE.window_size, 2)
+    servers = {}
+    for dev in ("cuda", "cpu"):
+        path = "cuda"  # the CPU twin: the kernels' plain versions
+        if pooled:
+            servers[dev] = SketchServer(
+                pool=skt.TenantPool(spec, n_slots=3, device=dev),
+                query_path=path, horizons=[1, 2])
+        else:
+            servers[dev] = SketchServer(spec, heat_threshold=0.05,
+                                        query_path=path, horizons=[1, 2],
+                                        device=dev)
+    for i, b in enumerate(edge_batches(stream, 1000)):
+        for s in servers.values():
+            if pooled:
+                s.ingest_many([(i % 3, b)])
+            else:
+                s.ingest(b)
+    rng = np.random.default_rng(5)
+    idx = rng.integers(0, len(stream), 120)
+    answers, launched = {}, 0
+    for dev, s in servers.items():
+        reqs = []
+        for j, i in enumerate(idx):
+            kw = dict(last=(None, 1, 2)[j % 3])
+            if pooled:
+                kw["tenant"] = j % 3
+            if j % 2:
+                kw["le"] = int(stream.edge_label[i])
+            if j % 4 < 2:
+                reqs.append(s.submit("edge", src=int(stream.src[i]),
+                                     la=int(stream.src_label[i]),
+                                     dst=int(stream.dst[i]),
+                                     lb=int(stream.dst_label[i]), **kw))
+            else:
+                reqs.append(s.submit("vertex", v=int(stream.src[i]),
+                                     lv=int(stream.src_label[i]),
+                                     direction="in", **kw))
+        before = sketch_query_kernel_sharded.launches
+        s.flush()
+        if dev == "cuda":
+            launched = sketch_query_kernel_sharded.launches - before
+        answers[dev] = [r.answer for r in reqs]
+    assert answers["cuda"] == answers["cpu"]
+    assert launched == 6  # 6 edge groups: (le?) x (last in None, 1, 2)
+    for x, y in zip(skt.to_numpy(servers["cuda"].state),
+                    skt.to_numpy(servers["cpu"].state)):
+        np.testing.assert_array_equal(x, y)
+    kw = dict(tenant=1) if pooled else {}
+    for kind in ("vertex", "edge", "label"):
+        for a, b in zip(servers["cuda"].top_k(kind, 8, **kw),
+                        servers["cpu"].top_k(kind, 8, **kw)):
+            assert torch.equal(a.cpu(), b)
+    if not pooled:
+        assert servers["cuda"].budget_report().to_json() == \
+            servers["cpu"].budget_report().to_json()

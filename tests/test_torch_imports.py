@@ -68,7 +68,9 @@ def test_every_c_entry_has_its_ctypes_signature():
 def test_entry_points_default_to_the_card():
     from repro_torch import configs
     from repro_torch.launch.serve import DecodeServer
+    from repro_torch.launch.serve_sketch import SketchServer
     from repro_torch.models import lm
+    from repro_torch.telemetry import BigramSketch
 
     spec = tskt.make_spec("lsketch", n_shards=2, **SPEC)
     cfg = configs.get("smollm-135m", reduced=True)
@@ -79,16 +81,22 @@ def test_entry_points_default_to_the_card():
         assert lm.init_cache(cfg, 1, 8)[0]["mixer"]["k"].device.type == "cuda"
         with pytest.raises(ValueError, match="parameters lie on cpu"):
             DecodeServer(cfg, params)
+        assert SketchServer(spec).state.device.type == "cuda"
+        assert BigramSketch(d=16).sketch.device.type == "cuda"
     else:
         for entry in (lambda: tskt.create(spec), lambda: lm.init_params(cfg),
                       lambda: lm.init_cache(cfg, 1, 8),
-                      lambda: DecodeServer(cfg, params)):
+                      lambda: DecodeServer(cfg, params),
+                      lambda: SketchServer(spec),
+                      lambda: BigramSketch(d=16)):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 entry()
     assert tskt.create(spec, device="cpu").device.type == "cpu"
     assert params.device.type == "cpu"
     assert DecodeServer(cfg, params, device="cpu").caches[0]["mixer"][
         "k"].device.type == "cpu"
+    assert SketchServer(spec, device="cpu").state.device.type == "cpu"
+    assert BigramSketch(d=16, device="cpu").sketch.device.type == "cpu"
 
 
 def test_ingest_spends_the_old_handle_and_starts_a_cold_cache():

@@ -270,8 +270,12 @@ def test_serve_cli_on_the_cpu(capsys):
     tserve.main(["--arch", "qwen3-8b", "--requests", "2", "--max-new", "3",
                  "--device", "cpu"])
     assert "decoded 6 tokens for 2 requests" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tserve.main(["--mode", "sketch"])
+    # --mode sketch hands every other flag to the graph-stream server
+    tserve.main(["--mode", "sketch", "--device", "cpu", "--edges", "512",
+                 "--requests", "8", "--ingest-batch", "256"])
+    assert "answered 8 edge queries" in capsys.readouterr().out
+    with pytest.raises(SystemExit):  # lm mode takes no server flags
+        tserve.main(["--arch", "qwen3-8b", "--edges", "512"])
 
 
 # ---- 6. carrying weights across --------------------------------------------

@@ -4,7 +4,7 @@ spec's ``routing`` field, ``ingest``'s routed partition and
 the CPU, exactly.
 
 The cases of ``tests/test_routing.py`` without the three reshard cases
-(the port has no reshard yet): the detector's counts one-sided and its
+(``tests/test_torch_reshard.py`` holds those): the detector's counts one-sided and its
 total exact, routing tables normalised and validated, routing carried in
 JSON but left out of identity, ``routed_assignment`` bit for bit with
 ``repro``'s with and without splits, routed ingest and the

@@ -58,6 +58,33 @@ Phases (any failure raises, so the exit code is non-zero):
      sampled from the newest subwindow's positive edge answers, all True;
      then the cell-decode kernel against its plain version on the main
      path's key plane, exactly, timed by CUDA events;
+  C. the mesh-resident collective path on the same handle, over a
+     one-rank NCCL group on this card (``distributed.ranks.init_group``;
+     4 shards divide it, so the handle is sharded, not replicated), every
+     kernel launch of C1-C4 and C6's card half counted from 0: C1 the
+     handle ``place``d (a view at one rank) answers phase 5's batches and
+     each kind's HORIZONS sweep on ``path="collective"``, each equal to
+     phase 5's answer (µs a query beside the cuda path's, the
+     ``all_reduce`` and ``all_gather`` calls of each batch and their
+     CUDA-event ms); C2 phase 6b's top-k calls on the collective path,
+     each equal to phase 6b's; C3 phase 4's stream in phase 4's flushes
+     into a fresh placed handle, equal to phase 4's state leaf for leaf
+     with its context kept, a collective query after each of the last
+     COLLECTIVE_TAIL flushes whose planes (folded or built) equal a cold
+     build, edges/s beside phase 4's; C4 ``SketchServer(mesh=...,
+     query_path="collective")`` fed phase 4's stream answers phase V's
+     mixed requests, each equal to ``skt.query(path="cuda")`` on phase
+     4's state; C5 ``serve --mode sketch --shards 4 --mesh 1
+     --collective`` exits 0 and ``--mesh 2`` on a one-card box exits
+     non-zero with the reference's message; C6
+     ``RouterTelemetry(mesh=...)`` at DeepSeek-V2's 160 routed experts
+     (top-6) fed TELEMETRY_STEPS seeded skewed routing steps of
+     TELEMETRY_TOKENS tokens with a ``CapacityController.update`` after
+     each, its collective loads every TELEMETRY_CHECK steps equal to a
+     CPU copy's on the scan path and its final state and capacity
+     factors equal to a host-resident twin's (µs a step of ingest,
+     update and ``load_vector``); the phase's peak device memory; the
+     group is destroyed at the end;
   7. a profiler trace of two replayed flushes (where ingest time goes:
      host ms by stage, the pool pass's share of the trace's host time,
      the card's busy share and the number of cudaLaunchKernel calls);
@@ -161,10 +188,11 @@ Phases (any failure raises, so the exit code is non-zero):
   8. one JSON line of the kernels and the end-to-end numbers, the card
      line, and the result line.
 
-Phases V and M count launches, each run from 0, on four more paths:
+Phases V, M and C count launches, each run from 0, on five more paths:
 the single-handle server (V1-V2), the pool-mode server (V4),
-``BigramSketch`` (V6) and the reshards (M1, M2, M3 summed); each kernel
-row gains them as ``launches_new_paths``.
+``BigramSketch`` (V6), the reshards (M1, M2, M3 summed) and the
+collective path (C1-C4, C6); each kernel row gains them as
+``launches_new_paths``.
 Seven paths count kernel launches, each from 0 just before it: the
 sketch path (phases 4 and 5), the analytics path (phase 6b, before its
 comparisons), the streaming loop (phase S1-S2, reported in its numbers),
@@ -191,11 +219,13 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -240,6 +270,9 @@ from repro_torch.kernels.vertex_scan.ops import (  # noqa: E402
     pool_lookup, scan_lines, vertex_query_pallas)
 from repro_torch.data.tokens import (DEFAULT_BAND_VOCAB,  # noqa: E402
                                      SyntheticCorpus, TokenPipelineConfig)
+from repro_torch.distributed.ranks import backend_for, init_group  # noqa
+from repro_torch.telemetry import (CapacityController,  # noqa: E402
+                                   RouterTelemetry)
 from repro_torch.launch.serve import DecodeServer, Request  # noqa: E402
 from repro_torch.launch.serve_sketch import SketchServer  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
@@ -350,6 +383,16 @@ BIGRAM_STEPS = 8
 BIGRAM_BATCH = (4, 256)
 
 # the LM phases: Qwen3-8B at full width (configs/qwen3_8b.py)
+# phase C: the mesh-resident collective path at the deployment
+COLLECTIVE_TAIL = 4  # C3: the last flushes, each checked against a build
+# C6: DeepSeek-V2's routed experts (160, top-6) at 8,192 tokens a step
+TELEMETRY = dict(n_experts=160, n_buckets=256, window_steps=64,
+                 subwindows=8, n_shards=4)
+TELEMETRY_STEPS = 256
+TELEMETRY_TOKENS = 8192
+TELEMETRY_TOP_K = 6
+TELEMETRY_CHECK = 32
+
 LM_ARCH = "qwen3-8b"
 LM_REDUCED = False
 PREFILL_LEN = 8192
@@ -388,6 +431,7 @@ ANALYTICS_PATH = ("cell_decode_kernel_sharded",
                   "sketch_query_kernel_sharded", "vertex_scan_kernel_sharded")
 OBJECT_PATH = MAIN_PATH + ("cell_decode_kernel_sharded",)
 STREAM_PATH = MAIN_PATH[:3]  # phase S asks edge queries only
+COLLECTIVE_PATH = MAIN_PATH + ("cell_decode_kernel_sharded",)
 # the grouped entries' rows (phase T): the wrapper whose launches each
 # counts on the pool path
 GROUPED_KERNELS = {
@@ -845,7 +889,8 @@ def ingest_stream(cfg, spec, stream, flushes, span_i, dev, tag,
     for i, (a, z) in enumerate(flushes):
         batch = stream.slice(a, z)
         checked = i < 2 or i == last_k
-        clone = state.shards.map(lambda x: x[0:1].cpu()) if checked else None
+        clone = state.shards.map(lambda x: x[0:1].to("cpu", copy=True)) \
+            if checked else None  # a copy on the CPU too
         before = dict(eng.ROUTE_EDGES)
         with capture if capture is not None and i == last_k else \
                 contextlib.nullcontext():
@@ -1787,6 +1832,435 @@ def serve_phase(cfg, params, tokens, head, dev, tag) -> dict:
         raise AssertionError("decode through the cache disagrees with the "
                              "prefill")
     return out
+
+
+# --------------------------------------------------------------------------
+# phase C: the mesh-resident collective path
+# --------------------------------------------------------------------------
+
+class CollectiveLog:
+    """While entered, counts every ``torch.distributed`` ``all_reduce`` and
+    ``all_gather`` call and brackets it with CUDA events; ``summary()``
+    gives the counts and the summed event milliseconds of each."""
+
+    NAMES = ("all_reduce", "all_gather")
+
+    def __enter__(self):
+        self.events = {n: [] for n in self.NAMES}
+        self.saved = {n: getattr(dist, n) for n in self.NAMES}
+        for n, fn in self.saved.items():
+            setattr(dist, n, self._wrap(n, fn))
+        return self
+
+    def _wrap(self, name, fn):
+        def call(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            self.events[name].append((start, end))
+            return out
+        return call
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(dist, n, fn)
+
+    def summary(self) -> dict:
+        _sync()
+        return {n: dict(calls=len(ev), ms=sum(s.elapsed_time(e)
+                                               for s, e in ev))
+                for n, ev in self.events.items()}
+
+
+def collective_queries(spec, placed, state, qi, answers, tag) -> dict:
+    """C1: phase 5's batches (every kind x edge label x horizon, and each
+    kind's horizon sweep) on the collective path of the placed handle,
+    each equal to phase 5's answer; each batch's collectives counted and
+    timed. Returns the calls and seconds by batch."""
+    out = {}
+    for kind in KINDS:
+        for with_le in (False, True):
+            for last in list(HORIZONS) + [list(HORIZONS)]:
+                q = query_batch(qi, kind, with_le, last)
+                if isinstance(last, list):  # plane build: set-up
+                    skt.query_planes_multi(spec, placed, last,
+                                           collective=True)
+                    want = torch.stack([answers[(kind, with_le, h)]
+                                        for h in HORIZONS])
+                else:
+                    skt.query_planes(spec, placed, last, collective=True)
+                    want = answers[(kind, with_le, last)]
+                with CollectiveLog() as log:
+                    got, sec = _timed(lambda: skt.query(
+                        spec, placed, q, path="collective"))
+                if not torch.equal(got.cpu(), want):
+                    raise AssertionError(f"phase C1: collective {kind} "
+                                         f"le={with_le} last={last} differs "
+                                         f"from phase 5")
+                out[(kind, with_le, str(last))] = dict(
+                    s=sec, **log.summary())
+    return out
+
+
+def collective_topk(spec, placed, got, tag) -> dict:
+    """C2: phase 6b's top-k calls on the collective path, each equal to
+    phase 6b's; seconds and collectives by call."""
+    out = {}
+    for label, name, k, kw in _analytics_calls():
+        with CollectiveLog() as log:
+            res, sec = _timed(lambda: getattr(skt, name)(
+                spec, placed, k, path="collective", **kw))
+        if not all(torch.equal(a.cpu(), b) for a, b in zip(res, got[label])):
+            raise AssertionError(f"phase C2: collective {label} differs "
+                                 f"from phase 6b")
+        out[label] = dict(s=sec, **log.summary())
+    return out
+
+
+def collective_ingest(spec, stream, flushes, qi, ctx, dev, tag):
+    """C3: phase 4's stream in phase 4's flushes into a fresh placed
+    handle (each flush synchronised and timed); after each of the last
+    COLLECTIVE_TAIL flushes a collective edge batch, whose planes (a fold
+    of the flush's delta, or a build where the flush moved the ring) must
+    equal a cold build. Returns (the handle, seconds of ingest, folds,
+    builds)."""
+    placed = skt.place(spec, skt.create(spec, device=dev), ctx)
+    q = query_batch(qi, "edge", False, None)
+    counts = skt.PLANES_BUILD_COUNTS
+    tail = len(flushes) - COLLECTIVE_TAIL
+    ingest_s, folds, builds = 0.0, 0, 0
+    for i, (a, z) in enumerate(flushes):
+        placed, sec = _timed(lambda: skt.ingest(
+            spec, placed, stream.slice(a, z), path="cuda"))
+        ingest_s += sec
+        if i < tail - 1:
+            continue
+        before = dict(counts)
+        skt.query(spec, placed, q, path="collective")  # warms, then folds
+        if i < tail:
+            continue
+        folds += counts["delta"] - before["delta"]
+        builds += counts["build"] - before["build"]
+        inc = skt.query_planes(spec, placed, collective=True)
+        skt.clear_plane_cache(placed)
+        cold = skt.query_planes(spec, placed, collective=True)
+        bad = [f for f in ("key", "cw", "pw", "pool_key", "pool_cw",
+                           "pool_pw")
+               if not torch.equal(getattr(inc, f), getattr(cold, f))]
+        if bad:
+            raise AssertionError(f"phase C3 flush {i}: the collective "
+                                 f"planes differ from a cold build in {bad}")
+        del inc, cold
+    if skt.mesh_context(placed) is not ctx:
+        raise AssertionError("phase C3: ingest dropped the MeshContext")
+    return placed, ingest_s, folds, builds
+
+
+def collective_server(spec, stream, flushes, qi, ctx, dev):
+    """C4: ``SketchServer(mesh=ctx, query_path="collective")`` fed phase 4's
+    stream, then phase V's mixed requests in one flush. Returns (the
+    server, its request handles, ingest seconds, flush seconds, the
+    flush's collectives)."""
+    server = SketchServer(spec, mesh=ctx, query_path="collective",
+                          horizons=list(SERVER_HORIZONS), device=dev)
+    _sync()
+    t0 = time.perf_counter()
+    for a, z in flushes:
+        server.ingest(stream.slice(a, z))
+    server.state  # drains the pipeline
+    _sync()
+    ingest_s = time.perf_counter() - t0
+    with CollectiveLog() as log:
+        handles, sec, _ = serve_requests(
+            server, server_requests(qi, SERVER_REQUESTS))
+    return server, handles, ingest_s, sec, log.summary()
+
+
+def start_cli_mesh(dev):
+    """C5: ``serve --mode sketch --shards 4 --mesh 1 --collective`` and the
+    same at ``--mesh 2`` as processes (started now, read by
+    ``check_cli_mesh``)."""
+    root = Path(__file__).resolve().parent
+    extra = list(CLI_ARGS) + (["--device", "cpu"] if dev.type == "cpu"
+                              else [])
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    runs = [["--shards", "4", "--mesh", str(n), "--collective"]
+            for n in (1, 2)]
+    return [(a + extra, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--mode",
+         "sketch", *a, *extra], cwd=root, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)) for a in runs]
+
+
+def check_cli_mesh(runs, dev, tag) -> list:
+    """C5: ``--mesh 1`` exits 0; ``--mesh 2`` exits 0 on the CPU (two gloo
+    ranks) and, on a box with fewer cards, non-zero with the reference's
+    message."""
+    out = []
+    for argv, p in runs:
+        try:
+            text = p.communicate(timeout=600)[0]
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        n = int(argv[argv.index("--mesh") + 1])
+        refuse = dev.type == "cuda" and n > torch.cuda.device_count()
+        msg = f"--mesh {n}: only {torch.cuda.device_count()} devices " \
+            "available"
+        keep = [x for x in text.splitlines()
+                if x.startswith(("ingested", "answered", "--mesh"))]
+        _log(f"phase C5 serve --mode sketch {' '.join(argv)}: exit "
+             f"{p.returncode}: {' | '.join(keep)} {tag}")
+        ok = (p.returncode != 0 and msg in text) if refuse else \
+            p.returncode == 0
+        if not ok:
+            raise AssertionError(f"phase C5: {argv} exited {p.returncode}:"
+                                 f"\n{text[-2000:]}")
+        out.append(dict(argv=argv, exit=p.returncode))
+    return out
+
+
+def routing_counts(step: int, dev) -> np.ndarray:
+    """One MoE routing step of C6, seeded by the step: TELEMETRY_TOKENS
+    tokens, each in one of the 256 buckets, routed to its top
+    TELEMETRY_TOP_K of the experts by Gumbel-perturbed Zipf logits whose
+    hot experts rotate every TELEMETRY_CHECK steps. Returns the
+    ``[n_buckets, n_experts]`` count matrix."""
+    E, B = TELEMETRY["n_experts"], TELEMETRY["n_buckets"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1000 + step)
+    rank = (torch.arange(E, device=dev) +
+            17 * (step // TELEMETRY_CHECK)) % E
+    logits = -1.1 * torch.log1p(rank.double())
+    u = torch.rand((TELEMETRY_TOKENS, E), generator=gen, device=dev,
+                   dtype=torch.float64)
+    top = torch.topk(logits - torch.log(-torch.log(u)), TELEMETRY_TOP_K,
+                     dim=1).indices
+    bucket = torch.randint(0, B, (TELEMETRY_TOKENS,), generator=gen,
+                           device=dev)
+    cell = (bucket[:, None] * E + top).reshape(-1)
+    return torch.bincount(cell, minlength=B * E).view(B, E).cpu().numpy()
+
+
+def collective_telemetry(ctx, dev):
+    """C6, the card's half: ``RouterTelemetry(mesh=ctx)`` fed
+    TELEMETRY_STEPS routing steps with a ``CapacityController.update``
+    after each; every TELEMETRY_CHECK steps ``load_vector()`` and
+    ``load_vector(last=2)`` and a CPU copy of the state. Returns the
+    telemetry, the counts, the checkpoints and the seconds of each
+    part."""
+    tele = RouterTelemetry(**TELEMETRY, mesh=ctx, device=dev)
+    if tele.query_path != "collective":
+        raise AssertionError("phase C6: a dividing mesh must read through "
+                             "the collective path")
+    ctrl = CapacityController(tele)
+    cf, counts, checks = 1.25, [], []
+    secs = {"ingest": [], "update": [], "load_vector": []}
+    for step in range(TELEMETRY_STEPS):
+        c = routing_counts(step, dev)
+        counts.append(c)
+        _, s = _timed(lambda: tele.ingest(c, step))
+        secs["ingest"].append(s)
+        cf, s = _timed(lambda: ctrl.update(cf))
+        secs["update"].append(s)
+        if (step + 1) % TELEMETRY_CHECK == 0:
+            loads, s = _timed(lambda: tele.load_vector())
+            secs["load_vector"].append(s)
+            checks.append(dict(step=step, cf=cf, load=loads,
+                               load2=tele.load_vector(last=2),
+                               state=_to_cpu(skt.fleet_shards(
+                                   tele.spec, tele.state))))
+    return tele, counts, checks, secs
+
+
+def check_telemetry(tele, counts, checks, dev, tag) -> dict:
+    """C6 comparisons: at every checkpoint the collective loads equal the
+    CPU copy's on the scan path; a host-resident telemetry on the card fed
+    the same counts ends with the placed one's state leaf for leaf, and
+    its controller takes the same capacity factors."""
+    spec = tele.spec
+    mism = 0
+    for ck in checks:
+        cpu = skt.ShardedState(ck["state"])
+        for last, got in ((None, ck["load"]), (2, ck["load2"])):
+            q = skt.QueryBatch.vertices(
+                tele.n_buckets + np.arange(tele.n_experts, dtype=np.int32),
+                3, direction="in", last=last)
+            mism += int((skt.query(spec, cpu, q, path="scan").numpy()
+                         != got).sum())
+    twin = RouterTelemetry(**TELEMETRY, device=dev)
+    ctrl, cf, cfs = CapacityController(twin), 1.25, {}
+    for step, c in enumerate(counts):
+        twin.ingest(c, step)
+        cf = ctrl.update(cf)
+        cfs[step] = cf
+    mism += sum(int(cfs[ck["step"]] != ck["cf"]) for ck in checks)
+    bad = [n for n, x, y in zip(LEAVES, skt.fleet_shards(
+        spec, tele.state).leaves(), twin.state.live().leaves())
+        if not torch.equal(x, y)]
+    _log(f"phase C6 RouterTelemetry({TELEMETRY}) over {len(counts)} steps "
+         f"of {TELEMETRY_TOKENS} tokens x top-{TELEMETRY_TOP_K}: "
+         f"collective loads at {len(checks)} checkpoints (last None and 2) "
+         f"vs the CPU copy on the scan path and the controller vs a "
+         f"host-resident twin: mismatches={mism}; final state vs the "
+         f"twin's, leaf for leaf: {'equal' if not bad else bad}; last "
+         f"capacity factor {checks[-1]['cf']:.4f}, imbalance(last=2) "
+         f"{tele.imbalance(last=2):.4f} {tag}")
+    if mism or bad:
+        raise AssertionError("phase C6: the placed telemetry differs")
+    return dict(mismatches=mism, checkpoints=len(checks))
+
+
+def collective_phase(spec, stream, flushes, state, qi, answers, got,
+                     edges_per_s, dev, tag):
+    """Phase C (see the module docstring): a one-rank group on this card
+    (NCCL; gloo on the CPU), the collective path's runs counted from 0
+    (C1-C4, C6's card half), then their comparisons and C5's processes.
+    Returns (launches, the numbers)."""
+    cli = start_cli_mesh(dev)
+    tmp = tempfile.mkdtemp(prefix="phase-c-")
+    init_group(0, 1, os.path.join(tmp, "rendezvous"), backend_for(dev))
+    try:
+        ctx = skt.MeshContext()
+        torch.cuda.reset_peak_memory_stats()
+        names = COLLECTIVE_PATH if dev.type == "cuda" else ()
+
+        def path():
+            placed = skt.place(spec, state, ctx)
+            out = dict(queries=collective_queries(spec, placed, state, qi,
+                                                  answers, tag),
+                       topk=collective_topk(spec, placed, got, tag))
+            del placed
+            h, ingest_s, folds, builds = collective_ingest(
+                spec, stream, flushes, qi, ctx, dev, tag)
+            out.update(ingest_s=ingest_s, folds=folds, builds=builds,
+                       n_edges=len(stream))
+            bad = [n for n, x, y in zip(LEAVES, h.live().leaves(),
+                                        state.live().leaves())
+                   if not torch.equal(x, y)]
+            if bad:
+                raise AssertionError(f"phase C3: placed ingest differs from "
+                                     f"phase 4 in {bad}")
+            del h
+            torch.cuda.empty_cache()
+            out["server"] = collective_server(spec, stream, flushes, qi,
+                                              ctx, dev)
+            out["telemetry"] = collective_telemetry(ctx, dev)
+            return out
+
+        res, launches = count_launches(names, path)
+        peak = torch.cuda.max_memory_allocated()
+        c_out = report_collective(spec, state, qi, res, edges_per_s, dev,
+                                  tag)
+        c_out.update(peak_memory_bytes=peak, launches=launches,
+                     cli=check_cli_mesh(cli, dev, tag))
+        _log(f"phase C launches: {launches}; peak device memory {peak} "
+             f"bytes {tag}")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+        for _, p in cli:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return launches, c_out
+
+
+def _by_kind(rows: dict) -> dict:
+    """µs a query and the all_reduce and all_gather calls and CUDA-event
+    ms a batch of C1's rows, by query kind (a sweep apart)."""
+    out = {}
+    for (kind, _, last), r in rows.items():
+        k = kind + (" sweep" if last.startswith("[") else "")
+        out.setdefault(k, []).append(r)
+    return {k: dict(us_per_query=1e6 * np.mean([r["s"] for r in rs]) /
+                    N_QUERIES,
+                    all_reduce_per_batch=np.mean(
+                        [r["all_reduce"]["calls"] for r in rs]),
+                    all_reduce_ms_per_batch=np.mean(
+                        [r["all_reduce"]["ms"] for r in rs]),
+                    all_gather_per_batch=np.mean(
+                        [r["all_gather"]["calls"] for r in rs]),
+                    all_gather_ms_per_batch=np.mean(
+                        [r["all_gather"]["ms"] for r in rs]))
+            for k, rs in out.items()}
+
+
+def report_collective(spec, state, qi, res, edges_per_s, dev, tag) -> dict:
+    """C1-C4 and C6's comparisons against phase 4's state and their log
+    lines; the "collective" object of the JSON line."""
+    kinds = _by_kind(res["queries"])
+    cuda_us = {}
+    for kind in KINDS:  # the same batches on the cuda path, for scale
+        secs = []
+        for with_le in (False, True):
+            for last in HORIZONS:
+                skt.query_planes(spec, state, last)
+                _, s = _timed(lambda: skt.query(
+                    spec, state, query_batch(qi, kind, with_le, last),
+                    path="cuda"))
+                secs.append(s)
+        cuda_us[kind] = 1e6 * np.mean(secs) / N_QUERIES
+        kinds[kind]["cuda_us_per_query"] = cuda_us[kind]
+    skt.clear_plane_cache(state)
+    _log(f"phase C1 phase 5's {len(res['queries'])} batches of {N_QUERIES} "
+         f"on the collective path: equal to phase 5's answers; by kind "
+         f"(us a query collective vs cuda, all_reduce calls and ms a "
+         f"batch): {json.dumps(kinds)} {tag}")
+    topk = res["topk"]
+    _log(f"phase C2 phase 6b's {len(topk)} top-k calls on the collective "
+         f"path: equal; ms and collectives by call "
+         f"{json.dumps({k: dict(ms=1e3 * v['s'], all_gather=v['all_gather']) for k, v in topk.items()})} "
+         f"{tag}")
+    n = res["n_edges"]
+    placed_rate = n / res["ingest_s"]
+    _log(f"phase C3 placed ingest of phase 4's {n} edges: "
+         f"{placed_rate:.0f} edges/s (phase 4: {edges_per_s:.0f}); final "
+         f"state equal to phase 4's leaf for leaf, MeshContext kept; the "
+         f"last {COLLECTIVE_TAIL} flushes: {res['folds']} folded, "
+         f"{res['builds']} built, each equal to a cold build {tag}")
+    server, handles, s_ingest, s_flush, s_log = res["server"]
+    groups = _groups(server, handles)
+    mism = 0
+    for (kind, with_le, last, direction), rs in groups.items():
+        q = server._group_batch(kind, rs, with_le, last, direction)
+        want = skt.query(spec, state, q, path="cuda").cpu()
+        mism += int((want != torch.tensor([r.answer for r in rs],
+                                          dtype=torch.int32)).sum())
+    skt.clear_plane_cache(state)
+    _log(f"phase C4 SketchServer(mesh, query_path='collective', horizons="
+         f"{list(SERVER_HORIZONS)}): ingest {n} edges in {s_ingest:.3f} s "
+         f"= {n / s_ingest:.0f} edges/s; {len(handles)} mixed requests in "
+         f"{len(groups)} groups, one flush: {s_flush:.4f} s = "
+         f"{1e6 * s_flush / len(handles):.3f} us a request, collectives "
+         f"{json.dumps(s_log)}; answers vs skt.query(path='cuda') on phase "
+         f"4's state: mismatches={mism} {tag}")
+    if mism:
+        raise AssertionError("phase C4: a served answer differs")
+    served = dict(ingest_edges_per_s=n / s_ingest, requests=len(handles),
+                  groups=len(groups),
+                  us_per_request=1e6 * s_flush / len(handles),
+                  collectives=s_log, mismatches=mism)
+    del server, handles, groups, res["server"]
+    torch.cuda.empty_cache()
+    tele, counts, checks, secs = res["telemetry"]
+    t_out = check_telemetry(tele, counts, checks, dev, tag)
+    t_out.update({f"{k}_us": 1e6 * float(np.mean(v))
+                  for k, v in secs.items()})
+    _log(f"phase C6 us a step: ingest {t_out['ingest_us']:.1f}, controller "
+         f"update {t_out['update_us']:.1f}, load_vector "
+         f"{t_out['load_vector_us']:.1f} {tag}")
+    return dict(by_kind=kinds,
+                topk={k: dict(ms=1e3 * v["s"], all_gather=v["all_gather"])
+                      for k, v in topk.items()},
+                ingest_edges_per_s=placed_rate,
+                phase4_edges_per_s=edges_per_s, folds=res["folds"],
+                builds=res["builds"],
+                server=served, telemetry=t_out, card=card_line() if dev.type == "cuda"
+                else "cpu")
 
 
 # --------------------------------------------------------------------------
@@ -3678,20 +4152,20 @@ def deployment():
 
 
 def _row_paths(name: str) -> tuple:
-    """The paths of phases V and M whose launches a kernel row counts: the
-    grouped entries on the pool-mode server, the single-sketch entries in
-    ``BigramSketch``, the sharded query kernels on the single-handle
-    server, and the write path and the decode on every server path and
-    the reshard."""
+    """The paths of phases V, M and C whose launches a kernel row counts:
+    the grouped entries on the pool-mode server, the single-sketch entries
+    in ``BigramSketch``, the sharded query kernels on the single-handle
+    server and the collective path, and the write path and the decode on
+    every server path, the reshard and the collective path."""
     if name in GROUPED_KERNELS:
         return ("server_pool",)
     if name in OBJECT_KERNELS:
         return ("bigram",)
     if name in ("sketch_query_kernel_sharded", "vertex_scan_kernel_sharded"):
-        return ("server",)
+        return ("server", "collective")
     if name == "flash_attention_kernel":
         return ()
-    return ("server", "server_pool", "reshard")
+    return ("server", "server_pool", "reshard", "collective")
 
 
 def kernel_entries(results: dict, launches: dict,
@@ -3795,6 +4269,11 @@ def main() -> int:
     skt.clear_plane_cache(state)
     torch.cuda.empty_cache()
 
+    c_launches, collective_out = collective_phase(  # phase C
+        spec, stream, flushes, state, qi, answers, got, edges_per_s, dev,
+        tag)
+    torch.cuda.empty_cache()
+
     profile = profile_ingest(spec, state, stream, flushes, tag)
     del state  # phases S, O and the LM phases start from an empty card
     torch.cuda.empty_cache()
@@ -3818,7 +4297,7 @@ def main() -> int:
     m_launches, merge_out = merge_phase(stream, served, dev, tag)  # phase M
     del served
     torch.cuda.empty_cache()
-    new_paths = dict(v_launches, reshard=m_launches)
+    new_paths = dict(v_launches, reshard=m_launches, collective=c_launches)
 
     obj_rows, o_launches, obj_out = object_phase(dev, tag)  # phase O
     results.update(obj_rows)
@@ -3846,6 +4325,7 @@ def main() -> int:
                       "stream": stream_out, "route": route_out,
                       "tenant": tenant_out, "server": server_out,
                       "merge": merge_out, "object": obj_out,
+                      "collective": collective_out,
                       **profile, **lm_out,
                       "seconds": seconds}), flush=True)
     print(card_line(), flush=True)

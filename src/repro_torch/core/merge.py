@@ -1,6 +1,7 @@
 """Sketch mergeability (port of ``repro.core.merge``: ``keys_compatible``,
 ``merge_counters``, ``shard_keys_compatible``, ``merge_all``,
-``lgs_merge_all``).
+``lgs_merge_all``, and the collective reductions ``psum_partials``,
+``maybe_psum_partials`` and ``psum_sketch``).
 
 Two LSketches built with the same config and seed over disjoint
 sub-streams merge by addition wherever their occupancy histories agree:
@@ -22,8 +23,9 @@ stack's.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
-from .types import EMPTY, LSketchConfig, LSketchState
+from .types import EMPTY, LEAVES, LSketchConfig, LSketchState
 
 
 def keys_compatible(a: LSketchState, b: LSketchState) -> torch.Tensor:
@@ -117,3 +119,57 @@ def lgs_merge_all(cfg, stacked):
         slot_widx=slot_widx,
         cur_widx=cur_widx,
     )
+
+
+# --------------------------------------------------------------------------
+# the collective reductions of a mesh-resident handle (torch.distributed)
+# --------------------------------------------------------------------------
+
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over every rank of ``group`` (``lax.psum``), in place
+    on ``x``, which it returns. int32 wraps in two's complement, as the
+    reference's does."""
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    return x
+
+
+def pmax(x: torch.Tensor, group) -> torch.Tensor:
+    """``x``'s elementwise maximum over every rank of ``group``
+    (``lax.pmax``), in place on ``x``, which it returns."""
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
+    return x
+
+
+def psum_partials(x: torch.Tensor, group) -> torch.Tensor:
+    """Reduce per-shard query partials to the fleet answer: sum the rank's
+    own shard axis (``x``: ``[S_local, B]``), then one all-reduce across
+    ``group``. Addition is the exact combinator of every sketch query
+    (hash partitioning makes the shard estimates disjoint) and int32
+    addition wraps associatively, so the two-level sum equals the host
+    sum over the whole stack bit for bit."""
+    return psum(x.sum(0, dtype=torch.int64).to(torch.int32), group)
+
+
+def maybe_psum_partials(w: torch.Tensor, wl: torch.Tensor, group):
+    """The plane ops' shared reduction tail: the per-shard partials as
+    they are when ``group`` is None (a host-resident stack), else both
+    reduced through one ``psum_partials`` — the collective reduction in
+    one place."""
+    if group is None:
+        return w, wl
+    both = psum_partials(torch.stack([w, wl], dim=1), group)  # one call
+    return both[0], both[1]
+
+
+def psum_sketch(cfg: LSketchConfig, state: LSketchState,
+                group) -> LSketchState:
+    """All-reduce one sketch state across ``group``: the maximum for the
+    keys and window indices (equal across ranks by construction: same
+    seed, lockstep windows), the sum for the counters. This moves the
+    whole ``[d, d, 2, k(, c)]`` planes per call, where the collective
+    query's ``psum_partials`` moves one int32 a query. A new state; the
+    input is not changed."""
+    red = {"key": pmax, "pool_key": pmax, "slot_widx": pmax,
+           "cur_widx": pmax}
+    return LSketchState(**{n: red.get(n, psum)(getattr(state, n).clone(),
+                                                group) for n in LEAVES})

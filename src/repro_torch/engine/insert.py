@@ -119,6 +119,17 @@ def _host_rows(batch, n_valid):
     return int(counts.sum()), counts, t
 
 
+def one_segment(cfg: LSketchConfig, time_host, counts) -> np.ndarray:
+    """bool ``[S]``: every valid item of the row (the first ``counts[s]``
+    of ``time_host``'s ``[S, B]`` columns) lies in one subwindow. The
+    kernel route takes a flush whose rows all do."""
+    t = np.asarray(time_host, np.int64)
+    valid = np.arange(t.shape[1])[None, :] < np.asarray(counts)[:, None]
+    hw = t // cfg.subwindow_size
+    hw = np.where(valid, hw, hw[:, :1])  # padding: the row's first
+    return (hw == hw[:, :1]).all(axis=1)
+
+
 def insert_stacked_fused_impl(cfg: LSketchConfig, states: LSketchState,
                               batch, n_valid, use_kernel: bool = False,
                               emit_delta: bool = False):
@@ -164,11 +175,7 @@ def insert_stacked_fused_impl(cfg: LSketchConfig, states: LSketchState,
         w_count = w * plan.count_live.to(w.dtype)
         w_key = w * plan.key_live.to(w.dtype)
 
-    # one segment per row: every valid item of the row in one subwindow
-    # (padding takes the row's first subwindow)
-    hw = np.asarray(time_host, np.int64) // cfg.subwindow_size
-    hw = np.where(valid_host, hw, hw[:, :1])
-    one_segment_rows = (hw == hw[:, :1]).all(axis=1)
+    one_segment_rows = one_segment(cfg, time_host, counts)
     touched = plan.slot[:, 0]
     pre = _touched_slot_slices(states, touched) if emit_delta else None
 

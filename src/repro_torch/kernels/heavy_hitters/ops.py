@@ -20,6 +20,13 @@ With ``groups=G`` (a pooled stack of tenants, ``sketch.tenant``) the
 owners of every row are decoded in one launch and each block of
 ``S // G`` rows is ranked on its own: the outputs gain a leading [G] axis,
 row g equal to the ranking of group g's rows alone.
+
+With ``group=`` (a ``torch.distributed`` process group, the counterpart of
+the reference's ``axis_name``) the planes are this rank's block of shard
+rows: the local decode's flattened (identity, weight) rows are gathered
+from every rank in rank order, which is shard order, and ranked on every
+rank, so each rank returns the fleet's top-k with the reference's tie
+order.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.hashing import _wrap32
 from repro_torch.core.queries import QueryPlanes
@@ -121,16 +129,35 @@ def _flatten_rows(vids, planes: QueryPlanes, col: int):
     return ident, w
 
 
+def _gathered(arrs, group):
+    """Each of ``arrs`` concatenated over the ranks of ``group`` in rank
+    order (one ``all_gather`` each), or as they are when ``group`` is
+    None."""
+    if group is None:
+        return arrs
+    n = dist.get_world_size(group)
+    out = []
+    for a in arrs:
+        parts = [torch.empty_like(a) for _ in range(n)]
+        dist.all_gather(parts, a.contiguous(), group=group)
+        out.append(torch.cat(parts))
+    return out
+
+
 def _rows(planes: QueryPlanes, sl: slice) -> QueryPlanes:
     return QueryPlanes(*(getattr(planes, f)[sl] for f in (
         "key", "cw", "pw", "pool_key", "pool_cw", "pool_pw")))
 
 
-def _by_group(planes: QueryPlanes, owners, groups, rank):
+def _by_group(planes: QueryPlanes, owners, groups, rank, group=None):
     """``rank(planes, *owners)`` over all rows, or with ``groups`` over
-    each block of rows alone, stacked on a leading [G] axis."""
+    each block of rows alone, stacked on a leading [G] axis. ``rank``
+    gathers its rows over ``group``, which a pooled stack never has."""
     if groups is None:
         return rank(planes, *owners)
+    if group is not None:
+        raise ValueError("a pooled (grouped) stack is host-resident: "
+                         "group= does not apply")
     per = planes.cw.shape[0] // groups
     outs = []
     for g in range(groups):
@@ -141,40 +168,42 @@ def _by_group(planes: QueryPlanes, owners, groups, rank):
 
 def heavy_vertices_planes(cfg: LSketchConfig, planes: QueryPlanes, k: int,
                           *, direction: str = "out", kernel: bool = True,
-                          groups: int | None = None, owners=None):
+                          groups: int | None = None, owners=None,
+                          group=None):
     """Top-k (packed vid [k], weight [k]) by windowed out/in weight.
     ``owners`` (``decode_cell_owners`` of the same key plane) skips the
     decode."""
     col = 0 if direction == "out" else 1
 
     def rank(pl, vids):
-        ident, w = _flatten_rows(vids, pl, col)
+        ident, w = _gathered(_flatten_rows(vids, pl, col), group)
         (ids,), ws = segment_topk((ident,), w, k)
         return ids, ws
 
     if owners is None:
         owners = decode_cell_owners(cfg, planes, kernel=kernel)
-    return _by_group(planes, (owners[col],), groups, rank)
+    return _by_group(planes, (owners[col],), groups, rank, group)
 
 
 def heavy_edges_planes(cfg: LSketchConfig, planes: QueryPlanes, k: int, *,
                        kernel: bool = True, groups: int | None = None,
-                       owners=None):
+                       owners=None, group=None):
     """Top-k edges by windowed weight: (src [k], dst [k], weight [k])."""
     def rank(pl, vs, vd):
         src, w = _flatten_rows(vs, pl, 0)
         dst, _ = _flatten_rows(vd, pl, 1)
+        src, dst, w = _gathered([src, dst, w], group)
         (s, t), ws = segment_topk((src, dst), w, k)
         return s, t, ws
 
     if owners is None:
         owners = decode_cell_owners(cfg, planes, kernel=kernel)
-    return _by_group(planes, owners, groups, rank)
+    return _by_group(planes, owners, groups, rank, group)
 
 
 def top_labels_planes(cfg: LSketchConfig, planes: QueryPlanes, k: int, *,
                       direction: str = "out", kernel: bool = True,
-                      groups: int | None = None, owners=None):
+                      groups: int | None = None, owners=None, group=None):
     """Top-k (vertex-label block [k], weight [k]) by windowed out/in weight
     — the decoded vid's block id is its label block."""
     col = 0 if direction == "out" else 1
@@ -183,9 +212,10 @@ def top_labels_planes(cfg: LSketchConfig, planes: QueryPlanes, k: int, *,
         vid, w = _flatten_rows(vids, pl, col)
         # floor division keeps dead rows negative (-1 // span == -1)
         blk = torch.div(vid, 2048 * cfg.F, rounding_mode="floor")
+        blk, w = _gathered([blk, w], group)
         (blocks,), ws = segment_topk((blk,), w, k)
         return blocks, ws
 
     if owners is None:
         owners = decode_cell_owners(cfg, planes, kernel=kernel)
-    return _by_group(planes, (owners[col],), groups, rank)
+    return _by_group(planes, (owners[col],), groups, rank, group)

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.merge import maybe_psum_partials, psum
 from repro_torch.core.queries import build_query_planes
 from repro_torch.core.types import LSketchConfig, LSketchState
 
@@ -15,7 +16,8 @@ from .kernel import edge_query_kernel
 
 
 def edge_query_planes(cfg: LSketchConfig, planes, src, dst, labels,
-                      with_le: bool = True, groups: int | None = None):
+                      with_le: bool = True, groups: int | None = None,
+                      group=None):
     """src/dst: int32 [B]; labels: (lA, lB, le) int32 [B] each (``le`` is
     ignored without ``with_le``). On ``QueryPlanes`` returns (w, w_label),
     each [S, B] per-shard partials; the caller sums over the shard axis.
@@ -27,7 +29,13 @@ def edge_query_planes(cfg: LSketchConfig, planes, src, dst, labels,
     ``[G * Lq]``, group g's ``Lq`` in a row, each block of ``S // G``
     rows answers only its group's, and the outputs come back summed
     within each group: [G, Lq] on ``QueryPlanes``, [H, G, Lq] on
-    ``MultiPlanes``. One launch either way."""
+    ``MultiPlanes``. One launch either way.
+
+    ``group`` (a ``torch.distributed`` process group; the counterpart of
+    the reference's ``axis_name``): the planes are this rank's block of
+    shard rows, and the outputs come back reduced over the rank's rows
+    and every rank of the group — [B], or [H, B] on ``MultiPlanes``.
+    """
     la, lb, le = labels
     w, wl = edge_query_kernel(cfg, planes, src, la, dst, lb,
                               le if with_le else None,
@@ -38,9 +46,11 @@ def edge_query_planes(cfg: LSketchConfig, planes, src, dst, labels,
             2, dtype=torch.int64).to(torch.int32) for x in (w, wl))
         return out if planes.cw.dim() == 5 else (out[0][0], out[1][0])
     if planes.cw.dim() == 4:
-        return w[0], wl[0]
-    return tuple(x.sum(1, dtype=torch.int64).to(torch.int32)
-                 for x in (w, wl))
+        return maybe_psum_partials(w[0], wl[0], group)
+    out = torch.stack([w, wl]).sum(2, dtype=torch.int64).to(torch.int32)
+    if group is not None:  # [2, H, B]: one all-reduce for both
+        out = psum(out, group)
+    return out[0], out[1]
 
 
 def _as_i32(x, device) -> torch.Tensor:

@@ -13,6 +13,12 @@ row, and each block of ``S // G`` shard rows answers only its own group's
 (the scan through the kernel's grouped entry, the pool and label
 reductions as ``[G, S // G, Lq, ...]``), so no row computes another
 tenant's queries. The partials come back ``[S, Lq]``.
+
+``vertex_query_planes`` and ``label_aggregate_planes`` take ``group=`` (a
+``torch.distributed`` process group, the counterpart of the reference's
+``axis_name``): the planes are this rank's block of shard rows and the
+answers come back ``[B]``, reduced over the rank's rows and every rank
+(``core.merge.maybe_psum_partials``).
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import torch
 
 from repro_torch.core import hashing as hsh
 from repro_torch.core.lsketch import precompute
+from repro_torch.core.merge import maybe_psum_partials
 from repro_torch.core.queries import QueryPlanes, build_query_planes
 from repro_torch.core.types import EMPTY, LSketchConfig, LSketchState
 
@@ -63,10 +70,10 @@ def pool_lookup(planes: QueryPlanes, vid, le_idx, direction: str = "out",
 
 def vertex_query_planes(cfg: LSketchConfig, planes: QueryPlanes, vertex,
                         labels, direction: str = "out", with_le: bool = True,
-                        groups: int = 1):
+                        groups: int = 1, group=None):
     """vertex: int32 [B] (``[G * Lq]`` with ``groups=G``); labels: (lv,
     le). Returns (w, w_label), each [S, B] (``[S, Lq]``) per-shard
-    partials."""
+    partials, or [B] reduced over ``group``."""
     lv, le = labels
     pre, lines = scan_lines(cfg, vertex, lv)
     le_idx = hsh.edge_label_bucket(le, cfg.c, cfg.seed) if with_le else None
@@ -77,15 +84,17 @@ def vertex_query_planes(cfg: LSketchConfig, planes: QueryPlanes, vertex,
     w = w + pw
     if pwl is not None:
         wl = wl + pwl
-    return w.to(torch.int32), wl.to(torch.int32)
+    return maybe_psum_partials(w.to(torch.int32), wl.to(torch.int32), group)
 
 
 def label_aggregate_planes(cfg: LSketchConfig, planes: QueryPlanes, vlabel,
                            edge_label=None, direction: str = "out",
-                           with_le: bool = False, groups: int = 1):
+                           with_le: bool = False, groups: int = 1,
+                           group=None):
     """Vertex-label aggregates (Alg. 4 lines 10-14): every occupied cell in
     the label's block rows (out) / columns (in) plus matching pool entries.
-    Returns (w, w_label) [S, B] (``[S, Lq]`` with ``groups``). The label
+    Returns (w, w_label) [S, B] (``[S, Lq]`` with ``groups``; [B] reduced
+    over ``group``). The label
     plane is reduced one (shard, twin) at a time, so no ``pw``-sized
     temporary is made."""
     vlabel = torch.as_tensor(vlabel).to(torch.int32)
@@ -130,7 +139,7 @@ def label_aggregate_planes(cfg: LSketchConfig, planes: QueryPlanes, vlabel,
         plw = torch.gather(planes.pool_pw.view(G, per, Q, -1).transpose(
             2, 3), 2, le_idx.view(G, 1, Lq, 1).expand(G, per, Lq, Q))
         wl = wl + _sum32(torch.where(pmatch, plw, 0), -1).view(S, Lq)
-    return w.to(torch.int32), wl.to(torch.int32)
+    return maybe_psum_partials(w.to(torch.int32), wl.to(torch.int32), group)
 
 
 def vertex_query_pallas(cfg: LSketchConfig, state: LSketchState, vertex,

@@ -21,12 +21,19 @@ same-spec tenant sketches in one stacked state, where a cross-tenant
 ingest round and a query group each take one pooled dispatch and every
 answer equals the tenant's standalone sketch's.
 
-The reference's mesh-resident mode (``mesh=``, ``--mesh``,
-``--collective``) needs the collective path, which the port does not
-have yet (ROADMAP item 13): it raises ``NotImplementedError``.
+With ``mesh=`` (a ``sketch.MeshContext``, or a process group) the served
+handle is mesh-resident: each rank of the group holds its block of shard
+rows, ingests it and, on ``query_path="collective"``, answers against its
+own planes with the partials reduced across the ranks. Every rank runs
+the same server on the same requests. ``--mesh N`` runs N such ranks
+(``distributed.ranks.spawn_ranks``: NCCL, one card a rank, or gloo ranks
+with ``--device cpu``) and rank 0 prints; ``--collective`` stands for
+``--query-path collective``.
 
 Usage: python -m repro_torch.launch.serve_sketch --sketch lsketch --shards 4
        python -m repro_torch.launch.serve_sketch --shards 1 --tenants 16
+       python -m repro_torch.launch.serve_sketch --shards 8 --mesh 4 \
+           --collective --device cpu
    (or python -m repro_torch.launch.serve --mode sketch ...; on the card
    unless --device cpu)
 """
@@ -46,10 +53,7 @@ from repro_torch.core import LGSConfig, LSketchConfig
 from repro_torch.core.gss import gss_config
 from repro_torch.core.types import resolve_device
 from repro_torch.data.stream import PHONE, edge_batches, generate
-
-_MESH = ("the mesh-resident server (mesh=, --mesh, the collective query "
-         "path) needs the collective path, which the port does not have "
-         "yet (ROADMAP item 13)")
+from repro_torch.distributed.ranks import spawn_ranks
 
 
 @dataclasses.dataclass
@@ -80,7 +84,10 @@ class SketchServer:
     the heavy-key detector (single handle only); ``horizons`` registers a
     sweep that every prewarm builds in one stacked pass. The handle lives
     on ``device`` (the card unless the caller names the CPU; a pool has
-    its own).
+    its own). ``mesh=`` (a ``MeshContext`` or a process group, with
+    ``axis``) places the handle over the group's ranks, or a ``state``
+    that is already placed keeps its layout; ``query_path="collective"``
+    needs one whose group divides the shard count.
     """
 
     def __init__(self, spec: "skt.SketchSpec | None" = None,
@@ -97,8 +104,6 @@ class SketchServer:
         if any(h is not None and h <= 0 for h in self.horizons):
             raise ValueError("horizons= entries must be positive (or None "
                              "for the full window)")
-        if query_path == "pallas":
-            query_path = "cuda"
         self.pool = pool
         if pool is not None:
             if spec is not None and spec != pool.spec:
@@ -126,12 +131,31 @@ class SketchServer:
             return
         if spec is None:
             raise ValueError("SketchServer needs a spec= or a pool=")
-        if mesh is not None or query_path == "collective":
-            raise NotImplementedError(_MESH)
         self.spec = spec
         self.pipeline = pipeline
         self.query_path = query_path
         self.prewarm = prewarm
+        # a pre-placed handle already carries its layout: keep it
+        ctx = skt.mesh_context(state) if state is not None else None
+        if ctx is None and mesh is not None:
+            ctx = mesh if isinstance(mesh, skt.MeshContext) else \
+                skt.MeshContext(group=mesh, axis=axis)
+        if query_path == "collective":
+            # refuse at construction, not after a whole ingest
+            if ctx is None:
+                raise ValueError(
+                    "query_path='collective' needs a mesh (SketchServer("
+                    "..., mesh=...) or a place()d state)")
+            if not ctx.divides(spec.n_shards):
+                raise ValueError(
+                    f"query_path='collective' needs the mesh axis to divide "
+                    f"the shard count: n_shards={spec.n_shards} over "
+                    f"{ctx.n_devices} devices replicates instead of "
+                    "sharding")
+        if ctx is not None and skt.mesh_context(state) is None:
+            # mesh-resident from the first dispatch; ingest keeps it
+            state = skt.place(spec, state if state is not None
+                              else skt.create(spec, device), ctx)
         self._ingestor = skt.AsyncIngestor(spec, state=state,
                                            heat_threshold=heat_threshold,
                                            split_replicas=split_replicas,
@@ -238,7 +262,8 @@ class SketchServer:
         h = handle if handle is not None else self._ingestor.dispatched
         if h is None:
             return
-        skt.query_planes(self.spec, h, last)
+        skt.query_planes(self.spec, h, last,
+                         collective=self._path() == "collective")
 
     def _prewarm_many(self, lasts, handle=None) -> None:
         """Multi-horizon prewarm: when a flush (or the registered
@@ -264,7 +289,8 @@ class SketchServer:
         h0 = handle if handle is not None else self._ingestor.dispatched
         if h0 is None:
             return
-        skt.query_planes_multi(self.spec, h0, want)
+        skt.query_planes_multi(self.spec, h0, want,
+                               collective=self._path() == "collective")
 
     def serving_summary(self, alpha: float = 0.5) -> str:
         """One-line serving health for periodic logging: queue depth, the
@@ -448,12 +474,16 @@ def main(argv=None):
                          "overlapping partition and device work")
     ap.add_argument("--query-path", default="auto",
                     choices=["auto", "scan", "cuda", "pallas", "collective"],
-                    help="read path: the dense scan, or the CUDA kernels "
-                         "over cached window-reduced planes ('pallas' is "
-                         "the reference's name for it); 'collective' "
-                         "needs the collective path (ROADMAP item 13)")
+                    help="read path: the dense scan, the CUDA kernels over "
+                         "cached window-reduced planes ('pallas' is the "
+                         "reference's name for it), or the same on each "
+                         "rank's block of a mesh-resident handle with the "
+                         "answers reduced across the ranks (needs --mesh)")
     ap.add_argument("--mesh", type=int, default=0, metavar="N",
-                    help="mesh-resident serving (ROADMAP item 13)")
+                    help="lay the shard axis over N ranks, one card each "
+                         "(gloo ranks on the CPU with --device cpu; 0 = "
+                         "host-resident handle); N must divide --shards "
+                         "for the collective path")
     ap.add_argument("--collective", action="store_true",
                     help="shorthand for --query-path collective")
     ap.add_argument("--no-prewarm", action="store_true",
@@ -488,9 +518,32 @@ def main(argv=None):
     if args.tenants and args.heat_threshold:
         raise SystemExit("--heat-threshold tracks a single handle's "
                          "stream: drop --tenants")
-    if args.mesh or args.collective or args.query_path == "collective":
-        raise NotImplementedError(_MESH)
+    if args.collective:
+        args.query_path = "collective"
     dev = resolve_device(args.device)
+    if args.mesh:
+        if dev.type == "cuda" and args.mesh > torch.cuda.device_count():
+            raise SystemExit(f"--mesh {args.mesh}: only "
+                             f"{torch.cuda.device_count()} devices available")
+        if args.query_path == "collective" and args.shards % args.mesh:
+            raise SystemExit(
+                f"--query-path collective needs --mesh to divide --shards "
+                f"(got {args.shards} shards over {args.mesh} devices, "
+                "which replicates instead of sharding)")
+        spawn_ranks(_serve, args.mesh, device=dev, args=(args,))
+        return
+    if args.query_path == "collective":
+        raise SystemExit("--query-path collective needs --mesh N")
+    _serve(args)
+
+
+def _serve(args) -> None:
+    """The serving run of ``main``: in this process, or on each rank of a
+    ``--mesh`` group (only rank 0 prints)."""
+    dev = resolve_device(args.device)
+    mesh = skt.MeshContext() if args.mesh else None
+    say = print if mesh is None or mesh.rank == 0 else \
+        (lambda *a, **k: None)
 
     horizons = [int(x) for x in args.horizons.split(",") if x.strip()]
     spec = dataclasses.replace(PHONE, n_edges=args.edges, n_vertices=1000)
@@ -504,7 +557,7 @@ def main(argv=None):
                               horizons=horizons)
     else:
         server = SketchServer(sk_spec, pipeline=not args.no_pipeline,
-                              query_path=args.query_path,
+                              query_path=args.query_path, mesh=mesh,
                               prewarm=not args.no_prewarm,
                               heat_threshold=args.heat_threshold or None,
                               horizons=horizons, device=dev)
@@ -522,18 +575,20 @@ def main(argv=None):
             server.ingest(batch)
         n_batches += 1
         if args.summary_every and n_batches % args.summary_every == 0:
-            print(f"[batch {n_batches}] {server.serving_summary()}")
+            say(f"[batch {n_batches}] {server.serving_summary()}")
     server.state  # drains the pipeline
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt_ing = time.time() - t0
     routes = {k: ROUTE_EDGES[k] - v for k, v in routes_before.items()}
-    print(f"ingested {len(st)} edges in {dt_ing:.2f}s "
-          f"({len(st) / dt_ing:.0f} edges/s, {n_batches} batches, "
-          f"{args.shards} shards"
-          + (f", {args.tenants} tenants" if args.tenants else "")
-          + f", {routes['kernel']} kernel-route and {routes['scan']} "
-          f"scan-route edges) on {dev}")
+    say(f"ingested {len(st)} edges in {dt_ing:.2f}s "
+        f"({len(st) / dt_ing:.0f} edges/s, {n_batches} batches, "
+        f"{args.shards} shards"
+        + (f", {args.tenants} tenants" if args.tenants else "")
+        + f", {routes['kernel']} kernel-route and {routes['scan']} "
+        f"scan-route edges"
+        + (f" in rank 0's rows of {args.mesh} ranks" if mesh else "")
+        + f") on {dev}")
 
     rng = np.random.default_rng(1)
     idx = rng.integers(0, len(st), args.requests)
@@ -545,9 +600,9 @@ def main(argv=None):
             for i in idx]
     server.flush()
     dt_q = time.time() - t0
-    print(f"answered {len(reqs)} edge queries in {dt_q:.2f}s "
-          f"({len(reqs) / dt_q:.0f} q/s)")
-    print("sample answers:", [r.answer for r in reqs[:8]])
+    say(f"answered {len(reqs)} edge queries in {dt_q:.2f}s "
+        f"({len(reqs) / dt_q:.0f} q/s)")
+    say("sample answers:", [r.answer for r in reqs[:8]])
 
     if horizons:
         # a horizon sweep in one stacked dispatch: the answer tightens as
@@ -564,10 +619,10 @@ def main(argv=None):
             sweep = skt.query(sk_spec, server.state, q, path=args.query_path)
         sweep = sweep.cpu().numpy()
         dt_s = time.time() - t0
-        print(f"horizon sweep (src={int(st.src[i])} dst={int(st.dst[i])}): "
-              + ", ".join(f"last={h}: {int(w)}"
-                          for h, w in zip(horizons, sweep[:, 0]))
-              + f" ({dt_s:.2f}s, one stacked dispatch)")
+        say(f"horizon sweep (src={int(st.src[i])} dst={int(st.dst[i])}): "
+            + ", ".join(f"last={h}: {int(w)}"
+                        for h, w in zip(horizons, sweep[:, 0]))
+            + f" ({dt_s:.2f}s, one stacked dispatch)")
 
     if args.sketch != "lgs":  # LGS stores no keys: no reversible analytics
         tenant = 0 if args.tenants else None
@@ -579,18 +634,18 @@ def main(argv=None):
                                                  vws.tolist()) if v >= 0]
         etop = [((int(a), int(b)), int(w)) for a, b, w in
                 zip(es.tolist(), ed.tolist(), ews.tolist()) if a >= 0]
-        print(f"top-{args.topk} heavy vertices (vid, w): {vtop} "
-              + (f"[tenant {tenant}] " if args.tenants else "")
-              + f"({dt_a:.2f}s)")
-        print(f"top-{args.topk} heavy edges ((src, dst), w): {etop}")
+        say(f"top-{args.topk} heavy vertices (vid, w): {vtop} "
+            + (f"[tenant {tenant}] " if args.tenants else "")
+            + f"({dt_a:.2f}s)")
+        say(f"top-{args.topk} heavy edges ((src, dst), w): {etop}")
 
     if args.heat_threshold and not args.tenants:
         rep = server.budget_report()
         splits = server.live_spec.routing.splits \
             if server.live_spec.routing else ()
-        print(f"routing: {len(splits)} split keys live; recommended "
-              f"splits {len(rep.routing.splits)}; per-shard combined "
-              f"load {['%.3f' % f for f in rep.combined]}")
+        say(f"routing: {len(splits)} split keys live; recommended "
+            f"splits {len(rep.routing.splits)}; per-shard combined "
+            f"load {['%.3f' % f for f in rep.combined]}")
 
 
 if __name__ == "__main__":

@@ -11,6 +11,8 @@
     state8 = reshard(spec, state, 8)           # balanced across 8 shards
     plain = merge_all(spec, state)             # one plain state
     pool  = TenantPool(spec, n_slots=8); pool.submit({"a": b1, "b": b2})
+    st    = place(spec, create(spec), MeshContext())  # on each rank
+    w     = query(spec, st, q, path="collective")     # the fleet answer
 """
 
 from __future__ import annotations
@@ -20,8 +22,10 @@ from .spec import (KINDS, SketchSpec, make_spec, shard_assignment,
 from .routing import (BudgetReport, HeavyKeyDetector, RoutingTable,
                       prune_routing, recommend_budget, routed_assignment,
                       routed_assignment_vids)
-from .state import (ShardedState, create, from_numpy, merge_all,
-                    shards_compatible, stack_states, to_numpy, unstack_state)
+from .state import (MeshContext, ShardedState, create, fleet_shards,
+                    from_numpy, merge_all, mesh_context, named_shardings,
+                    place, shards_compatible, stack_states, to_numpy,
+                    unstack_state, with_mesh)
 from .ingest import AsyncIngestor, ingest, ingest_single
 from .query import (MAX_DELTA_CHAIN, PLANES_BUILD_COUNTS, QueryBatch,
                     clear_plane_cache, default_query_path, query,
@@ -39,6 +43,8 @@ __all__ = [
     "recommend_budget", "routed_assignment", "routed_assignment_vids",
     "ShardedState", "create", "from_numpy", "merge_all", "shards_compatible",
     "stack_states", "to_numpy", "unstack_state", "reshard",
+    "MeshContext", "fleet_shards", "mesh_context", "named_shardings",
+    "place", "with_mesh",
     "AsyncIngestor", "ingest", "ingest_single", "QueryBatch",
     "MAX_DELTA_CHAIN", "PLANES_BUILD_COUNTS", "query", "query_planes",
     "query_planes_multi", "clear_plane_cache", "default_query_path",

@@ -7,14 +7,21 @@ Paths (the names of ``query``):
   * ``"scan"`` — re-reduce the window planes per call (no cache) and decode
     the cell owners with the plain version;
   * ``"cuda"`` — the ``query_planes`` / ``query_planes_multi`` cache and
-    the cell-decode CUDA kernel (its plain version on a CPU state).
+    the cell-decode CUDA kernel (its plain version on a CPU state);
+  * ``"collective"`` — the same on a mesh-resident handle's collective
+    plane entries: each rank decodes its own block, the flattened
+    (identity, weight) rows are all-gathered in rank order, and every
+    rank ranks them.
 
 Both are bit-identical to each other and to the JAX package: per-identity
 totals are order-free integer sums and the ranking is (descending weight,
 ascending identity). Every top-k takes ``last=`` (the most recent ``last``
 subwindows) or ``horizons=[...]`` (a sweep: ``[H, k]`` rows, row ``i``
 equal to ``last=horizons[i]``), not both. ``reachable_many`` is a batched
-host BFS over the by-identity edge check and successor scan.
+host BFS over the by-identity edge check and successor scan; on a
+mesh-resident handle it walks the gathered stack (``fleet_shards``). On a
+split mesh-resident handle "scan" and "cuda" gather the rows as
+"collective" does, so every path gives the fleet's answer on every rank.
 
 An ``lgs`` sketch raises ``NotImplementedError`` (its cells store no keys
 to decode); a ``gss`` sketch has no window, so ``last=`` is dropped and a
@@ -38,10 +45,11 @@ from repro_torch.kernels.heavy_hitters.ops import (
     decode_cell_owners, heavy_edges_planes, heavy_vertices_planes,
     top_labels_planes)
 
-from .query import (_normalize_horizons, _with_global_window, query_planes,
-                    query_planes_multi, resolve_query_path)
+from .query import (_collective_ctx, _group_of, _normalize_horizons,
+                    _with_global_window, query_planes, query_planes_multi,
+                    resolve_query_path)
 from .spec import SketchSpec
-from .state import ShardedState
+from .state import ShardedState, fleet_shards, split_context
 
 # frontier vertices per successor scan: its [U, r, d, 2, k] gather stays
 # near 256 MiB at any width
@@ -49,8 +57,8 @@ _SCAN_BYTES = 1 << 28
 
 
 def _planes_topk(cfg, planes, kind: str, k: int, direction: str, *,
-                 kernel: bool, groups=None, owners=None):
-    kw = dict(kernel=kernel, groups=groups, owners=owners)
+                 kernel: bool, groups=None, owners=None, group=None):
+    kw = dict(kernel=kernel, groups=groups, owners=owners, group=group)
     if kind == "vertex":
         return heavy_vertices_planes(cfg, planes, k, direction=direction,
                                      **kw)
@@ -84,6 +92,9 @@ def _analytics(spec: SketchSpec, state, kind: str, k: int,
         last = None  # no window ring to restrict
     cfg = spec.config
     path = resolve_query_path(path, state.device)
+    collective = path == "collective"
+    group = _group_of(_collective_ctx(spec, state) if collective
+                      else split_context(spec, state))
     if horizons is not None:
         horizons = list(horizons)
         if not horizons:
@@ -94,18 +105,21 @@ def _analytics(spec: SketchSpec, state, kind: str, k: int,
                     for h in horizons]
         else:
             _, sel = _normalize_horizons(spec, horizons)
-            planes, uniq = query_planes_multi(spec, state, horizons)
+            planes, uniq = query_planes_multi(spec, state, horizons,
+                                              collective=collective)
             rows = [_planes_topk(cfg, _cq.slice_horizon(planes, i), kind, k,
-                                 direction, kernel=True)
+                                 direction, kernel=True, group=group)
                     for i in range(len(uniq))]
             outs = [rows[i] for i in sel]
         return tuple(torch.stack(xs) for xs in zip(*outs))
-    if path == "cuda":
-        planes = query_planes(spec, state, last)
-        return _planes_topk(cfg, planes, kind, k, direction, kernel=True)
+    if path != "scan":
+        planes = query_planes(spec, state, last, collective=collective)
+        return _planes_topk(cfg, planes, kind, k, direction, kernel=True,
+                            group=group)
     planes = _cq.build_query_planes(
-        cfg, _with_global_window(state.live()), last)
-    return _planes_topk(cfg, planes, kind, k, direction, kernel=False)
+        cfg, _with_global_window(state.live(), group), last)
+    return _planes_topk(cfg, planes, kind, k, direction, kernel=False,
+                        group=group)
 
 
 def grouped_top_k(spec: SketchSpec, state: ShardedState, groups: int,
@@ -265,7 +279,7 @@ def reachable_many(spec: SketchSpec, state: ShardedState, src, src_label,
         return np.stack([by_h[h] for h in clamp])
     if last is not None:
         last = min(int(last), cfg.effective_k)
-    shards = _with_global_window(state.live())
+    shards = _with_global_window(fleet_shards(spec, state))
     dev = state.device
     src = np.atleast_1d(np.asarray(src))
     B = src.shape[0]

@@ -10,9 +10,16 @@ in the other.
 another shard count re-partitions the saved contents by key space
 (``reshard``) for ``lsketch`` and ``gss``; ``lgs`` (no keys) merges into
 shard 0 when shrinking and appends empty shards when growing.
+
+A mesh-resident handle saves its gathered stack (``fleet_shards``), written
+by rank 0 alone, so the files are the same at every world size;
+``restore(..., mesh=...)`` loads the stack and returns it ``place``d, so a
+checkpoint saved at one world size restores at another.
 """
 
 from __future__ import annotations
+
+import torch.distributed as dist
 
 from repro_torch.core.lgs import LGS_LEAVES
 from repro_torch.core.types import LEAVES
@@ -20,8 +27,9 @@ from repro_torch.distributed.checkpoint import CheckpointManager
 
 from .reshard import reshard
 from .spec import SketchSpec
-from .state import (ShardedState, _init, from_numpy, merge_all,
-                    stack_states, unstack_state)
+from .state import (ShardedState, _init, fleet_shards, from_numpy,
+                    merge_all, mesh_context, place, stack_states,
+                    unstack_state)
 
 MANIFEST_KEY = "sketch_spec"
 
@@ -37,16 +45,22 @@ def save(spec: SketchSpec, state: ShardedState, directory, step: int = 0,
     """Checkpoint a handle (atomic; written on a thread when
     ``blocking=False``, after the leaves are copied to host memory).
     ``extra`` entries ride in the manifest beside the spec; the
-    ``sketch_spec`` key is reserved."""
+    ``sketch_spec`` key is reserved. Every rank of a mesh-resident
+    handle's group calls it: the rows are gathered, rank 0 writes, and a
+    blocking save returns on every rank once the files are committed."""
     mgr = CheckpointManager(directory, keep=keep)
     meta = dict(extra) if extra else {}
     if MANIFEST_KEY in meta:
         raise ValueError(f"extra key {MANIFEST_KEY!r} is reserved")
     meta[MANIFEST_KEY] = spec.to_json()
-    leaves = state.live().leaves() if isinstance(state, ShardedState) \
-        else state.leaves()
-    mgr.save(step, dict(zip(_keys(spec), leaves)), extra=meta,
-             blocking=blocking)
+    ctx = mesh_context(state) if isinstance(state, ShardedState) else None
+    if isinstance(state, ShardedState):
+        state = fleet_shards(spec, state)
+    if ctx is None or ctx.rank == 0:
+        mgr.save(step, dict(zip(_keys(spec), state.leaves())), extra=meta,
+                 blocking=blocking)
+    if ctx is not None and blocking:
+        dist.barrier(group=ctx.group)
     return mgr
 
 
@@ -65,14 +79,20 @@ def saved_extra(directory, step: int | None = None) -> dict:
 
 
 def restore(spec: SketchSpec, directory, step: int | None = None,
-            device=None) -> ShardedState:
+            device=None, *, mesh=None, axis: str = "data") -> ShardedState:
     """The handle saved in ``directory`` for ``spec``, on ``device`` (the
     card unless the caller names the CPU). The saved spec must be
     compatible (same kind and config). A different ``n_shards`` reshards
     ``lsketch``/``gss`` under the requested spec's routing (else the
     saved one): vertex and label answers are conserved, edge answers stay
     one-sided. ``lgs`` shrinks by ``merge_all`` into shard 0 and grows by
-    appending empty shards, both exact."""
+    appending empty shards, both exact. With ``mesh`` (see ``place``) the
+    handle comes back mesh-resident: this rank's block of the stack."""
+    state = _restore(spec, directory, step, device)
+    return state if mesh is None else place(spec, state, mesh, axis=axis)
+
+
+def _restore(spec: SketchSpec, directory, step, device) -> ShardedState:
     mgr = CheckpointManager(directory)
     step = mgr.latest_step() if step is None else step
     saved = saved_spec(directory, step)

@@ -33,6 +33,13 @@ partitioned under the spec it was submitted with. With
 ``heat_threshold`` set, a ``HeavyKeyDetector`` rides the host half and
 splits a source endpoint that crosses the threshold from that batch on.
 
+A mesh-resident handle (``place``) keeps its residency: every rank
+partitions the whole batch (a pure function of the batch and the spec),
+keeps its block of rows and inserts only those, and the new handle
+carries the ``MeshContext`` forward; the flush takes the route the whole
+partition would take, so the rows end as unplaced ingest leaves them. A
+replicated handle ingests every row on every rank.
+
 ``ingest_single`` is the unstacked one-shard path the objects (``LSketch``,
 ``GSS``, ``LGS``) ride: no partition, the engine's path choice on the
 plain state, in place.
@@ -53,7 +60,8 @@ from repro_torch.telemetry.stream_stats import PARTITION_STATS
 from . import query as _query
 from .routing import HeavyKeyDetector, routed_assignment
 from .spec import SketchSpec
-from .state import ShardedState, create
+from .state import ShardedState, create, mesh_context, split_context, \
+    with_mesh
 
 _FIELDS = ("src", "dst", "src_label", "dst_label", "edge_label", "weight",
            "time")
@@ -153,9 +161,16 @@ def _dispatch_stacked(spec: SketchSpec, state: ShardedState, cols,
     """One stacked insert of a host partition ``(cols, counts)`` into the
     handle (shared by ``ingest`` and ``AsyncIngestor``): spends ``state``
     and returns the new handle, which carries the flush delta when
-    ``state`` held planes or a pending chain."""
+    ``state`` held planes or a pending chain, and the ``MeshContext``
+    (a split handle inserts its block of the partition's rows)."""
     shards = state.live()
     dev = state.device
+    split = split_context(spec, state)
+    route_cols, route_counts = cols, counts
+    if split is not None:
+        sl = split.block(spec.n_shards)
+        cols = {f: v[sl] for f, v in cols.items()}
+        counts = counts[sl]
     stacked = StackedBatch(time_host=cols["time"],
                            **{f: torch.from_numpy(cols[f]).to(dev)
                               for f in _FIELDS})
@@ -167,11 +182,15 @@ def _dispatch_stacked(spec: SketchSpec, state: ShardedState, cols,
         if path == "chunked":
             raise ValueError("the stacked ingest has no chunked path")
         carry = _query.planes_delta_base(state)
+        use_kernel = path == "cuda"
+        if split is not None:  # the whole partition's route, not the block's
+            use_kernel = use_kernel and bool(eng_insert.one_segment(
+                spec.config, route_cols["time"], route_counts).all())
         out = eng_insert.insert_stacked_fused_impl(
-            spec.config, shards, stacked, counts, use_kernel=path == "cuda",
+            spec.config, shards, stacked, counts, use_kernel=use_kernel,
             emit_delta=carry is not None)
     state.spent = True
-    new = ShardedState(shards)
+    new = with_mesh(ShardedState(shards), mesh_context(state))
     if carry is not None:
         _query.attach_planes_delta(new, carry[0], carry[1], out[1])
     return new

@@ -10,7 +10,22 @@ shard and sums the shard partials (hash partitioning makes them disjoint):
     window-reduced ``QueryPlanes``; label aggregates reduce the same planes
     in plain PyTorch. On a CPU state the same wrappers take each kernel's
     plain version.
-  * ``"auto"`` is ``"cuda"`` for a CUDA state and ``"scan"`` for a CPU one.
+  * ``path="collective"`` — the mesh-resident path: on a handle ``place``
+    laid over a process group that divides its shard count, each rank
+    answers against its own block of window-reduced planes (a plane cache
+    of its own, keyed ``("collective", h)``) through the same kernels, and
+    the shard partials reduce across the ranks (``core.merge.psum_partials``
+    for counts, an ``all_gather`` of rows for top-k). Every rank gets the
+    fleet answer.
+  * ``"auto"`` is ``"cuda"`` for a CUDA state and ``"scan"`` for a CPU one;
+    ``"pallas"``, the reference's name, is ``"cuda"``.
+
+On a mesh-resident handle ``"scan"`` and ``"cuda"`` answer the fleet on
+every rank too, through the same reduction. Every plane build, delta fold
+and scan answer on such a handle runs under the fleet's newest subwindow
+index, max-reduced across the ranks first, and a delta chain folds only
+when every link held on every rank. Every rank must then ask the same
+queries in the same order, as it ingests the same batches.
 
 Every shard queries under the fleet-wide newest subwindow index (a
 lagging shard must not count ring slots the combined stream expired); a
@@ -54,11 +69,12 @@ import torch
 
 from repro_torch.core import queries as _q
 from repro_torch.core.lgs import _lgs_edge_query, _lgs_vertex_query
+from repro_torch.core.merge import pmax, psum
 from repro_torch.core.types import EMPTY
 from repro_torch.engine.window import bucket_size
 
 from .spec import SketchSpec
-from .state import ShardedState
+from .state import ShardedState, mesh_context, split_context
 
 PLANES_CACHE_CAP = 8
 # the longest chain of un-queried flushes a handle folds before it
@@ -118,13 +134,41 @@ def default_query_path(device=None) -> str:
 
 def resolve_query_path(path: str = "auto", device=None,
                        kind: str = "lsketch") -> str:
-    """Normalize a query path name to "scan" | "cuda"; an ``lgs`` sketch
-    always takes "scan"."""
+    """Normalize a query path name to "scan" | "cuda" | "collective"
+    ("pallas" is "cuda"); an ``lgs`` sketch always takes "scan". A
+    collective query's handle is checked where it is in hand
+    (``_collective_ctx``)."""
     if path == "auto":
         path = default_query_path(device)
-    if path not in ("scan", "cuda"):
+    if path == "pallas":
+        path = "cuda"
+    if path not in ("scan", "cuda", "collective"):
         raise ValueError(f"unknown query path {path!r}")
     return "scan" if kind == "lgs" else path
+
+
+def _collective_ctx(spec: SketchSpec, state):
+    """The ``MeshContext`` a collective query runs under; raises unless
+    the handle is mesh-resident and its group divides the shard count."""
+    ctx = mesh_context(state) if isinstance(state, ShardedState) else None
+    if ctx is None:
+        raise ValueError(
+            "path='collective' needs a mesh-resident handle: lay the shard "
+            "axis over a process group with repro_torch.sketch.place(...) "
+            "(or attach an existing layout with with_mesh(...)) first")
+    if not ctx.divides(spec.n_shards):
+        raise ValueError(
+            f"path='collective' needs the mesh axis to divide the shard "
+            f"count (the rank blocks must be uniform): n_shards="
+            f"{spec.n_shards} over {ctx.n_devices} devices on axis "
+            f"{ctx.axis!r} is replicated, not sharded — use the host "
+            "fan-out paths (scan/cuda) or repartition")
+    return ctx
+
+
+def _group_of(ctx):
+    """The process group a split handle's answers reduce over, or None."""
+    return None if ctx is None else ctx.group
 
 
 def as_i32(x, n: int | None = None, device=None) -> torch.Tensor:
@@ -186,23 +230,27 @@ def normalize_query(q: QueryBatch, device=None, kind: str = "lsketch"):
     raise ValueError(f"unknown query kind {q.kind!r}")
 
 
-def _with_group_window(shards, groups: int = 1):
+def _with_group_window(shards, groups: int = 1, group=None):
     """A view of the stack in which every shard carries its window group's
     newest subwindow index (the handle's own tensors are not touched).
     One group is a plain sharded handle: the fleet reconciles to one
-    ``cur_widx``. A pooled handle (``sketch.tenant``) stacks ``groups``
-    tenants' shard blocks; each block reconciles only within itself, as
-    ``groups`` independent handles would."""
+    ``cur_widx``, max-reduced over the ranks of ``group`` when the stack
+    is one rank's block of a split handle. A pooled handle
+    (``sketch.tenant``) stacks ``groups`` tenants' shard blocks; each
+    block reconciles only within itself, as ``groups`` independent
+    handles would."""
     cw = shards.cur_widx
     per = cw.shape[0] // groups
     g = cw.reshape(groups, per).amax(dim=1, keepdim=True)
+    if group is not None:
+        g = pmax(g.contiguous(), group)
     return dataclasses.replace(shards,
                                cur_widx=g.expand(groups, per).reshape(-1))
 
 
-def _with_global_window(shards):
+def _with_global_window(shards, group=None):
     """Every shard under the fleet-wide newest subwindow index."""
-    return _with_group_window(shards, 1)
+    return _with_group_window(shards, 1, group)
 
 
 def _cache(state: ShardedState) -> OrderedDict:
@@ -225,12 +273,15 @@ def _cache_put(cache: OrderedDict, ckey, planes) -> None:
 def _multi_horizons_of(ckey, mkey):
     """The horizons of stacked entry ``mkey`` if it is the family of the
     single-horizon key ``ckey``, else None. The families pair ``horizon``
-    with ``("multi", hs)`` and ``("pooled", g, h)`` with
+    with ``("multi", hs)``, ``("collective", h)`` with
+    ``("multi-collective", hs)`` and ``("pooled", g, h)`` with
     ``("multi-pooled", g, hs)``."""
     if not isinstance(mkey, tuple):
         return None
     if isinstance(ckey, int):
         return mkey[1] if mkey[0] == "multi" else None
+    if ckey[0] == "collective":
+        return mkey[1] if mkey[0] == "multi-collective" else None
     if ckey[0] == "pooled" and mkey[0] == "multi-pooled" \
             and mkey[1] == ckey[1]:
         return mkey[2]
@@ -271,24 +322,29 @@ def attach_planes_delta(state: ShardedState, base: dict, chain: list,
     setattr(state, _PENDING_ATTR, (base, chain + [delta]))
 
 
-def _resolve_pending(state: ShardedState, ckey, apply_one):
+def _resolve_pending(state: ShardedState, ckey, apply_one, group=None):
     """Serve a miss by folding the handle's pending flush deltas into the
     parent's cached entry ``ckey``: the planes, or None when the parent
     never cached ``ckey`` or a link's flush moved the ring on some row
     (reset a slot, advanced the window or spanned subwindows; the chain is
-    then useless for every horizon and is dropped). One device read a
-    link (``ok``), paid on the first query of the handle. The base's
-    counter planes own their storage; its key planes are never read."""
+    then useless for every horizon and is dropped). One device read for
+    the chain (its links' ``ok``), paid on the first query of the handle;
+    on a split handle ``ok`` is min-reduced over the ranks of ``group``
+    first, so every rank folds or every rank builds. The base's counter
+    planes own their storage; its key planes are never read."""
     pend = getattr(state, _PENDING_ATTR, None)
     if pend is None:
         return None
     base, deltas = pend
     if ckey not in base:
         return None
-    for d in deltas:
-        if not bool(d.ok.all()):
-            setattr(state, _PENDING_ATTR, None)
-            return None
+    moved = (~torch.stack([d.ok.all() for d in deltas]).all()).to(
+        torch.int32).reshape(1)
+    if group is not None:  # one rank's moved ring moves the fleet's
+        moved = pmax(moved, group)
+    if bool(moved):
+        setattr(state, _PENDING_ATTR, None)
+        return None
     planes = base[ckey]
     # every link ok: the ring never moved across the chain, so every
     # link's mask is the final state's; fold them all under it
@@ -299,7 +355,7 @@ def _resolve_pending(state: ShardedState, ckey, apply_one):
 
 
 def _lookup(state: ShardedState, ckey, fold, build,
-            hit=lambda cache: None):
+            hit=lambda cache: None, group=None):
     """The handle's entry ``ckey``: a hit; else, on a miss, ``hit(cache)``
     (a covering stacked entry's row), then the pending chain folded by
     ``fold(planes, delta)``, then ``build()``. Returns ``(planes, how)``,
@@ -310,7 +366,7 @@ def _lookup(state: ShardedState, ckey, fold, build,
         return cache[ckey], "hit"
     how, planes = "slice", hit(cache)
     if planes is None:
-        how, planes = "delta", _resolve_pending(state, ckey, fold)
+        how, planes = "delta", _resolve_pending(state, ckey, fold, group)
     if planes is None:
         PLANES_BUILD_COUNTS["build"] += 1
         how, planes = "build", build()
@@ -318,26 +374,46 @@ def _lookup(state: ShardedState, ckey, fold, build,
     return planes, how
 
 
+def _planes_ctx(spec: SketchSpec, state: ShardedState, collective: bool,
+                groups: int):
+    """The context a plane build of this handle reduces its window over
+    (None when this rank holds every row), checked for the path."""
+    if collective and groups != 1:
+        raise ValueError("pooled (grouped) planes are host-resident: "
+                         "collective=True requires groups=1")
+    if collective:
+        return _collective_ctx(spec, state)
+    return split_context(spec, state)
+
+
 def query_planes(spec: SketchSpec, state: ShardedState, last=None, *,
-                 groups: int = 1):
+                 collective: bool = False, groups: int = 1):
     """The window-reduced ``QueryPlanes`` for ``(state, last)``, memoized on
     the handle object in an LRU of ``PLANES_CACHE_CAP`` entries keyed by
     the clamped horizon (``last=None`` and ``last>=k`` share one entry).
     A miss takes a covering horizon-stacked entry's row, then the pending
     delta chain, then a build. With ``groups > 1`` (a pooled handle) each
     of the ``groups`` blocks of rows lifts its window on its own, and the
-    entry is keyed ``("pooled", groups, horizon)``."""
+    entry is keyed ``("pooled", groups, horizon)``. With
+    ``collective=True`` (a mesh-resident handle) the planes are this
+    rank's block's, under the fleet window, keyed ``("collective",
+    horizon)`` apart from the host entries; on a split handle the host
+    entries are the rank's block's too."""
     shards = state.live()
+    ctx = _planes_ctx(spec, state, collective, groups)
+    group = _group_of(ctx)
     k = spec.config.effective_k
     horizon = k if last is None else min(int(last), k)
-    ckey = horizon if groups == 1 else ("pooled", groups, horizon)
+    ckey = ("collective", horizon) if collective else \
+        horizon if groups == 1 else ("pooled", groups, horizon)
     return _lookup(
         state, ckey,
         lambda pl, d: _q.apply_planes_delta(
-            spec.config, _with_group_window(shards, groups), pl, d, horizon),
+            spec.config, _with_group_window(shards, groups, group), pl, d,
+            horizon),
         lambda: _q.build_query_planes(
-            spec.config, _with_group_window(shards, groups), horizon),
-        lambda cache: _multi_slice_hit(cache, ckey, horizon))[0]
+            spec.config, _with_group_window(shards, groups, group), horizon),
+        lambda cache: _multi_slice_hit(cache, ckey, horizon), group)[0]
 
 
 def _normalize_horizons(spec: SketchSpec, lasts):
@@ -351,23 +427,29 @@ def _normalize_horizons(spec: SketchSpec, lasts):
 
 
 def query_planes_multi(spec: SketchSpec, state: ShardedState, lasts, *,
-                       groups: int = 1):
+                       collective: bool = False, groups: int = 1):
     """The horizon-stacked ``MultiPlanes`` for every horizon in ``lasts``,
     built in one pass over the ring and memoized as one LRU entry keyed
     ``("multi", uniq)`` (``("multi-pooled", groups, uniq)`` with the
-    per-group window lift of a pooled handle); a miss folds the pending
-    delta chain into every horizon at once before it builds. Returns
+    per-group window lift of a pooled handle, ``("multi-collective",
+    uniq)`` with ``collective=True``); a miss folds the pending delta
+    chain into every horizon at once before it builds. Returns
     ``(planes, uniq)``: row ``i`` is horizon ``uniq[i]``
     (``_normalize_horizons``)."""
     shards = state.live()
+    ctx = _planes_ctx(spec, state, collective, groups)
+    group = _group_of(ctx)
     uniq, _ = _normalize_horizons(spec, lasts)
-    ckey = ("multi", uniq) if groups == 1 else ("multi-pooled", groups, uniq)
+    ckey = ("multi-collective", uniq) if collective else \
+        ("multi", uniq) if groups == 1 else ("multi-pooled", groups, uniq)
     planes, how = _lookup(
         state, ckey,
         lambda pl, d: _q.apply_planes_delta_multi(
-            spec.config, _with_group_window(shards, groups), pl, d, uniq),
+            spec.config, _with_group_window(shards, groups, group), pl, d,
+            uniq),
         lambda: _q.build_query_planes_multi(
-            spec.config, _with_group_window(shards, groups), uniq))
+            spec.config, _with_group_window(shards, groups, group), uniq),
+        group=group)
     if how in ("build", "delta"):
         PLANES_BUILD_COUNTS[how + "-multi"] += 1
     return planes, uniq
@@ -390,25 +472,31 @@ def _per_shard(shards, fn):
     return total.to(torch.int32)
 
 
-def _answer_planes(cfg, planes, q: QueryBatch, arrays, with_le: bool):
-    """The kernel route on one horizon's planes: int32 [B] (padded)."""
+def _answer_planes(cfg, planes, q: QueryBatch, arrays, with_le: bool,
+                   group=None):
+    """The kernel route on one horizon's planes: int32 [B] (padded), this
+    rank's rows' sum, reduced over ``group`` when it is given."""
     from repro_torch.kernels.sketch_query.ops import edge_query_planes
     from repro_torch.kernels.vertex_scan.ops import (
         label_aggregate_planes, vertex_query_planes)
     if q.kind == "edge":
         src, dst, la, lb, les = arrays
         w, wl = edge_query_planes(cfg, planes, src, dst, (la, lb, les),
-                                  with_le=with_le)
+                                  with_le=with_le, group=group)
     elif q.kind == "vertex":
         v, lv, les = arrays
         w, wl = vertex_query_planes(cfg, planes, v, (lv, les),
-                                    direction=q.direction, with_le=with_le)
+                                    direction=q.direction, with_le=with_le,
+                                    group=group)
     else:
         lv, les = arrays
         w, wl = label_aggregate_planes(cfg, planes, lv, edge_label=les,
                                        direction=q.direction,
-                                       with_le=with_le)
-    return (wl if with_le else w).sum(0, dtype=torch.int64).to(torch.int32)
+                                       with_le=with_le, group=group)
+    out = wl if with_le else w
+    if group is not None:  # already reduced over the rows and the ranks
+        return out
+    return out.sum(0, dtype=torch.int64).to(torch.int32)
 
 
 def _query_multi(spec: SketchSpec, state: ShardedState, q: QueryBatch,
@@ -428,18 +516,26 @@ def _query_multi(spec: SketchSpec, state: ShardedState, q: QueryBatch,
             q, last=None if h is None else int(h)), path=path)
             for h in lasts])
     _, sel = _normalize_horizons(spec, lasts)
-    planes, uniq = query_planes_multi(spec, state, lasts)
+    collective = path == "collective"
+    planes, uniq = query_planes_multi(spec, state, lasts,
+                                      collective=collective)
+    group = _group_of(_collective_ctx(spec, state) if collective
+                      else split_context(spec, state))
     arrays, with_le, _, n = normalize_query(
         dataclasses.replace(q, last=None), state.device, spec.kind)
     if q.kind == "edge":  # every horizon in one launch: [H, B]
         from repro_torch.kernels.sketch_query.ops import edge_query_planes
         src, dst, la, lb, les = arrays
         w, wl = edge_query_planes(spec.config, planes, src, dst,
-                                  (la, lb, les), with_le=with_le)
+                                  (la, lb, les), with_le=with_le,
+                                  group=group)
         rows = wl if with_le else w
-    else:
-        rows = [_answer_planes(spec.config, _q.slice_horizon(planes, i), q,
-                               arrays, with_le) for i in range(len(uniq))]
+    else:  # one horizon at a time, the [H, B] rows reduced at once
+        rows = torch.stack([_answer_planes(
+            spec.config, _q.slice_horizon(planes, i), q, arrays, with_le)
+            for i in range(len(uniq))])
+        if group is not None:
+            rows = psum(rows, group)
     return torch.stack([rows[i][:n] for i in sel])
 
 
@@ -457,11 +553,17 @@ def query(spec: SketchSpec, state: ShardedState, q: QueryBatch,
     path = resolve_query_path(path, state.device, spec.kind)
     arrays, with_le, last, n = normalize_query(q, state.device, spec.kind)
 
+    if path == "collective":
+        ctx = _collective_ctx(spec, state)
+        planes = query_planes(spec, state, last, collective=True)
+        return _answer_planes(cfg, planes, q, arrays, with_le,
+                              ctx.group)[:n]
+    group = _group_of(split_context(spec, state))
     if path == "cuda":
         planes = query_planes(spec, state, last)
-        return _answer_planes(cfg, planes, q, arrays, with_le)[:n]
+        return _answer_planes(cfg, planes, q, arrays, with_le, group)[:n]
 
-    glob = _with_global_window(shards)
+    glob = _with_global_window(shards, group)
     if spec.kind == "lgs":
         if q.kind == "edge":
             src, dst, la, lb, les = arrays
@@ -498,4 +600,5 @@ def query(spec: SketchSpec, state: ShardedState, q: QueryBatch,
                 cfg, st, lv, direction=q.direction, with_edge_label=with_le,
                 last=last, edge_label=les if with_le else None)
             return wl if with_le else w
-    return _per_shard(glob, one)[:n]
+    out = _per_shard(glob, one)
+    return (out if group is None else psum(out, group))[:n]

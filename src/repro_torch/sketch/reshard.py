@@ -67,7 +67,7 @@ from repro_torch.kernels.sketch_insert.ops import _bin_plan
 
 from .routing import prune_routing, routed_assignment_vids
 from .spec import SketchSpec
-from .state import ShardedState
+from .state import ShardedState, fleet_shards, mesh_context
 
 RESHARD_SPLIT: dict = {}
 
@@ -343,7 +343,9 @@ def reshard(spec: SketchSpec, state: ShardedState, n_shards: int,
     be applied to stored history. ``detector`` with ``heat_threshold``
     un-splits the keys that cooled (``prune_routing``) before the replay;
     callers keep serving with ``spec.replace(n_shards=..., routing=
-    pruned)``.
+    pruned)``. A mesh-resident handle's rows are gathered first and the
+    result is host-resident (it carries no ``MeshContext``), as the
+    reference's is.
     """
     if spec.kind == "lgs":
         raise NotImplementedError(
@@ -356,4 +358,6 @@ def reshard(spec: SketchSpec, state: ShardedState, n_shards: int,
                          "un-split prune needs both the heat summary and "
                          "the threshold it was split under")
     target = _target(spec, n_shards, routing, detector, heat_threshold)
+    if mesh_context(state) is not None:  # every rank reshards the stack
+        state = ShardedState(fleet_shards(spec, state))
     return _reshard(spec, state, target, card=state.device.type == "cuda")

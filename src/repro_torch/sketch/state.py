@@ -20,12 +20,28 @@ plain single-shard state (``plain=True``; the objects' ``.state``).
 
 ``merge_all`` reduces a handle to one plain state and
 ``shards_compatible`` says when that is exact (``core.merge``).
+
+``place`` makes a handle mesh-resident: rank ``r`` of a ``torch.distributed``
+group of ``W`` keeps only its block of shard rows ``[r*S/W, (r+1)*S/W)``
+(what ``P(axis)`` gives a device in the reference) and the handle carries
+a ``MeshContext``. Every rank then runs the same program on the same
+inputs, and every query answers the fleet on every rank
+(``sketch/query.py``). When ``W`` does not divide the shard count the
+stack is replicated instead: every rank holds and ingests every row.
+``merge_all``, ``shards_compatible`` and ``to_numpy`` first gather a
+split handle's rows (``fleet_shards``), so they answer as on the whole
+stack.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import warnings
+from typing import Any
+
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import merge as _merge
 from repro_torch.core.lgs import LGS_LEAVES, lgs_init_leaves
@@ -111,12 +127,172 @@ def from_numpy(spec: SketchSpec, arrays, device=None, *,
     return state if plain else ShardedState(state)
 
 
-def to_numpy(state):
+def to_numpy(state, spec: SketchSpec | None = None):
     """The leaves of a handle (with the shard axis) or of a plain state
-    (without it) as numpy arrays, in ``jax.tree.leaves`` order."""
+    (without it) as numpy arrays, in ``jax.tree.leaves`` order. A
+    mesh-resident handle gives the whole stack (``fleet_shards``, which
+    needs its ``spec``)."""
     if isinstance(state, ShardedState):
-        state = state.live()
+        if mesh_context(state) is not None:
+            if spec is None:
+                raise ValueError("to_numpy of a mesh-resident handle "
+                                 "gathers its rows: pass its spec")
+            state = fleet_shards(spec, state)
+        else:
+            state = state.live()
     return [x.cpu().numpy() for x in state.leaves()]
+
+
+# --------------------------------------------------------------------------
+# mesh residency
+# --------------------------------------------------------------------------
+
+# host-side handle attribute carrying the MeshContext; every producer of a
+# new handle decides whether to carry it forward (ingest does, reshard
+# does not)
+_MESH_ATTR = "_mesh_ctx"
+
+# (n_shards, n_devices, axis) triples already warned about: the
+# replication warning fires once per distinct mismatch, not per call
+_replication_warned: set = set()
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshContext:
+    """Where a handle's shard axis lives: a ``torch.distributed`` process
+    group (``None``: the default group of every rank) and the name of the
+    axis the leading ``[n_shards]`` dimension is laid over. ``rank`` is
+    this process's index in the group, ``n_devices`` the group's size."""
+
+    group: Any = None
+    axis: str = "data"
+
+    def __post_init__(self):
+        if not dist.is_initialized():
+            raise RuntimeError("a MeshContext needs an initialized process "
+                               "group (repro_torch.distributed.ranks."
+                               "init_group)")
+        if self.group is None:
+            object.__setattr__(self, "group", dist.group.WORLD)
+
+    @property
+    def n_devices(self) -> int:
+        return dist.get_world_size(self.group)
+
+    @property
+    def rank(self) -> int:
+        return dist.get_rank(self.group)
+
+    @property
+    def backend(self) -> str:
+        return dist.get_backend(self.group)
+
+    def divides(self, n_shards: int) -> bool:
+        """True iff the shard axis shards over this group
+        (``named_shardings`` replicates otherwise)."""
+        return n_shards % self.n_devices == 0
+
+    def block(self, n_shards: int) -> slice:
+        """This rank's rows of an ``n_shards`` stack (every row when the
+        group does not divide it)."""
+        if not self.divides(n_shards):
+            return slice(0, n_shards)
+        per = n_shards // self.n_devices
+        return slice(self.rank * per, (self.rank + 1) * per)
+
+
+def _as_context(mesh, axis: str) -> MeshContext:
+    return mesh if isinstance(mesh, MeshContext) else \
+        MeshContext(group=mesh, axis=axis)
+
+
+def mesh_context(state) -> MeshContext | None:
+    """The ``MeshContext`` attached to a handle, or None (host-resident)."""
+    return getattr(state, _MESH_ATTR, None)
+
+
+def with_mesh(state: ShardedState, ctx: MeshContext | None) -> ShardedState:
+    """Attach a ``MeshContext`` to a handle already laid out for it (returns
+    the same object); ``place`` does this itself."""
+    if ctx is not None:
+        setattr(state, _MESH_ATTR, ctx)
+    return state
+
+
+def split_context(spec: SketchSpec, state) -> MeshContext | None:
+    """The context of a handle whose rows are split over its group, or None
+    when this rank holds every row (host-resident or replicated)."""
+    ctx = mesh_context(state)
+    return ctx if ctx is not None and ctx.divides(spec.n_shards) else None
+
+
+def named_shardings(spec: SketchSpec, mesh=None, axis: str = "data"):
+    """A ``ShardedState``-shaped tree of each leaf's layout over ``mesh``
+    (a ``MeshContext``, a process group, or None for the default group):
+    ``(axis, None, ...)``, one entry a dimension, with the leading shard
+    axis over ``axis``, or ``(None, ...)`` when the group does not divide
+    ``n_shards`` and the state is replicated. The mismatch warns once per
+    ``(n_shards, n_devices, axis)``: replication is correct but forfeits
+    the memory split and the collective query."""
+    ctx = _as_context(mesh, axis)
+    spec_axis = ctx.axis
+    if not ctx.divides(spec.n_shards):
+        key = (spec.n_shards, ctx.n_devices, ctx.axis)
+        if key not in _replication_warned:
+            _replication_warned.add(key)
+            warnings.warn(
+                f"mesh axis {ctx.axis!r} has {ctx.n_devices} devices, which "
+                f"does not divide n_shards={spec.n_shards}: the sketch state "
+                "will be fully replicated on every device (correct, but no "
+                "memory scaling and no collective query). Pick n_shards as "
+                f"a multiple of {ctx.n_devices} to shard.", UserWarning,
+                stacklevel=2)
+        spec_axis = None
+    target = _init(spec, (spec.n_shards,), "meta")
+    return ShardedState(target.map(
+        lambda leaf: (spec_axis,) + (None,) * (leaf.dim() - 1)))
+
+
+def place(spec: SketchSpec, state: ShardedState, mesh=None,
+          axis: str = "data") -> ShardedState:
+    """Lay the handle's shard axis over ``mesh`` (a ``MeshContext``, a
+    process group, or None for the default group) and attach the
+    ``MeshContext`` that makes it mesh-resident: this rank keeps its block
+    of rows (every row when the group does not divide ``n_shards``,
+    after ``named_shardings``' warning). Where the block is the whole
+    stack the placed handle is a view of the input's tensors (a world of
+    one does not copy an 18 GB state): ingest into one of the two then
+    changes both, so keep using one. A CUDA state needs a NCCL group and
+    a CPU state a gloo one; there is no host staging."""
+    ctx = _as_context(mesh, axis)
+    named_shardings(spec, ctx)  # the replication warning
+    dev = state.device
+    if (ctx.backend == "nccl") != (dev.type == "cuda"):
+        raise ValueError(
+            f"a {dev.type} state cannot be placed over a {ctx.backend} "
+            "group: CUDA tensors need NCCL, CPU tensors gloo")
+    shards = state.live()
+    sl = ctx.block(spec.n_shards)
+    if sl.stop - sl.start != spec.n_shards:
+        shards = shards.map(lambda x: x[sl].clone())
+    return with_mesh(ShardedState(shards), ctx)
+
+
+def fleet_shards(spec: SketchSpec, state: ShardedState):
+    """The whole ``[n_shards, ...]`` stack on this rank: the handle's own
+    rows, or for a split handle every rank's block gathered in rank order
+    (one ``all_gather`` a leaf; every rank of the group must call it)."""
+    shards = state.live()
+    ctx = split_context(spec, state)
+    if ctx is None or ctx.n_devices == 1:
+        return shards
+
+    def gather(x):
+        parts = [torch.empty_like(x) for _ in range(ctx.n_devices)]
+        dist.all_gather(parts, x.contiguous(), group=ctx.group)
+        return torch.cat(parts)
+
+    return shards.map(gather)
 
 
 def merge_all(spec: SketchSpec, state: ShardedState):
@@ -125,9 +301,10 @@ def merge_all(spec: SketchSpec, state: ShardedState):
     single-sketch ingest of the same stream iff ``shards_compatible``; on
     a contended partition conflicting cells keep one key (prefer the
     sharded ``query`` there)."""
+    shards = fleet_shards(spec, state)
     if spec.kind == "lgs":
-        return _merge.lgs_merge_all(spec.config, state.live())
-    return _merge.merge_all(spec.config, state.live())
+        return _merge.lgs_merge_all(spec.config, shards)
+    return _merge.merge_all(spec.config, shards)
 
 
 def shards_compatible(spec: SketchSpec, state: ShardedState) -> torch.Tensor:
@@ -135,4 +312,4 @@ def shards_compatible(spec: SketchSpec, state: ShardedState) -> torch.Tensor:
     cell or pool-slot contention). Always True for LGS: it has no keys."""
     if spec.kind == "lgs":
         return torch.tensor(True, device=state.device)
-    return _merge.shard_keys_compatible(state.live())
+    return _merge.shard_keys_compatible(fleet_shards(spec, state))

@@ -1161,3 +1161,134 @@ def test_cuda_sketch_server_matches_cpu_twin(pooled):
     if not pooled:
         assert servers["cuda"].budget_report().to_json() == \
             servers["cpu"].budget_report().to_json()
+
+
+# --------------------------------------------------------------------------
+# the mesh-resident collective path at world 1 on NCCL (one card a rank)
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def nccl_world1(tmp_path_factory):
+    """A one-rank NCCL group in this process (``distributed.ranks``),
+    destroyed after the module's tests; None without a card."""
+    if not torch.cuda.is_available():
+        yield None
+        return
+    import torch.distributed as dist
+    from repro_torch.distributed.ranks import init_group
+    init_group(0, 1, tmp_path_factory.mktemp("nccl") / "rdv", "nccl")
+    try:
+        yield skt.MeshContext()
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_deployment(seed=11, n=6000):
+    rng = np.random.default_rng(seed)
+    src, dst = rng.integers(0, 90, n), rng.integers(0, 90, n)
+    return EdgeBatch.from_arrays(src, dst, src % 3, dst % 3,
+                                 rng.integers(0, 6, n), rng.integers(1, 4, n),
+                                 np.sort(rng.integers(0, 400, n)))
+
+
+@pytest.mark.gpu
+def test_cuda_collective_matches_cuda_path_on_nccl(nccl_world1):
+    """A placed 4-shard handle on the card over a one-rank NCCL group:
+    ingest keeps the context and equals unplaced ingest leaf for leaf,
+    and every collective answer (each kind, with and without the edge
+    label, two horizons and a sweep) and top-k equals the "cuda" path's
+    and the CPU twin's scan path."""
+    _need_card()
+    spec = skt.make_spec("lsketch", n_shards=4, config=CFG)
+    batch = _mesh_deployment()
+    placed = skt.place(spec, skt.create(spec, "cuda"), nccl_world1)
+    host = skt.create(spec, "cuda")
+    twin = skt.create(spec, "cpu")
+    for a in range(0, len(batch), 1500):
+        b = EdgeBatch(*[x[a:a + 1500] for x in (
+            batch.src, batch.dst, batch.src_label, batch.dst_label,
+            batch.edge_label, batch.weight, batch.time)])
+        placed = skt.ingest(spec, placed, b)
+        host = skt.ingest(spec, host, b)
+        twin = skt.ingest(spec, twin, b, path="cuda")
+    assert skt.mesh_context(placed) is nccl_world1
+    for x, y, z in zip(skt.to_numpy(placed, spec), skt.to_numpy(host),
+                       skt.to_numpy(twin)):
+        np.testing.assert_array_equal(x, y)
+        np.testing.assert_array_equal(x, z)
+    vs = np.arange(64, dtype=np.int32)
+    le = batch.edge_label[:256]
+    for last in (None, 1, [None, 1, 2]):
+        for q in (skt.QueryBatch.edges(batch.src[:256], batch.src_label[:256],
+                                       batch.dst[:256], batch.dst_label[:256],
+                                       last=last),
+                  skt.QueryBatch.edges(batch.src[:256], batch.src_label[:256],
+                                       batch.dst[:256], batch.dst_label[:256],
+                                       edge_label=le, last=last),
+                  skt.QueryBatch.vertices(vs, vs % 3, last=last),
+                  skt.QueryBatch.vertices(vs, vs % 3, le[:64],
+                                          direction="in", last=last),
+                  skt.QueryBatch.labels([0, 1, 2], last=last)):
+            got = skt.query(spec, placed, q, path="collective").cpu()
+            assert torch.equal(got, skt.query(spec, host, q,
+                                              path="cuda").cpu())
+            assert torch.equal(got, skt.query(spec, twin, q, path="scan"))
+    for fn in (skt.heavy_vertices, skt.heavy_edges, skt.top_labels):
+        for a, b in zip(fn(spec, placed, 8, path="collective"),
+                        fn(spec, host, 8, path="cuda")):
+            assert torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.gpu
+def test_cuda_psum_sketch_on_nccl(nccl_world1):
+    """``psum_sketch`` over a one-rank NCCL group: each leaf's MAX or SUM
+    over one rank is the leaf itself, on the card, and the input is kept."""
+    _need_card()
+    from repro_torch.core.merge import psum_sketch
+    spec = skt.make_spec("lsketch", n_shards=1, config=CFG)
+    st = skt.ingest(spec, skt.create(spec, "cuda"), _mesh_deployment(n=500))
+    plain = skt.unstack_state(st, 0)
+    out = psum_sketch(CFG, plain, nccl_world1.group)
+    for x, y in zip(out.leaves(), plain.leaves()):
+        assert x.is_cuda and torch.equal(x, y) and x is not y
+
+
+@pytest.mark.gpu
+def test_cuda_place_refuses_a_gloo_group(nccl_world1):
+    """CUDA tensors over a gloo group would need host staging: refused."""
+    _need_card()
+    import torch.distributed as dist
+    gloo = dist.new_group(backend="gloo")
+    spec = skt.make_spec("lsketch", n_shards=2, config=CFG)
+    with pytest.raises(ValueError, match="CUDA tensors need NCCL"):
+        skt.place(spec, skt.create(spec, "cuda"), gloo)
+    with pytest.raises(ValueError, match="CUDA tensors need NCCL"):
+        skt.place(spec, skt.create(spec, "cpu"), nccl_world1)
+
+
+@pytest.mark.gpu
+def test_cuda_router_telemetry_mesh_matches_cpu_twin(nccl_world1):
+    """``RouterTelemetry(mesh=...)`` on the card (collective reads by
+    default) against a host-resident CPU twin on the same counts."""
+    _need_card()
+    from repro_torch.telemetry import CapacityController, RouterTelemetry
+    card = RouterTelemetry(n_experts=16, window_steps=16, subwindows=4,
+                           n_shards=4, mesh=nccl_world1, device="cuda")
+    twin = RouterTelemetry(n_experts=16, window_steps=16, subwindows=4,
+                           n_shards=4, device="cpu")
+    assert card.query_path == "collective"
+    ctrls = [CapacityController(t) for t in (card, twin)]
+    cf = [1.25, 1.25]
+    rng = np.random.default_rng(4)
+    for step in range(0, 40, 2):
+        counts = rng.integers(0, 4, (256, 16))
+        counts[:, step % 16] += 12
+        for t in (card, twin):
+            t.ingest(counts, step)
+        cf = [c.update(f) for c, f in zip(ctrls, cf)]
+        assert cf[0] == cf[1]
+        for last in (None, 2):
+            np.testing.assert_array_equal(card.load_vector(last),
+                                          twin.load_vector(last))
+    assert card.routing_affinity(5, 3) == twin.routing_affinity(5, 3)
+    assert card.expert_load(2, last=1) == twin.expert_load(2, last=1)

@@ -70,7 +70,7 @@ def test_entry_points_default_to_the_card():
     from repro_torch.launch.serve import DecodeServer
     from repro_torch.launch.serve_sketch import SketchServer
     from repro_torch.models import lm
-    from repro_torch.telemetry import BigramSketch
+    from repro_torch.telemetry import BigramSketch, RouterTelemetry
 
     spec = tskt.make_spec("lsketch", n_shards=2, **SPEC)
     cfg = configs.get("smollm-135m", reduced=True)
@@ -83,12 +83,14 @@ def test_entry_points_default_to_the_card():
             DecodeServer(cfg, params)
         assert SketchServer(spec).state.device.type == "cuda"
         assert BigramSketch(d=16).sketch.device.type == "cuda"
+        assert RouterTelemetry(n_experts=4).state.device.type == "cuda"
     else:
         for entry in (lambda: tskt.create(spec), lambda: lm.init_params(cfg),
                       lambda: lm.init_cache(cfg, 1, 8),
                       lambda: DecodeServer(cfg, params),
                       lambda: SketchServer(spec),
-                      lambda: BigramSketch(d=16)):
+                      lambda: BigramSketch(d=16),
+                      lambda: RouterTelemetry(n_experts=4)):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 entry()
     assert tskt.create(spec, device="cpu").device.type == "cpu"
@@ -97,6 +99,8 @@ def test_entry_points_default_to_the_card():
         "k"].device.type == "cpu"
     assert SketchServer(spec, device="cpu").state.device.type == "cpu"
     assert BigramSketch(d=16, device="cpu").sketch.device.type == "cpu"
+    assert RouterTelemetry(n_experts=4,
+                           device="cpu").state.device.type == "cpu"
 
 
 def test_ingest_spends_the_old_handle_and_starts_a_cold_cache():

@@ -12,7 +12,10 @@ V (the server) and M (merge, reshard, restore) at a tiny size.
 
 import dataclasses
 import importlib
+import os
 import re
+import subprocess
+import sys
 from pathlib import Path
 
 import jax
@@ -36,9 +39,12 @@ from repro_torch.core import LSketch
 from repro_torch.core.types import EdgeBatch, LSketchConfig
 from repro_torch.data import tokens as ttokens
 from repro_torch.data.stream import PHONE, edge_batches, generate
+from repro_torch.distributed.ranks import spawn_ranks
 from repro_torch.launch import serve as tserve_lm
 from repro_torch.launch import serve_sketch as tserve
 from repro_torch.telemetry import BigramSketch
+
+import torch_collective_ranks as R
 
 q_mod = importlib.import_module("repro_torch.sketch.query")
 ROOT = Path(__file__).resolve().parents[1]
@@ -204,23 +210,103 @@ def test_serve_sketch_main_matches_repro(argv, capsys):
 
 
 def test_serve_mode_sketch_and_mesh_raise(capsys):
+    """``serve --mode sketch`` runs; the mesh options refuse what the
+    reference refuses: the collective path without a mesh (CLI and
+    constructor), a mesh that does not divide the shards, pool mode with
+    a mesh or with the collective path."""
     tserve_lm.main(["--mode", "sketch", "--device", "cpu", "--edges", "512",
                     "--requests", "16", "--ingest-batch", "256"])
     assert "answered 16 edge queries" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tserve.main(["--mesh", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(SystemExit, match="needs --mesh N"):
         tserve.main(["--collective", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="needs --mesh N"):
+        tserve.main(["--query-path", "collective", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="divide --shards"):
+        tserve.main(["--shards", "8", "--mesh", "3", "--collective",
+                     "--device", "cpu"])
     spec = tserve.build_spec("lsketch", 100, 2)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tserve.SketchServer(spec, mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         tserve.SketchServer(spec, query_path="collective", device=CPU)
+    pool = tskt.TenantPool(spec, n_slots=2, device=CPU)
+    with pytest.raises(ValueError, match="not a TenantPool"):
+        tserve.SketchServer(pool=pool, query_path="collective")
+    with pytest.raises(ValueError, match="host-resident"):
+        tserve.SketchServer(pool=pool, mesh=object())
     with pytest.raises(SystemExit):
         tserve.main(["--tenants", "2", "--mesh", "2", "--device", "cpu"])
     with pytest.raises(SystemExit):
         tserve.main(["--tenants", "2", "--heat-threshold", "0.1",
                      "--device", "cpu"])
+
+
+MESH_PATHS = ("collective", "cuda")
+
+
+@pytest.fixture(scope="module")
+def mesh_served(tmp_path_factory):
+    """``SketchServer(mesh=...)`` over 2 gloo ranks at 4 shards on each
+    path of MESH_PATHS (one spawn), and ``repro``'s unplaced server on
+    its scan path, fed the same stream."""
+    got = spawn_ranks(R.serve_mesh, 2, device=CPU, args=(MESH_PATHS,),
+                      init_file=tmp_path_factory.mktemp("mesh") / "rdv")
+    _, jst = _streams()
+    j = jserve.SketchServer(jserve.build_spec("lsketch", PHONE.window_size,
+                                              4), query_path="scan")
+    for b in j_edge_batches(jst, 512):
+        j.ingest(b)
+    return got, j, jst
+
+
+@pytest.mark.parametrize("tpath", MESH_PATHS)
+def test_mesh_server_matches_repro(tpath, mesh_served):
+    """``SketchServer(mesh=...)`` over 2 gloo ranks at 4 shards (each rank
+    serving its block; the refusals of a 3-shard collective server and
+    of pool mode checked in the ranks): the gathered state, every answer,
+    a sweep, top-k and reachability equal ``repro``'s unplaced server's
+    on its scan path."""
+    served, j, jst = mesh_served
+    got = served[tpath]
+    for x, y in zip(got["leaves"], jax.tree.leaves(j.state.shards)):
+        np.testing.assert_array_equal(x, np.asarray(y))
+    idx, subs = R.serve_requests(jst)
+    jreqs = [j.submit(k, **a) for k, a in subs]
+    j.flush()
+    assert got["answers"] == [r.answer for r in jreqs]
+    for kind, g in zip(("vertex", "edge", "label"), got["top_k"]):
+        for a, b in zip(g, j.top_k(kind, 8)):
+            np.testing.assert_array_equal(a, np.asarray(b))
+    sl = idx[:8]
+    np.testing.assert_array_equal(got["reachable"], np.asarray(j.reachable(
+        jst.src[sl], jst.src_label[sl], jst.dst[sl], jst.dst_label[sl],
+        max_hops=3)))
+    q = jskt.QueryBatch.edges(jst.src[sl], jst.src_label[sl], jst.dst[sl],
+                              jst.dst_label[sl], last=[1, 2])
+    np.testing.assert_array_equal(got["sweep"], np.asarray(jskt.query(
+        j.spec, j.state, q, path="scan")))
+
+
+def test_serve_cli_mesh_collective_matches_repro():
+    """``--shards 8 --mesh 4 --collective``: the port's 4 gloo ranks
+    (``--device cpu``) print the deterministic lines of ``repro``'s CLI
+    over 8 fake devices."""
+    small = ["--shards", "8", "--mesh", "4", "--collective", "--edges",
+             "1024", "--requests", "64", "--ingest-batch", "256",
+             "--horizons", "1,2"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    jenv = dict(env, XLA_FLAGS="--xla_force_host_platform_device_count=8",
+                JAX_PLATFORMS="cpu")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", mod, *small, *extra], env=e, cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for mod, extra, e in (
+            ("repro_torch.launch.serve_sketch", ["--device", "cpu"], env),
+            ("repro.launch.serve_sketch", [], jenv))]
+    (tout, terr), (jout, jerr) = [p.communicate(timeout=600) for p in procs]
+    assert procs[0].returncode == 0, terr[-3000:]
+    assert procs[1].returncode == 0, jerr[-3000:]
+    assert "ingested 1024 edges" in tout and "of 4 ranks) on cpu" in tout
+    assert "answered 64 edge queries" in tout
+    assert _main_lines(tout) == _main_lines(jout) != []
 
 
 # --------------------------------------------------------------------------

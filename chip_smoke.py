@@ -185,6 +185,25 @@ Phases (any failure raises, so the exit code is non-zero):
      steps at that batch (where a step's time goes); then the prompt's
      first 128 tokens through ``serve_step`` on a 1-slot cache agree with
      L2's forward logits at those positions;
+  L4. Gemma-3 4B at its published widths and depth (34 layers: 29 local
+     of window 1024, 5 global; f32 weights from a seed): L2 and L3 at
+     8,192 prompt tokens (5 flash launches at dh=256, the local layers on
+     the plain masked attention, as in the JAX package), then the model
+     cut to its first period of 6 layers (same weights) takes a
+     1,280-token prompt through ``serve_step`` on a 1-slot 2,048-position
+     cache, wrapping the 1,024-row local rings, against its forward;
+  L5. DeepSeek-V2 at its published widths cut to 3 layers (the dense
+     layer, 2 MoE layers of 160 routed + 2 shared experts, MLA): a
+     2,048-token prefill drop-free and at the config's capacity factor
+     1.25 (the dropped share), decode of 128 tokens against the drop-free
+     prefill, the telemetry summing to tokens x 6 x 2 and ingested by a
+     ``RouterTelemetry`` on the card and one on the CPU, loads equal;
+  L6. Kimi-K2, Jamba, xLSTM, phi-3-vision (with a vision prefix) and
+     SeamlessM4T (through ``encode_memory`` and ``serve_step(memory=)``)
+     at their reduced configs, weights drawn on the CPU and carried to the
+     card: forward and ``serve_step`` card against CPU, decode against
+     the drop-free prefill, each within LOGIT_TOL; each global GQA layer
+     one flash launch (the kernel row's ``launches_lm_archs``);
   8. one JSON line of the kernels and the end-to-end numbers, the card
      line, and the result line.
 
@@ -211,6 +230,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import importlib.util
 import json
 import multiprocessing
@@ -247,7 +267,8 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import \
     ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
-    flash_attention_kernel, flash_attention_plain)
+    HEAD_DIMS as FLASH_HEAD_DIMS, flash_attention_kernel,
+    flash_attention_plain)
 from repro_torch.kernels.heavy_hitters.kernel import (  # noqa: E402
     cell_decode_kernel_sharded, cell_decode_plain)
 from repro_torch.kernels.heavy_hitters.ops import _static_blocks  # noqa: E402
@@ -414,8 +435,27 @@ FLASH_CASES = (
     ("smollm-135m prefill", 4, 9, 3, 2048, 64, torch.float32),
     ("ragged L=1000", 2, 32, 8, 1000, 128, torch.float32),
     ("bf16", 2, 32, 8, 2048, 128, torch.bfloat16),
+    ("gemma3-4b global prefill", 1, 8, 4, 8192, 256, torch.float32),
+    ("phi-3-vision prefill", 1, 32, 32, 576 + 2048, 96, torch.float32),
+    ("gemma3-4b bf16", 1, 8, 4, 8192, 256, torch.bfloat16),
 )
 FLASH_REPS = 10
+# L4: Gemma-3 4B at its published widths and depth (29 local layers of
+# window 1024, 5 global); the ring check cuts depth to one period of 6
+GEMMA_ARCH = "gemma3_4b"
+GEMMA_PREFILL = 8192
+RING_PROMPT = 1280  # > the 1,024-row local rings: they wrap
+RING_SEQ = 2048
+# L5: DeepSeek-V2 at its published widths, depth cut to the dense layer
+# and two MoE layers; 2,048 tokens (MLA's unchunked [1, 128, L, L] f32
+# scores are 34 GB at 8,192)
+DSV2_ARCH = "deepseek_v2_236b"
+DSV2_LAYERS = 3
+DSV2_PREFILL = 2048
+# L6: the other five at their reduced configs, card against CPU
+REDUCED_ARCHS = ("kimi_k2_1t_a32b", "jamba_15_large_398b", "xlstm_13b",
+                 "phi3_vision_42b", "seamless_m4t_medium")
+REDUCED_BATCH, REDUCED_LEN, REDUCED_FRAMES = 2, 64, 24
 
 WRAPPERS = {
     "sketch_insert_kernel_sharded": sketch_insert_kernel_sharded,
@@ -1509,9 +1549,10 @@ def flash_build_report() -> dict:
     _log(f"flash kernel instances (type, dh): registers, spill store / "
          f"load bytes {regs}; HMMA instructions by cuobjdump -sass "
          f"{hmma}")
-    if len(regs) != 8 or len(hmma) != 8 or min(hmma.values()) == 0:
-        raise AssertionError("the flash kernel's eight instances are not "
-                             "all built with tensor-core MMAs")
+    n = 2 * len(FLASH_HEAD_DIMS)
+    if len(regs) != n or len(hmma) != n or min(hmma.values()) == 0:
+        raise AssertionError(f"the flash kernel's {n} instances are not "
+                             f"all built with tensor-core MMAs")
     return dict(registers={f"{t} dh{d}": r for (t, d), r in regs.items()},
                 hmma=sum(hmma.values()))
 
@@ -1582,7 +1623,7 @@ def check_flash_kernel(dev, tag) -> dict:
                           max_abs_err=err, out_of_tolerance=n_bad,
                           tolerance=tol, ms=ms, plain_ms=plain_ms,
                           library_ms=library_ms, nbytes=nbytes,
-                          ops_ms=ops_ms, ops_rate=rate,
+                          ops_ms=ops_ms, ops_rate=rate, bound_ms=bound,
                           sdpa_ratio=ms / library_ms,
                           bound_share=bound / ms))
         _log(f"L1 flash {label} {cases[-1]['shape']}: max_abs_err={err:.3g} "
@@ -1608,15 +1649,16 @@ def check_flash_kernel(dev, tag) -> dict:
                for c in cases])}
 
 
-def lm_model(dev, tag):
-    """The LM config (f32) and its seeded weights, drawn on the card."""
-    cfg = configs.get(LM_ARCH, reduced=LM_REDUCED)
+def lm_model(dev, tag, cfg=None, phase="L2"):
+    """An LM config (f32; LM_ARCH's unless given) and its seeded weights,
+    drawn on the card."""
+    cfg = cfg or configs.get(LM_ARCH, reduced=LM_REDUCED)
     params, sec = _timed(lambda: lm.init_params(
         cfg, torch.Generator(device=dev).manual_seed(SEED), dev))
     nbytes = sum(p.numel() * p.element_size() for p in params.parameters())
-    _log(f"L2 {cfg.name}: {cfg.param_count()} parameters by "
-         f"ModelConfig.param_count(), {nbytes} bytes of f32 weights on the "
-         f"card, drawn in {sec:.2f} s {tag}")
+    _log(f"{phase} {cfg.name} ({cfg.n_layers} layers): {cfg.param_count()} "
+         f"parameters by ModelConfig.param_count(), {nbytes} bytes of f32 "
+         f"weights on the card, drawn in {sec:.2f} s {tag}")
     return cfg, params
 
 
@@ -1661,18 +1703,21 @@ class _LaunchTimer:
         return sum(s.elapsed_time(e) for s, e in self.events)
 
 
-def prefill_phase(cfg, params, dev, tag):
-    """L2: one prompt through the plain forward (the reference), the
-    counted kernel forward, and the kernel forward with TF32 on. Returns
-    (metrics, the prompt tokens, the kernel forward's first DECODE_CHECK
-    logits rows)."""
+def prefill_phase(cfg, params, dev, tag, length=None, tf32=True,
+                  phase="L2"):
+    """L2 (and L4): one prompt of ``length`` tokens (PREFILL_LEN) through
+    the plain forward (the reference), the counted kernel forward, and,
+    with ``tf32``, the kernel forward with TF32 on. Returns (metrics, the
+    prompt tokens, the kernel forward's first DECODE_CHECK logits
+    rows)."""
+    L = length or PREFILL_LEN
     tokens = torch.from_numpy(np.random.default_rng(SEED + 3).integers(
-        0, cfg.vocab_size, (1, PREFILL_LEN)).astype(np.int32)).to(dev)
+        0, cfg.vocab_size, (1, L)).astype(np.int32)).to(dev)
     batch = {"tokens": tokens}
     saved = tattn.CHUNKED_ATTN_THRESHOLD
     tattn.CHUNKED_ATTN_THRESHOLD = min(saved, PLAIN_CHUNK_THRESHOLD)
     try:
-        ref, plain_s = _timed(lambda: lm.forward(
+        (ref, _), plain_s = _timed(lambda: lm.forward(
             cfg.replace(attn_impl="plain"), params, batch))
     finally:
         tattn.CHUNKED_ATTN_THRESHOLD = saved
@@ -1684,30 +1729,34 @@ def prefill_phase(cfg, params, dev, tag):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     with _LaunchTimer() as timer:
-        (logits, sec), launches = count_launches(
+        ((logits, _), sec), launches = count_launches(
             (), lambda: _timed(lambda: lm.forward(cfg, params, batch)))
     kernel_ms = timer.ms()
     peak = torch.cuda.max_memory_allocated()
     n = launches["flash_attention_kernel"]
     V = cfg.vocab_size
-    if tuple(logits.shape) != (1, PREFILL_LEN, V) or \
+    if tuple(logits.shape) != (1, L, V) or \
             not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"bad prefill logits {tuple(logits.shape)}")
     err = logit_err(logits, ref_cpu, scale)
     head = logits[0, :DECODE_CHECK].clone()
     del logits
     torch.cuda.empty_cache()
-    torch.backends.cuda.matmul.allow_tf32 = True
-    try:
-        tf32 = lm.forward(cfg, params, batch)
-        err_tf32 = logit_err(tf32, ref_cpu, scale)
-        del tf32
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = False
+    err_tf32 = None
+    if tf32:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32_logits, _ = lm.forward(cfg, params, batch)
+            err_tf32 = logit_err(tf32_logits, ref_cpu, scale)
+            del tf32_logits
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+    del ref_cpu
     torch.cuda.empty_cache()
-    D, L = cfg.d_model, PREFILL_LEN
+    D = cfg.d_model
     mm_flops = 2 * L * (cfg.param_count() - V * D)  # the table is a gather
-    attn_flops = cfg.n_layers * flash_flops(1, cfg.n_heads, L, cfg.head_dim)
+    attn_flops = n_flash_layers(cfg) * flash_flops(1, cfg.n_heads, L,
+                                                   cfg.head_dim)
     out = dict(prefill_tokens_per_s=L / sec, prefill_s=sec,
                plain_prefill_s=plain_s, prefill_flash_ms=kernel_ms,
                prefill_flash_share=kernel_ms / (1e3 * sec),
@@ -1715,40 +1764,56 @@ def prefill_phase(cfg, params, dev, tag):
                prefill_logit_rel_err=err, prefill_logit_rel_err_tf32=err_tf32,
                logit_scale=scale, logit_tol=LOGIT_TOL,
                prefill_matmul_flops=mm_flops, prefill_attention_flops=attn_flops)
-    _log(f"L2 prefill of {L} tokens, {cfg.name}: kernel forward {sec:.3f} s "
+    _log(f"{phase} prefill of {L} tokens, {cfg.name}: kernel forward "
+         f"{sec:.3f} s "
          f"= {L / sec:.1f} tokens/s ({(mm_flops + attn_flops) / sec / 1e12:.2f}"
          f" TFLOP/s over {mm_flops:.4g} matmul + {attn_flops:.4g} attention "
          f"flops), {n} flash launches taking {kernel_ms:.1f} ms by CUDA "
          f"events ({kernel_ms / (1e3 * sec):.4f} of the forward); plain "
          f"forward {plain_s:.3f} s; peak device memory {peak} bytes {tag}")
-    _log(f"L2 logits: max|kernel - plain| / max|plain| = {err:.3g} (max "
-         f"|plain| {scale:.4g}; tolerance {LOGIT_TOL}); the same with TF32 "
-         f"on: {err_tf32:.3g}")
+    _log(f"{phase} logits: max|kernel - plain| / max|plain| = {err:.3g} "
+         f"(max |plain| {scale:.4g}; tolerance {LOGIT_TOL})" +
+         (f"; the same with TF32 on: {err_tf32:.3g}" if tf32 else ""))
     if not err <= LOGIT_TOL:
         raise AssertionError("kernel-forward logits disagree with the plain "
                              "forward")
     return out, tokens, head
 
 
+def n_flash_layers(cfg) -> int:
+    """The flash launches of one forward: the GQA attention layers without
+    a window, of the decoder and the encoder."""
+    if cfg.attention != "gqa":
+        return 0
+    return sum(p.kind == "attn" and not p.window
+               for plan in lm.plans(cfg) if plan is not None
+               for p in plan.layers)
+
+
 def check_prefill_on_the_card(cfg, out) -> None:
-    """L2's card-only checks: one flash launch per layer, and TF32 fails
-    the logit tolerance that the f32 kernel forward meets."""
-    if out["prefill_flash_launches"] != cfg.n_layers:
+    """L2's and L4's card-only checks: one flash launch per global GQA
+    layer and, where it ran, TF32 fails the logit tolerance that the f32
+    kernel forward meets."""
+    if out["prefill_flash_launches"] != n_flash_layers(cfg):
         raise AssertionError(f"{out['prefill_flash_launches']} flash "
-                             f"launches in a {cfg.n_layers}-layer forward")
-    if not out["prefill_logit_rel_err_tf32"] > LOGIT_TOL:
+                             f"launches in a forward of "
+                             f"{n_flash_layers(cfg)} global GQA layers")
+    err = out["prefill_logit_rel_err_tf32"]
+    if err is not None and not err > LOGIT_TOL:
         raise AssertionError("the logit tolerance does not catch TF32")
 
 
-def profile_decode(cfg, params, dev, tag, steps: int = 8) -> dict:
+def profile_decode(cfg, params, dev, tag, steps: int = 8, serve=None,
+                   phase="L3") -> dict:
     """L3: a profiler trace of ``steps`` decode steps at the server's
     batch, each ending in the logits' copy to the host as the server's
     does: wall and device-kernel time per step (where a step's time
     goes)."""
     from torch.profiler import ProfilerActivity, profile
 
-    B = SERVE["batch_slots"]
-    caches = lm.init_cache(cfg, B, SERVE["max_seq"], dev)
+    serve = serve or SERVE
+    B = serve["batch_slots"]
+    caches = lm.init_cache(cfg, B, serve["max_seq"], dev)
     tok = torch.zeros((B, 1), dtype=torch.int32, device=dev)
     lm.serve_step(cfg, params, caches, tok)[0].cpu()  # warm
     with profile(activities=[ProfilerActivity.CPU,
@@ -1765,7 +1830,8 @@ def profile_decode(cfg, params, dev, tag, steps: int = 8) -> dict:
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     launches = sum(e.count for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    _log(f"L3 profile of {steps} decode steps at batch {B}: wall "
+    del caches
+    _log(f"{phase} profile of {steps} decode steps at batch {B}: wall "
          f"{1e3 * wall / steps:.3f} ms/step, device kernels {dev_ms / steps:.3f}"
          f" ms/step (busy share {dev_ms / 1e3 / wall:.4f}), "
          f"{launches / steps:.0f} kernels/step; top by device time "
@@ -1777,16 +1843,18 @@ def profile_decode(cfg, params, dev, tag, steps: int = 8) -> dict:
                 decode_profile_busy_share=dev_ms / 1e3 / wall)
 
 
-def serve_phase(cfg, params, tokens, head, dev, tag) -> dict:
-    """L3: the decode server on SERVE's requests, then the prompt's first
-    DECODE_CHECK tokens through ``serve_step`` on a 1-slot cache against
-    the prefill logits at those positions."""
+def serve_phase(cfg, params, tokens, head, dev, tag, serve=None,
+                phase="L3") -> dict:
+    """L3 (and L4): the decode server on ``serve``'s requests (SERVE's),
+    then the prompt's first DECODE_CHECK tokens through ``serve_step`` on
+    a 1-slot cache against the prefill logits at those positions."""
+    serve = serve or SERVE
     rng = np.random.default_rng(SEED + 4)
     reqs = [Request(prompt=[int(t) for t in rng.integers(
-        0, cfg.vocab_size, SERVE["prompt"])], max_new=SERVE["max_new"])
-        for _ in range(SERVE["requests"])]
-    server = DecodeServer(cfg, params, batch_slots=SERVE["batch_slots"],
-                          max_seq=SERVE["max_seq"], device=dev)
+        0, cfg.vocab_size, serve["prompt"])], max_new=serve["max_new"])
+        for _ in range(serve["requests"])]
+    server = DecodeServer(cfg, params, batch_slots=serve["batch_slots"],
+                          max_seq=serve["max_seq"], device=dev)
     steps = [0]
     inner_step = server.step
 
@@ -1798,7 +1866,7 @@ def serve_phase(cfg, params, tokens, head, dev, tag) -> dict:
     (_, sec), launches = count_launches((), lambda: _timed(
         lambda: server.run(reqs)))
     n_new = [len(r.out) for r in reqs]
-    if not all(r.done for r in reqs) or n_new != [SERVE["max_new"]] * len(
+    if not all(r.done for r in reqs) or n_new != [serve["max_new"]] * len(
             reqs):
         raise AssertionError(f"requests unfinished: new tokens {n_new}")
     weight_bytes = sum(p.numel() * p.element_size()
@@ -1809,16 +1877,19 @@ def serve_phase(cfg, params, tokens, head, dev, tag) -> dict:
     out = dict(decode_tokens_per_s=sum(n_new) / sec, decode_steps=steps[0],
                decode_ms_per_step=1e3 * sec / steps[0],
                decode_step_bound_ms=step_bound_ms,
-               decode_tokens_processed_per_s=steps[0] * SERVE["batch_slots"]
+               decode_tokens_processed_per_s=steps[0] * serve["batch_slots"]
                / sec)
-    _log(f"L3 DecodeServer {SERVE}: {len(reqs)} of {len(reqs)} requests done, "
+    del server.step, server  # the wrapper's cycle held the weights
+    _log(f"{phase} DecodeServer {serve}: {len(reqs)} of {len(reqs)} "
+         f"requests done, "
          f"{sum(n_new)} new tokens in {sec:.3f} s = "
          f"{out['decode_tokens_per_s']:.2f} tokens/s; {steps[0]} steps, "
          f"{out['decode_ms_per_step']:.3f} ms/step against a {step_bound_ms:.3f}"
          f" ms byte bound (weights read once a step); flash launches "
          f"{launches['flash_attention_kernel']} (decode never runs it); "
          f"first request's tokens {reqs[0].out[:8]} {tag}")
-    out.update(profile_decode(cfg, params, dev, tag))
+    out.update(profile_decode(cfg, params, dev, tag, serve=serve,
+                              phase=phase))
     caches = lm.init_cache(cfg, 1, DECODE_CHECK, dev)
     err = 0.0
     for i in range(DECODE_CHECK):
@@ -1826,12 +1897,285 @@ def serve_phase(cfg, params, tokens, head, dev, tag) -> dict:
         err = max(err, float((lg[0, 0] - head[i]).abs().max()))
     rel = err / float(head.abs().max())
     out["decode_logit_rel_err"] = rel
-    _log(f"L3 decode vs prefill over {DECODE_CHECK} positions: max|decode - "
+    _log(f"{phase} decode vs prefill over {DECODE_CHECK} positions: "
+         f"max|decode - "
          f"prefill| / max|prefill| = {rel:.3g} (tolerance {LOGIT_TOL})")
     if not rel <= LOGIT_TOL:
         raise AssertionError("decode through the cache disagrees with the "
                              "prefill")
     return out
+
+
+# --------------------------------------------------------------------------
+# L4-L6: the other LM architectures
+# --------------------------------------------------------------------------
+
+def gemma_phase(dev, tag) -> tuple:
+    """L4: Gemma-3 4B at its published widths and depth: the prefill
+    against the plain forward, the decode server and decode against the
+    prefill (``prefill_phase``/``serve_phase`` at GEMMA_PREFILL), then the
+    ring wrap at depth 6. Returns (metrics, the flash launches of the
+    prefill and of the ring model's forward)."""
+    cfg, params = lm_model(dev, tag, configs.get(GEMMA_ARCH,
+                                                 reduced=LM_REDUCED),
+                           phase="L4")
+    out, tokens, head = prefill_phase(cfg, params, dev, tag,
+                                      length=GEMMA_PREFILL, tf32=False,
+                                      phase="L4")
+    if dev.type == "cuda":  # CPU tensors take the plain version
+        check_prefill_on_the_card(cfg, out)
+    out.update(serve_phase(cfg, params, tokens, head, dev, tag,
+                           phase="L4"))
+    del tokens, head
+    torch.cuda.empty_cache()
+    out.update(ring_phase(cfg, params, dev, tag))
+    out["param_count"] = cfg.param_count()
+    del params
+    torch.cuda.empty_cache()
+    return out, {"gemma3_4b prefill": out["prefill_flash_launches"],
+                 "gemma3_4b ring forward": out["ring_flash_launches"]}
+
+
+def ring_phase(cfg, params, dev, tag) -> dict:
+    """L4 ring wrap: the full-width model cut to its first period (5 local
+    layers, 1 global; the same weights), a RING_PROMPT-token prompt
+    through ``serve_step`` on a 1-slot RING_SEQ-position cache — the
+    local layers' 1,024-row rings wrap — against that model's forward
+    logits at every position."""
+    plan = lm.plans(cfg)[0]
+    n = len(plan.pattern)
+    cut = cfg.replace(n_layers=n)
+    top = {k: params[k] for k in ("embed", "final_norm")}
+    model = lm.LMParams({}, params.layers[:n])
+    for k, v in top.items():
+        model.add_module(k, v)
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 5).integers(
+        0, cfg.vocab_size, (1, RING_PROMPT)).astype(np.int32)).to(dev)
+    (full, _), launches = count_launches(
+        ("flash_attention_kernel",) if dev.type == "cuda" else (),
+        lambda: lm.forward(cut, model, {"tokens": tokens}))
+    caches = lm.init_cache(cut, 1, RING_SEQ, dev)
+    rows = {c["mixer"]["k"].shape[1] for c in caches}
+    scale = float(full.abs().max())
+    err = 0.0
+    _sync()
+    t0 = time.perf_counter()
+    for i in range(RING_PROMPT):
+        lg, caches = lm.serve_step(cut, model, caches, tokens[:, i:i + 1])
+        err = max(err, float((lg[0, 0] - full[0, i]).abs().max()))
+    sec = time.perf_counter() - t0
+    rel = err / scale
+    windows = [p.window for p in plan.pattern]
+    _log(f"L4 ring wrap: {cut.name} cut to {n} layers (windows {windows}), "
+         f"{RING_PROMPT} prompt tokens through "
+         f"serve_step on a 1-slot {RING_SEQ}-position cache (cache rows "
+         f"{sorted(rows)}): max|decode - forward| / max|forward| = "
+         f"{rel:.3g} (tolerance {LOGIT_TOL}); {1e3 * sec / RING_PROMPT:.3f} "
+         f"ms/step; the forward's flash launches "
+         f"{launches['flash_attention_kernel']} {tag}")
+    if min(rows) >= RING_PROMPT or not rel <= LOGIT_TOL:
+        raise AssertionError("L4: the ring-buffered decode disagrees with "
+                             "the forward (or never wrapped)")
+    return dict(ring_logit_rel_err=rel, ring_ms_per_step=1e3 * sec /
+                RING_PROMPT, ring_flash_launches=launches[
+                    "flash_attention_kernel"])
+
+
+def deepseek_phase(dev, tag) -> dict:
+    """L5: DeepSeek-V2 at its published widths, depth DSV2_LAYERS (the
+    dense layer, then MoE layers of 160 routed + 2 shared experts): a
+    DSV2_PREFILL-token prefill drop-free (capacity factor = n_experts) and
+    at the config's 1.25 (its dropped share); the first DECODE_CHECK
+    tokens through ``serve_step`` against the drop-free prefill; the
+    prefill's telemetry (tokens x top_k x MoE layers edges) ingested by a
+    ``RouterTelemetry`` on the card and one on the CPU, loads equal."""
+    cfg = configs.get(DSV2_ARCH, reduced=LM_REDUCED).replace(
+        n_layers=DSV2_LAYERS)
+    cfg, params = lm_model(dev, tag, cfg, phase="L5")
+    n_moe = sum(p.mlp == "moe" for p in lm.plans(cfg)[0].layers)
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 6).integers(
+        0, cfg.vocab_size, (1, DSV2_PREFILL)).astype(np.int32)).to(dev)
+    free = cfg.replace(capacity_factor=float(cfg.n_experts))
+    torch.cuda.reset_peak_memory_stats()
+    ((logits, aux_free), sec_free), launches = count_launches(
+        (), lambda: _timed(lambda: lm.forward(free, params,
+                                              {"tokens": tokens})))
+    peak = torch.cuda.max_memory_allocated()
+    head = logits[0, :DECODE_CHECK].clone()
+    ok = tuple(logits.shape) == (1, DSV2_PREFILL, cfg.vocab_size) and bool(
+        torch.isfinite(logits).all())
+    del logits
+    torch.cuda.empty_cache()
+    (_, aux), sec = _timed(lambda: lm.forward(cfg, params,
+                                              {"tokens": tokens}))
+    caches = lm.init_cache(cfg, 1, DECODE_CHECK, dev)
+    err = 0.0
+    _sync()
+    t0 = time.perf_counter()
+    for i in range(DECODE_CHECK):
+        lg, caches = lm.serve_step(cfg, params, caches, tokens[:, i:i + 1])
+        err = max(err, float((lg[0, 0] - head[i]).abs().max()))
+    dec_sec = time.perf_counter() - t0
+    rel = err / float(head.abs().max())
+    del caches, head
+    want = DSV2_PREFILL * cfg.top_k * n_moe
+    tele = aux["telemetry"]
+    tele_sum = int(tele.sum())
+    counts = tele.cpu().numpy()
+    card = RouterTelemetry(n_experts=cfg.n_experts, device=dev)
+    host = RouterTelemetry(n_experts=cfg.n_experts, device="cpu")
+    card.ingest(counts, step=0)
+    host.ingest(counts, step=0)
+    load, load_cpu = card.load_vector(), host.load_vector()
+    # one-sided up to the pool's lost weight: logged, not checked
+    under = int((load < counts.sum(0)).sum())
+    _log(f"L5 {cfg.name} cut to {DSV2_LAYERS} layers ({n_moe} MoE of "
+         f"{cfg.n_experts} + {cfg.n_shared_experts} experts, top-"
+         f"{cfg.top_k}): {DSV2_PREFILL}-token prefill drop-free {sec_free:.3f}"
+         f" s ({DSV2_PREFILL / sec_free:.1f} tokens/s, peak device memory "
+         f"{peak} bytes, flash launches {launches['flash_attention_kernel']}"
+         f", MLA runs the plain attention), at capacity factor "
+         f"{cfg.capacity_factor} {sec:.3f} s with dropped share "
+         f"{float(aux['dropped']):.5f} (summed over {n_moe} layers; "
+         f"drop-free {float(aux_free['dropped']):.5f}), lb_loss "
+         f"{float(aux['lb_loss']):.5f}, z_loss {float(aux['z_loss']):.5f} "
+         f"{tag}")
+    _log(f"L5 decode of {DECODE_CHECK} tokens vs the drop-free prefill: "
+         f"max|decode - prefill| / max|prefill| = {rel:.3g} (tolerance "
+         f"{LOGIT_TOL}), {1e3 * dec_sec / DECODE_CHECK:.3f} ms/step; "
+         f"telemetry sums to {tele_sum} (tokens x top_k x MoE layers = "
+         f"{want}); RouterTelemetry on the card vs the CPU: load vectors "
+         f"{'equal' if np.array_equal(load, load_cpu) else 'differ'}, "
+         f"{under} experts under their counted load {tag}")
+    if not ok or not rel <= LOGIT_TOL or tele_sum != want or \
+            int(aux_free["telemetry"].sum()) != want or \
+            float(aux_free["dropped"]) != 0.0 or \
+            not np.array_equal(load, load_cpu):
+        raise AssertionError("L5: DeepSeek-V2's serving path failed a check")
+    del params
+    torch.cuda.empty_cache()
+    return dict(prefill_s_drop_free=sec_free, prefill_s=sec,
+                prefill_tokens_per_s=DSV2_PREFILL / sec_free,
+                peak_memory_bytes=peak, dropped=float(aux["dropped"]),
+                lb_loss=float(aux["lb_loss"]), z_loss=float(aux["z_loss"]),
+                decode_logit_rel_err=rel,
+                decode_ms_per_step=1e3 * dec_sec / DECODE_CHECK,
+                telemetry_sum=tele_sum, telemetry_under_counted=under,
+                param_count=cfg.param_count())
+
+
+def _arch_batch(cfg, dev):
+    """Tokens and the arch's frontend inputs of L6, from SEED."""
+    rng = np.random.default_rng(SEED + 7)
+    B, L = REDUCED_BATCH, REDUCED_LEN
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, L)).astype(
+        np.int32)}
+    if cfg.frontend == "vision":
+        batch["prefix_emb"] = rng.standard_normal(
+            (B, cfg.frontend_len, cfg.d_model)).astype(np.float32)
+    if cfg.is_encdec:
+        batch["frame_emb"] = rng.standard_normal(
+            (B, REDUCED_FRAMES, cfg.d_model)).astype(np.float32)
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def reduced_arch_phase(arch, dev, tag) -> tuple:
+    """L6, one arch at its reduced config: weights drawn on the CPU from
+    SEED and carried to the card; the card's forward (logits and aux; the
+    kernel where the arch has global GQA layers) against the CPU's plain
+    forward, ``serve_step`` over every position on both, and the card's
+    decode against its own drop-free prefill (without the vision prefix,
+    which the decode does not take). Returns (metrics, the forward's
+    flash launches)."""
+    cfg = configs.get(arch, reduced=True)
+    cpu = lm.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    params = lm.init_params(cfg, torch.Generator().manual_seed(SEED),
+                            "cpu").to(dev)
+    batch_cpu = _arch_batch(cfg, "cpu")
+    batch = {k: v.to(dev) for k, v in batch_cpu.items()}
+    torch.cuda.reset_peak_memory_stats()
+    ((logits, aux), sec), launches = count_launches(
+        (), lambda: _timed(lambda: lm.forward(cfg, params, batch)))
+    want, want_aux = lm.forward(cfg, cpu, batch_cpu)
+    scale = float(want.abs().max())
+    fwd_err = float((logits.cpu() - want).abs().max()) / scale
+    tele_equal = torch.equal(aux["telemetry"].cpu(), want_aux["telemetry"])
+    free = cfg.replace(capacity_factor=float(max(cfg.n_experts, 1)))
+    text = {"tokens": batch["tokens"], **({"frame_emb": batch["frame_emb"]}
+                                          if cfg.is_encdec else {})}
+    full, _ = lm.forward(free, params, text)
+    mem = mem_cpu = None
+    if cfg.is_encdec:
+        mem = lm.encode_memory(cfg, params, batch["frame_emb"])
+        mem_cpu = lm.encode_memory(cfg, cpu, batch_cpu["frame_emb"])
+    B, L = batch["tokens"].shape
+    caches = lm.init_cache(cfg, B, L, dev)
+    caches_cpu = lm.init_cache(cfg, B, L, "cpu")
+    step_err = dec_err = 0.0
+    fscale = float(full.abs().max())
+    _sync()
+    t0 = time.perf_counter()
+    for i in range(L):
+        lg, caches = lm.serve_step(cfg, params, caches,
+                                   batch["tokens"][:, i:i + 1], memory=mem)
+        lc, caches_cpu = lm.serve_step(cfg, cpu, caches_cpu,
+                                       batch_cpu["tokens"][:, i:i + 1],
+                                       memory=mem_cpu)
+        lg = lg.cpu()
+        step_err = max(step_err, float((lg - lc).abs().max()) /
+                       float(lc.abs().max()))
+        dec_err = max(dec_err, float((lg[:, 0] - full[:, i].cpu()).abs()
+                                     .max()) / fscale)
+    sec_dec = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n = launches["flash_attention_kernel"]
+    _log(f"L6 {cfg.name} (reduced: {cfg.n_layers} layers"
+         f"{f' + {cfg.encoder_layers} encoder' if cfg.is_encdec else ''}, "
+         f"d_model {cfg.d_model}), batch {B} x {L}"
+         f"{' + a vision prefix' if 'prefix_emb' in batch else ''}"
+         f"{' + frames' if cfg.is_encdec else ''}: forward card vs CPU "
+         f"{fwd_err:.3g}, telemetry {'equal' if tele_equal else 'differs'}"
+         f" (dropped {float(aux['dropped']):.4f}); serve_step card vs CPU "
+         f"{step_err:.3g}; decode vs drop-free prefill {dec_err:.3g} "
+         f"(tolerance {LOGIT_TOL} of the largest logit); forward "
+         f"{1e3 * sec:.1f} ms, {n} flash launches (want "
+         f"{n_flash_layers(cfg)}); decode (card and CPU steps) "
+         f"{1e3 * sec_dec / L:.3f} ms/step; peak device memory {peak} bytes "
+         f"{tag}")
+    if not (fwd_err <= LOGIT_TOL and step_err <= LOGIT_TOL
+            and dec_err <= LOGIT_TOL and tele_equal):
+        raise AssertionError(f"L6: {cfg.name} on the card disagrees")
+    if dev.type == "cuda" and n != n_flash_layers(cfg):
+        raise AssertionError(f"L6: {cfg.name}: {n} flash launches")
+    return dict(forward_rel_err=fwd_err, serve_step_rel_err=step_err,
+                decode_rel_err=dec_err, forward_ms=1e3 * sec,
+                ms_per_step=1e3 * sec_dec / L, peak_memory_bytes=peak,
+                flash_launches=n), n
+
+
+def arch_phases(dev, tag) -> tuple:
+    """L4, L5 and L6 in turn. Returns (metrics by arch, the flash launches
+    of each new path)."""
+    out, launches = {}, {}
+    _free_card()
+    out["gemma3_4b"], launches_g = gemma_phase(dev, tag)
+    launches.update(launches_g)
+    _free_card()
+    out["deepseek_v2_236b"] = deepseek_phase(dev, tag)
+    for arch in REDUCED_ARCHS:
+        _free_card()
+        out[arch], launches[f"{arch} reduced forward"] = \
+            reduced_arch_phase(arch, dev, tag)
+    _free_card()
+    return out, launches
+
+
+def _free_card() -> None:
+    """Collect what only reference cycles still hold (a model's weights)
+    and give the cached blocks back, so a phase starts from an empty
+    card."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------------
@@ -4313,6 +4657,8 @@ def main() -> int:
     lm_out.update(serve_phase(cfg_lm, params, tokens, head, dev, tag))  # L3
     del params, head
     torch.cuda.empty_cache()
+    arch_out, arch_launches = arch_phases(dev, tag)  # L4-L6
+    results["flash_attention_kernel"]["launches_lm_archs"] = arch_launches
 
     seconds = time.perf_counter() - t_start
     _log(f"total {seconds:.1f} s")
@@ -4326,7 +4672,7 @@ def main() -> int:
                       "tenant": tenant_out, "server": server_out,
                       "merge": merge_out, "object": obj_out,
                       "collective": collective_out,
-                      **profile, **lm_out,
+                      **profile, **lm_out, "archs": arch_out,
                       "seconds": seconds}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

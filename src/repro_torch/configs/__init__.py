@@ -2,8 +2,7 @@
 
 ``get(name)`` returns the full published config; ``get(name, reduced=True)``
 the same-family smoke-test config (small widths, few layers, tiny vocab)
-used by the CPU tests. Only the dense-GQA decoders are ported; the other
-architectures raise and name the ``ROADMAP.md`` item that brings them.
+used by the CPU tests. Every architecture of the JAX package is here.
 """
 
 from __future__ import annotations
@@ -36,27 +35,10 @@ ALIASES = {
     "xlstm-1.3b": "xlstm_13b",
 }
 
-PORTED = ("qwen3_8b", "qwen15_110b", "smollm_135m")
-
-# what each architecture still needs (ROADMAP.md queue 1, item 15)
-UNPORTED = {
-    "gemma3_4b": "sliding-window attention layers",
-    "deepseek_v2_236b": "MLA attention and MoE layers",
-    "kimi_k2_1t_a32b": "MoE layers",
-    "jamba_15_large_398b": "Mamba mixers and MoE layers",
-    "xlstm_13b": "mLSTM/sLSTM mixers",
-    "phi3_vision_42b": "the vision prefix",
-    "seamless_m4t_medium": "the encoder-decoder stack",
-}
-
 
 def get(name: str, reduced: bool = False):
     mod_name = ALIASES.get(name, name)
-    if mod_name in UNPORTED:
-        raise NotImplementedError(
-            f"{name}: not ported yet — needs {UNPORTED[mod_name]} "
-            f"(ROADMAP.md queue 1, item 15)")
-    if mod_name not in PORTED:
+    if mod_name not in ARCHS:
         raise ValueError(f"unknown architecture {name!r}")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.reduced_config() if reduced else mod.config()

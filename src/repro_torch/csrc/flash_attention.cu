@@ -11,10 +11,11 @@
 // rows i >= Lq are not stored), so the wrapper pads nothing.
 //
 // Design: FlashAttention-2 on the tensor cores through mma.sync.
-//   - one block of 4 warps per (query head of one batch row, 64-row query
-//     tile); each warp owns 16 query rows. The tiles of one head run
-//     heaviest-first, so the long causal rows start early. Query head h
-//     reads KV head h / g in place (no repeat copy).
+//   - one block of 4 warps (8 above dh=128, below) per (query head of
+//     one batch row, 64-row query tile); each warp owns 16 query rows.
+//     The tiles of one head run heaviest-first, so the long causal rows
+//     start early. Query head h reads KV head h / g in place (no repeat
+//     copy).
 //   - K and V tiles of BK keys stream through a 2-stage ring in dynamic
 //     shared memory, filled by cp.async (16 B a thread, coalesced; rows
 //     j >= Lk zero-filled through the src-size operand); tile t+1's copy
@@ -55,6 +56,17 @@
 //     by one fmaf with alpha. On an H100 at Qwen3-8B's launch this took
 //     the largest error from 9.3e-6 to 2.2e-6 and the time down by a
 //     quarter (the chains are shorter and independent).
+//   - head dims 16, 32, 64, 96, 128 and 256 are instances. Above 128 the
+//     block has 8 warps: the two warps of a pair share 16 query rows and
+//     each owns half of dh. Each computes its half of every score's dot
+//     (over its dh columns of Q and K), the pair adds the two halves
+//     through a padded [2][64][BK + 8] f32 buffer in shared memory and a
+//     64-thread named barrier, and both then hold the same scores, run the
+//     same online softmax and multiply P by their own half of V's columns
+//     into their own half of O. A warp's registers are those of dh=128
+//     (one warp's f32 O and P V accumulators alone would take 256 a
+//     thread at dh=256). Shared memory at dh=256, f32: Q 67.6 KB, two
+//     stages of K and V 134.1 KB, the exchange 20.5 KB: 222 KB of 227.
 //   - causal KV tiles wholly above the diagonal are not visited, by the
 //     block or, within the last tile, by a warp: such a tile would leave
 //     m unchanged, give alpha = 1 and add p = 0. Tile 0 is visited first,
@@ -79,21 +91,30 @@
 
 namespace {
 
-constexpr int BQ = 64;  // query rows per block, 16 per warp
-constexpr int WARPS = BQ / 16;
-constexpr int THREADS = 32 * WARPS;
+constexpr int BQ = 64;  // query rows per block, 16 per warp (pair)
+constexpr int ROW_WARPS = BQ / 16;
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <typename T, int DH>
 struct Tile {
   static constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
-  // 32-key tiles for bf16 and for f32 at dh=128 (f32: two blocks fit an
-  // SM; bf16: three, and 20 % less time at [2,32,2048,128] on an H100);
-  // 64 for the f32 head dims whose registers and shared memory allow it
-  static constexpr int BK = (BF16 || DH == 128) ? 32 : 64;
+  // above dh=128 a pair of warps shares each 16 query rows, each warp
+  // owning half of dh: its half of every score's dot (the pair adds the
+  // two through shared memory) and its half of O's columns. A warp's
+  // registers then hold what they hold at dh=128 (one warp's f32 O and
+  // P V accumulators at dh=256 would be 256 registers a thread)
+  static constexpr int SPLIT = DH > 128 ? 2 : 1;
+  static constexpr int DW = DH / SPLIT;   // dh columns a warp owns
+  static constexpr int WARPS = ROW_WARPS * SPLIT;
+  static constexpr int THREADS = 32 * WARPS;
+  // 32-key tiles for bf16 and for f32 from dh=96 (f32 at dh=128: two
+  // blocks fit an SM; bf16: three, and 20 % less time at
+  // [2,32,2048,128] on an H100); 64 for the f32 head dims whose
+  // registers and shared memory allow it
+  static constexpr int BK = (BF16 || DH >= 96) ? 32 : 64;
   static constexpr int NT = BK / 8;       // n8 key tiles of S
-  static constexpr int ND = DH / 8;       // n8 column tiles of O
+  static constexpr int ND = DW / 8;       // n8 column tiles of O a warp owns
   static constexpr int QS = DH + 8;       // Q and K row stride, elements
   static constexpr int VS = BF16 ? DH + 8 : DH + 4;
   static constexpr int Q = BQ * QS;       // elements
@@ -101,7 +122,12 @@ struct Tile {
   static constexpr int V = BK * VS;
   static constexpr int CH = DH * (int)sizeof(T) / 16;  // 16 B chunks a row
   static constexpr int EPC = 16 / (int)sizeof(T);      // elements a chunk
-  static constexpr size_t bytes = (size_t)(Q + 2 * (K + V)) * sizeof(T);
+  // the pair's exchange of partial scores: [SPLIT][BQ][XS] f32, rows
+  // padded so that the float2 stores and loads are free of bank conflicts
+  static constexpr int XS = BK + 8;
+  static constexpr size_t X = SPLIT > 1 ? (size_t)SPLIT * BQ * XS : 0;
+  static constexpr size_t bytes =
+      (size_t)(Q + 2 * (K + V)) * sizeof(T) + X * sizeof(float);
 };
 
 // 2^x, flushing results below 2^-126 to zero (p that small adds nothing
@@ -188,6 +214,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// the two warps of one row pair (64 threads) meet; barrier 0 is
+// __syncthreads's
+__device__ __forceinline__ void pair_sync(int pair) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + pair) : "memory");
+}
+
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
@@ -201,7 +233,7 @@ __device__ __forceinline__ void load_kv(T* sK, T* sV, const T* k, const T* v,
                                         int64_t kv_base, int k0, int Lk,
                                         int tid) {
   using C = Tile<T, DH>;
-  for (int e = tid; e < C::BK * C::CH; e += THREADS) {
+  for (int e = tid; e < C::BK * C::CH; e += C::THREADS) {
     const int r = e / C::CH, c = (e % C::CH) * C::EPC, j = k0 + r;
     const bool ok = j < Lk;
     const int64_t off = kv_base + (int64_t)(ok ? j : 0) * DH + c;
@@ -211,7 +243,7 @@ __device__ __forceinline__ void load_kv(T* sK, T* sV, const T* k, const T* v,
 }
 
 template <typename T, int DH>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(Tile<T, DH>::THREADS)
     lsk_flash_attention_kernel(const T* __restrict__ q,
                                const T* __restrict__ k,
                                const T* __restrict__ v, T* __restrict__ out,
@@ -223,12 +255,16 @@ __global__ void __launch_bounds__(THREADS)
   T* sQ = reinterpret_cast<T*>(smem_raw);
   T* sK0 = sQ + C::Q;  // ring slot s: K at sK0 + s K, V at sV0 + s V
   T* sV0 = sK0 + 2 * C::K;
+  // the pair's partial scores (SPLIT > 1): half s's at sX + s BQ XS
+  float* sX = reinterpret_cast<float*>(sV0 + 2 * C::V);
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int g = lane / 4, t4 = lane % 4;  // fragment row group, column
   const int bh = blockIdx.x;              // b * Hq + h
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
-  const int r0 = 16 * warp;               // this warp's first row
+  const int pair = warp % ROW_WARPS, half = warp / ROW_WARPS;
+  const int r0 = 16 * pair;               // this warp's first row
+  const int c0 = C::DW * half;            // and first dh column
   const int b = bh / Hq, h = bh % Hq;
   const int64_t q_base = (int64_t)bh * Lq * DH;
   const int64_t kv_base = ((int64_t)b * Hkv + h / (Hq / Hkv)) * Lk * DH;
@@ -239,13 +275,13 @@ __global__ void __launch_bounds__(THREADS)
 
   // stage Q (rows i >= Lq as zeros) and KV tile 0
   if constexpr (C::BF16) {
-    for (int e = tid; e < BQ * C::CH; e += THREADS) {
+    for (int e = tid; e < BQ * C::CH; e += C::THREADS) {
       const int r = e / C::CH, c = (e % C::CH) * C::EPC, i = q0 + r;
       cp_async16(sQ + r * C::QS + c,
                  q + q_base + (int64_t)(i < Lq ? i : 0) * DH + c, i < Lq);
     }
   } else {  // f32: scaled on the way in, as JAX scales q before the dot
-    for (int e = tid; e < BQ * C::CH; e += THREADS) {
+    for (int e = tid; e < BQ * C::CH; e += C::THREADS) {
       const int r = e / C::CH, c = (e % C::CH) * 4, i = q0 + r;
       float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
       if (i < Lq)
@@ -262,13 +298,13 @@ __global__ void __launch_bounds__(THREADS)
   cp_wait_all();
   __syncthreads();
 
-  // bf16: this warp's Q fragments, once, in registers
-  uint32_t qf[C::BF16 ? DH / 16 : 1][4];
+  // bf16: this warp's Q fragments (its dh columns), once, in registers
+  uint32_t qf[C::BF16 ? C::DW / 16 : 1][4];
   if constexpr (C::BF16) {
     const T* p = sQ + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * C::QS +
-                 (lane >> 4) * 8;
+                 c0 + (lane >> 4) * 8;
 #pragma unroll
-    for (int ks = 0; ks < DH / 16; ++ks) ldsm_x4(qf[ks], p + 16 * ks);
+    for (int ks = 0; ks < C::DW / 16; ++ks) ldsm_x4(qf[ks], p + 16 * ks);
   }
 
   float o[ND][4];
@@ -298,13 +334,13 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 
-      // ---- S = Q K^T
+      // ---- S = Q K^T (over this warp's dh columns)
       if constexpr (C::BF16) {
         // x4: b0, b1 of key tiles n and n + 1
-        const T* p = sK + ((lane & 7) + (lane >> 4) * 8) * C::QS +
+        const T* p = sK + ((lane & 7) + (lane >> 4) * 8) * C::QS + c0 +
                      ((lane >> 3) & 1) * 8;
 #pragma unroll
-        for (int ks = 0; ks < DH / 16; ++ks)
+        for (int ks = 0; ks < C::DW / 16; ++ks)
 #pragma unroll
           for (int n = 0; n < NT; n += 2) {
             uint32_t kb[4];
@@ -320,10 +356,10 @@ __global__ void __launch_bounds__(THREADS)
         for (int n = 0; n < NT; ++n)
 #pragma unroll
           for (int e = 0; e < 4; ++e) sl[n][e] = 0.f;
-        const float* pq = sQ + (r0 + g) * C::QS + 2 * t4;
-        const float* pk = sK + g * C::QS + 2 * t4;
+        const float* pq = sQ + (r0 + g) * C::QS + c0 + 2 * t4;
+        const float* pk = sK + g * C::QS + c0 + 2 * t4;
 #pragma unroll 2
-        for (int ks = 0; ks < DH / 8; ++ks) {
+        for (int ks = 0; ks < C::DW / 8; ++ks) {
           const float2 x0 = *reinterpret_cast<const float2*>(pq + 8 * ks);
           const float2 x1 =
               *reinterpret_cast<const float2*>(pq + 8 * C::QS + 8 * ks);
@@ -346,6 +382,28 @@ __global__ void __launch_bounds__(THREADS)
         for (int n = 0; n < NT; ++n)
 #pragma unroll
           for (int e = 0; e < 4; ++e) s[n][e] += sl[n][e];
+      }
+      if constexpr (C::SPLIT > 1) {
+        // the pair adds its two halves of each dot; a + b == b + a, so
+        // both warps hold the same scores, maxima and sums from here on
+        float* mine = sX + (half * BQ + r0 + g) * C::XS + 2 * t4;
+        const float* other = sX + ((1 - half) * BQ + r0 + g) * C::XS + 2 * t4;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          store2(mine + 8 * n, s[n][0], s[n][1]);
+          store2(mine + 8 * C::XS + 8 * n, s[n][2], s[n][3]);
+        }
+        pair_sync(pair);
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const float2 a = *reinterpret_cast<const float2*>(other + 8 * n);
+          const float2 b =
+              *reinterpret_cast<const float2*>(other + 8 * C::XS + 8 * n);
+          s[n][0] += a.x;
+          s[n][1] += a.y;
+          s[n][2] += b.x;
+          s[n][3] += b.y;
+        }
       }
 
       // ---- online softmax, in registers
@@ -394,7 +452,7 @@ __global__ void __launch_bounds__(THREADS)
           o[n][3] *= alpha[1];
         }
         // x4.trans: b0, b1 of column tiles n and n + 1
-        const T* p = sV + ((lane & 7) + ((lane >> 3) & 1) * 8) * C::VS +
+        const T* p = sV + ((lane & 7) + ((lane >> 3) & 1) * 8) * C::VS + c0 +
                      (lane >> 4) * 8;
 #pragma unroll
         for (int u = 0; u < BK / 16; ++u) {
@@ -422,7 +480,7 @@ __global__ void __launch_bounds__(THREADS)
         for (int n = 0; n < ND; ++n)
 #pragma unroll
           for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
-        const float* pV = sV + 2 * t4 * C::VS + g;
+        const float* pV = sV + 2 * t4 * C::VS + c0 + g;
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
           uint32_t ah[4], al[4];
@@ -461,7 +519,7 @@ __global__ void __launch_bounds__(THREADS)
   for (int r = 0; r < 2; ++r) {
     const int i = q0 + r0 + g + 8 * r;
     if (i >= Lq) continue;
-    T* po = out + q_base + (int64_t)i * DH + 2 * t4;
+    T* po = out + q_base + (int64_t)i * DH + c0 + 2 * t4;
 #pragma unroll
     for (int n = 0; n < ND; ++n)
       store2(po + 8 * n, o[n][2 * r] / l[r], o[n][2 * r + 1] / l[r]);
@@ -479,7 +537,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid((unsigned)(B * Hq), (unsigned)((Lq + BQ - 1) / BQ));
   // the JAX kernel's scale: 1.0 / (dh ** 0.5) in double, then to f32
   const float scale = (float)(1.0 / sqrt((double)DH));
-  lsk_flash_attention_kernel<T, DH><<<grid, THREADS, smem, stream>>>(
+  lsk_flash_attention_kernel<T, DH><<<grid, Tile<T, DH>::THREADS, smem,
+                                      stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, Hq, Hkv, Lq, Lk,
       causal, scale);
   return (int)cudaGetLastError();
@@ -496,8 +555,12 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int B,
       return launch<32, T>(q, k, v, out, B, Hq, Hkv, Lq, Lk, causal, stream);
     case 64:
       return launch<64, T>(q, k, v, out, B, Hq, Hkv, Lq, Lk, causal, stream);
+    case 96:
+      return launch<96, T>(q, k, v, out, B, Hq, Hkv, Lq, Lk, causal, stream);
     case 128:
       return launch<128, T>(q, k, v, out, B, Hq, Hkv, Lq, Lk, causal, stream);
+    case 256:
+      return launch<256, T>(q, k, v, out, B, Hq, Hkv, Lq, Lk, causal, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

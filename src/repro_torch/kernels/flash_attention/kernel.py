@@ -4,7 +4,8 @@
 ``repro/kernels/flash_attention/kernel.py::flash_attention_kernel`` (body
 ``_flash_body``; source ``csrc/flash_attention.cu``: FlashAttention-2 on
 the tensor cores, one block of 4 warps per (batch x query head, 64-row
-query tile), bf16 MMAs for bf16 inputs and split-TF32 MMAs for f32 ones;
+query tile; 8 above dh=128, a warp pair sharing each 16 rows), bf16 MMAs
+for bf16 inputs and split-TF32 MMAs for f32 ones;
 what bounds it is noted there). ``flash_attention_plain`` computes the
 same function in plain PyTorch over blocks of query rows, so that a
 block's scores ``[B, Hq, bq, Lk]`` fit on the card at the main path's
@@ -31,7 +32,7 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)  # the kernel's template instances
+HEAD_DIMS = (16, 32, 64, 96, 128, 256)  # the kernel's template instances
 DTYPES = (torch.float32, torch.bfloat16)
 PLAIN_BLOCK_Q = 512  # query rows per block of the plain version
 

@@ -2,12 +2,17 @@
 of ``repro.launch.serve``).
 
 A request queue feeds a fixed-size decode batch; finished slots are
-refilled (continuous batching); per-slot KV caches live on the device and
-are updated in place. Sampling is greedy or by temperature, on the host,
-from ``numpy.random.default_rng(seed)``.
+refilled (continuous batching); per-slot caches (KV, ring buffers, MLA's
+compressed cache, recurrent states) live on the device and are updated in
+place. Sampling is greedy or by temperature, on the host, from
+``numpy.random.default_rng(seed)``. For an encoder-decoder each request
+carries its frame embeddings (``Request.frame_emb``), encoded once when
+the request takes its slot into that slot's row of the memory every step
+reads; the JAX server has no such input.
 
 Usage: python -m repro_torch.launch.serve --arch smollm-135m --requests 8
-       [--device cpu]
+       [--device cpu]   (any of ``configs.ARCHS``, reduced; an
+       encoder-decoder's requests get seeded frame embeddings)
        python -m repro_torch.launch.serve --mode sketch [serve_sketch flags]
 (on the card unless ``--device cpu``; ``--mode sketch`` hands every other
 flag to the graph-stream server, ``launch/serve_sketch.py``.)
@@ -27,6 +32,8 @@ import repro_torch.configs as configs
 from repro_torch.core.types import resolve_device
 from repro_torch.models import lm
 
+CLI_FRAMES = 16  # frames a request of the CLI gives an encoder-decoder
+
 
 @dataclasses.dataclass
 class Request:
@@ -35,6 +42,7 @@ class Request:
     out: List[int] = dataclasses.field(default_factory=list)
     pending: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
+    frame_emb: Optional[np.ndarray] = None  # [Se, D]: encoder-decoder only
 
 
 class DecodeServer:
@@ -55,7 +63,11 @@ class DecodeServer:
         self.caches = lm.init_cache(cfg, self.B, self.S, self.device)
         self.slots: List[Optional[Request]] = [None] * self.B
         self.tokens = np.zeros((self.B, 1), np.int32)
-        self._step = lambda p, c, t: lm.serve_step(cfg, p, c, t)
+        self.memory = None  # encoder-decoder: [B, Se, D] on the device
+
+    def _step(self, params, caches, tokens):
+        return lm.serve_step(self.cfg, params, caches, tokens,
+                             memory=self.memory)
 
     def _reset_slot(self, i: int):
         """Zero slot i's cache state (every leaf indexed by batch)."""
@@ -63,11 +75,34 @@ class DecodeServer:
             for x in cache["mixer"].values():
                 x[i].zero_()
 
+    def _encode(self, i: int, req: Request):
+        """Encoder-decoder: the request's frames through the encoder, into
+        memory row i (every request of a server has one frame count)."""
+        if not self.cfg.is_encdec:
+            if req.frame_emb is not None:
+                raise ValueError(f"{self.cfg.name} takes no frame_emb")
+            return
+        if req.frame_emb is None:
+            raise ValueError(f"{self.cfg.name} is an encoder-decoder: each "
+                             f"request needs frame_emb [Se, D]")
+        frames = torch.as_tensor(np.asarray(req.frame_emb, np.float32),
+                                 device=self.device)[None]
+        mem = lm.encode_memory(self.cfg, self.params, frames)
+        if self.memory is None:
+            self.memory = torch.zeros((self.B,) + mem.shape[1:],
+                                      dtype=mem.dtype, device=self.device)
+        if mem.shape[1:] != self.memory.shape[1:]:
+            raise ValueError(f"frame_emb of {mem.shape[1]} frames; this "
+                             f"server's requests have "
+                             f"{self.memory.shape[1]}")
+        self.memory[i] = mem[0]
+
     def submit(self, req: Request) -> bool:
         """Claim a free slot; the prompt streams through subsequent steps
         (continuous batching: other slots keep decoding meanwhile)."""
         for i, s in enumerate(self.slots):
             if s is None:
+                self._encode(i, req)
                 self.slots[i] = req
                 self._reset_slot(i)
                 req.pending = list(req.prompt)
@@ -143,6 +178,10 @@ def main(argv=None):
     rng = np.random.default_rng(0)
     reqs = [Request(prompt=list(rng.integers(0, cfg.vocab_size, 8)),
                     max_new=args.max_new) for _ in range(args.requests)]
+    if cfg.is_encdec:  # stub frontend: seeded frame embeddings
+        for r in reqs:
+            r.frame_emb = rng.standard_normal(
+                (CLI_FRAMES, cfg.d_model)).astype(np.float32)
     t0 = time.time()
     server.run(reqs)
     dt = time.time() - t0

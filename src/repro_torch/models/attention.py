@@ -1,15 +1,23 @@
-"""GQA attention (+qk-norm, +bias, +sliding window): counterpart of the GQA
-half of ``repro.models.attention``. MLA and cross attention wait for
-their slices.
+"""Attention variants: GQA (+qk-norm, +bias, +sliding window), MLA and
+cross attention (counterpart of ``repro.models.attention``).
 
-Two entry points:
-  gqa_train : full-sequence causal attention (prefill) — the flash
-              kernel when ``cfg.attn_impl == "kernel"`` and the layer has
-              no window, else ``_masked_attention``;
-  gqa_decode: one token against a KV cache (serving), updated in place.
+Two entry points per variant:
+  *_train : full-sequence causal attention (prefill) — for GQA the flash
+            kernel when ``cfg.attn_impl == "kernel"`` and the layer has no
+            window, else ``_masked_attention``; MLA's q/k are
+            ``dh + rope_dim`` wide and its v ``dh``, so it always takes
+            ``_masked_attention``, as in the JAX package;
+  *_decode: one token against a cache (serving), updated in place.
+
+MLA follows DeepSeek-V2: KV compressed to ``kv_lora_rank`` plus a
+decoupled RoPE head; its decode is the absorbed form (q projected through
+W_uk, scores read the compressed cache directly). Cross attention (the
+encoder-decoder's) is non-causal ``_masked_attention`` over the encoder's
+memory.
 
 Activations are ``[B, L, H, dh]``; the flash wrapper takes ``[B, H, L,
-dh]``; caches are ``{"k": [B, S, KV, dh], "v": ..., "pos": [B] int32}``.
+dh]``; GQA caches are ``{"k": [B, S, KV, dh], "v": ..., "pos": [B]
+int32}``, MLA's ``{"ckv": [B, S, r], "krope": [B, S, rope_dim], "pos"}``.
 """
 
 from __future__ import annotations
@@ -177,3 +185,140 @@ def gqa_cache_spec(cfg: ModelConfig, batch: int, seq: int, window: int = 0):
         "v": ((batch, S, KV, dh), cfg.compute_dtype),
         "pos": ((batch,), torch.int32),
     }
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+def mla_defs(cfg: ModelConfig):
+    D, H, dh = cfg.d_model, cfg.n_heads, cfg.head_dim
+    r, rd = cfg.kv_lora_rank, cfg.rope_dim
+    qr = cfg.q_lora_rank
+    defs = {
+        "w_dkv": ParamDef((D, r), init="scaled"),
+        "w_krope": ParamDef((D, rd), init="scaled"),
+        "w_uk": ParamDef((r, H, dh), init="scaled"),
+        "w_uv": ParamDef((r, H, dh), init="scaled"),
+        "wo": ParamDef((H * dh, D), init="scaled"),
+        "kv_norm": rmsnorm_defs(r),
+    }
+    if qr:
+        defs["w_dq"] = ParamDef((D, qr), init="scaled")
+        defs["w_uq"] = ParamDef((qr, H, dh + rd), init="scaled")
+        defs["q_norm"] = rmsnorm_defs(qr)
+    else:
+        defs["wq"] = ParamDef((D, H, dh + rd), init="scaled")
+    return defs
+
+
+def _up(x, w):
+    """x [..., r] through w [r, H, e] -> [..., H, e]."""
+    r, H, e = w.shape
+    return (x @ w.reshape(r, H * e)).reshape(*x.shape[:-1], H, e)
+
+
+def _mla_q(params, x, cfg: ModelConfig, positions):
+    dh = cfg.head_dim
+    if cfg.q_lora_rank:
+        cq = rmsnorm(params["q_norm"], x @ params["w_dq"], cfg.norm_eps)
+        q = _up(cq, params["w_uq"])
+    else:
+        q = _up(x, params["wq"])
+    q_nope, q_rope = q[..., :dh], q[..., dh:]
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_kv_new(params, x, cfg: ModelConfig, positions):
+    """The compressed KV ``[B, L, r]`` and the rotated shared RoPE key
+    ``[B, L, 1, rope_dim]`` of x's positions."""
+    c_kv = rmsnorm(params["kv_norm"], x @ params["w_dkv"], cfg.norm_eps)
+    k_rope = apply_rope((x @ params["w_krope"])[:, :, None], positions,
+                        cfg.rope_theta)
+    return c_kv, k_rope
+
+
+def mla_train(params, x, cfg: ModelConfig):
+    """MLA full-sequence attention: the decoupled-RoPE score q_nope.k_nope +
+    q_rope.k_rope is one dot over the concatenated [dh ; rope_dim] feature
+    axis (k_rope broadcast per head)."""
+    B, L, D = x.shape
+    H, dh, rd = cfg.n_heads, cfg.head_dim, cfg.rope_dim
+    positions = torch.arange(L, dtype=torch.int32,
+                             device=x.device).expand(B, L)
+    q_nope, q_rope = _mla_q(params, x, cfg, positions)
+    c_kv, k_rope = _mla_kv_new(params, x, cfg, positions)
+    k_nope = _up(c_kv, params["w_uk"])
+    v = _up(c_kv, params["w_uv"])
+    q_cat = torch.cat([q_nope, q_rope], dim=-1)  # [B, L, H, dh + rd]
+    k_cat = torch.cat([k_nope, k_rope.expand(B, L, H, rd)], dim=-1)
+    del k_nope
+    out = _masked_attention(q_cat, k_cat, v, causal=True,
+                            mat_dtype=cfg.attn_mat_dtype)
+    return out.reshape(B, L, H * dh) @ params["wo"]
+
+
+def mla_decode(params, x, cache, cfg: ModelConfig):
+    """Absorbed-matrices decode against the compressed cache (c_kv,
+    k_rope), written and advanced in place."""
+    B = x.shape[0]
+    H, dh, rd = cfg.n_heads, cfg.head_dim, cfg.rope_dim
+    pos = cache["pos"]
+    q_nope, q_rope = _mla_q(params, x, cfg, pos[:, None])  # [B, 1, H, *]
+    c_new, kr_new = _mla_kv_new(params, x, cfg, pos[:, None])
+    S = cache["ckv"].shape[1]
+    slot = pos.clamp(0, S - 1).long()  # dynamic_update_slice's clamp
+    rows = torch.arange(B, device=x.device)
+    cache["ckv"][rows, slot] = c_new[:, 0].to(cache["ckv"].dtype)
+    cache["krope"][rows, slot] = kr_new[:, 0, 0].to(cache["krope"].dtype)
+    ckv = cache["ckv"].float()
+    # absorb: q_c[h] = q_nope[h] @ W_uk[:, h, :]^T -> scores vs the cache
+    q_c = torch.einsum("bhe,rhe->bhr", q_nope[:, 0], params["w_uk"])
+    scale = 1.0 / ((dh + rd) ** 0.5)
+    s = (torch.einsum("bhr,bsr->bhs", q_c.float(), ckv)
+         + torch.einsum("bhe,bse->bhs", q_rope[:, 0].float(),
+                        cache["krope"].float())) * scale
+    valid = torch.arange(S, dtype=torch.int32,
+                         device=x.device)[None, :] <= pos[:, None]
+    s = s.masked_fill(~valid[:, None], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o_c = torch.einsum("bhs,bsr->bhr", p, ckv)  # [B, H, r]
+    out = torch.einsum("bhr,rhe->bhe", o_c.to(x.dtype), params["w_uv"])
+    y = (out.reshape(B, H * dh) @ params["wo"])[:, None]
+    pos.add_(1)
+    return y, cache
+
+
+def mla_cache_spec(cfg: ModelConfig, batch: int, seq: int):
+    return {
+        "ckv": ((batch, seq, cfg.kv_lora_rank), cfg.compute_dtype),
+        "krope": ((batch, seq, cfg.rope_dim), cfg.compute_dtype),
+        "pos": ((batch,), torch.int32),
+    }
+
+
+# ---------------------------------------------------------------------------
+# cross attention (encoder-decoder)
+# ---------------------------------------------------------------------------
+
+def cross_defs(cfg: ModelConfig):
+    D, H, KV, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {
+        "wq": ParamDef((D, H * dh), init="scaled"),
+        "wk": ParamDef((D, KV * dh), init="scaled"),
+        "wv": ParamDef((D, KV * dh), init="scaled"),
+        "wo": ParamDef((H * dh, D), init="scaled"),
+    }
+
+
+def cross_attention(params, x, memory, cfg: ModelConfig):
+    """x: [B, L, D] decoder states; memory: [B, S, D] encoder output."""
+    B, L, _ = x.shape
+    S = memory.shape[1]
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ params["wq"]).reshape(B, L, H, dh)
+    k = (memory @ params["wk"]).reshape(B, S, KV, dh)
+    v = (memory @ params["wv"]).reshape(B, S, KV, dh)
+    out = _masked_attention(q, k, v, causal=False,
+                            mat_dtype=cfg.attn_mat_dtype)
+    return out.reshape(B, L, H * dh) @ params["wo"]

@@ -1,12 +1,21 @@
-"""End-to-end decoder-only language model: parameters, the prefill forward
-and the cached decode step (counterpart of ``repro.models.lm``).
+"""End-to-end language model: parameters, the prefill forward, the cached
+decode step and the encoder (counterpart of ``repro.models.lm``).
 
-``forward`` is the prefill (every layer's attention through the flash
-wrapper when ``cfg.attn_impl == "kernel"``); ``init_cache``/``serve_step``
-the serving lowering, one token per step against per-layer KV caches.
-Both run under ``torch.no_grad()``. A vision prefix and the
-encoder-decoder topology wait for their slices; training (``loss_fn``)
-waits for the training slice.
+Three input topologies, as in the JAX package:
+  * decoder-only LM (tokens);
+  * prefix-multimodal (``prefix_emb`` vision embeddings before the tokens,
+    logits at the token positions) — phi-3-vision;
+  * encoder-decoder (``frame_emb`` audio embeddings through the encoder;
+    tokens through the decoder with cross attention to its memory) —
+    seamless-m4t.
+
+``forward`` is the prefill (every global GQA layer's attention through the
+flash wrapper when ``cfg.attn_impl == "kernel"``) and returns (logits,
+aux), the aux summed over the MoE layers; ``init_cache``/``serve_step``
+the serving lowering, one token per step against per-layer caches, with
+``encode_memory`` run once per request for the encoder-decoder. All run
+under ``torch.no_grad()``. Training (``loss_fn``) waits for the training
+slice.
 """
 
 from __future__ import annotations
@@ -32,23 +41,23 @@ def plans(cfg: ModelConfig):
 
 
 def _top_defs(cfg: ModelConfig):
-    return {"embed": embed_defs(cfg), "final_norm": rmsnorm_defs(cfg.d_model)}
-
-
-def _decoder_only(cfg: ModelConfig) -> None:
+    defs = {"embed": embed_defs(cfg), "final_norm": rmsnorm_defs(cfg.d_model)}
     if cfg.is_encdec:
-        raise NotImplementedError("the encoder-decoder stack is not ported "
-                                  "yet (ROADMAP.md queue 1, item 15)")
+        defs["enc_norm"] = rmsnorm_defs(cfg.d_model)
+    return defs
 
 
 class LMParams(ParamTree):
-    """A decoder-only LM's parameters: ``embed``, ``final_norm`` and
-    ``layers`` (an ``nn.ModuleList`` of ``LayerParams`` in
-    ``plan.layers`` order)."""
+    """An LM's parameters: ``embed``, ``final_norm`` (and ``enc_norm``),
+    ``layers`` (an ``nn.ModuleList`` of ``LayerParams`` in the decoder
+    plan's ``layers`` order) and, for an encoder-decoder, ``encoder`` (the
+    same for the encoder plan; None otherwise)."""
 
-    def __init__(self, top: dict, layers):
+    def __init__(self, top: dict, layers, encoder=None):
         super().__init__(top)
         self.layers = torch.nn.ModuleList(layers)
+        self.encoder = None if encoder is None else \
+            torch.nn.ModuleList(encoder)
 
     @property
     def device(self) -> torch.device:
@@ -59,111 +68,149 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
                 device=None) -> LMParams:
     """Parameters drawn from ``generator`` (a generator on ``device``,
     seeded 0 when not given) directly on ``device`` — the card unless the
-    caller names the CPU."""
-    _decoder_only(cfg)
+    caller names the CPU: the top level, the decoder's layers, then the
+    encoder's."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device} cannot draw on "
                          f"{dev}")
-    dec, _ = plans(cfg)
+    dec, enc = plans(cfg)
     top = init_tree(_top_defs(cfg), generator, cfg.param_dtype, dev)
-    layers = [LayerParams(p, init_tree(layer_defs(cfg, p), generator,
-                                       cfg.param_dtype, dev))
-              for p in dec.layers]
-    return LMParams(top, layers)
+
+    def draw(plan):
+        return [LayerParams(p, init_tree(layer_defs(cfg, p), generator,
+                                         cfg.param_dtype, dev))
+                for p in plan.layers]
+
+    return LMParams(top, draw(dec), None if enc is None else draw(enc))
 
 
 @torch.no_grad()
-def forward(cfg: ModelConfig, params: LMParams, batch) -> torch.Tensor:
-    """batch: {tokens [B, S]}. Returns logits [B, S, V] at the token
-    positions."""
-    _decoder_only(cfg)
-    if "prefix_emb" in batch or "frame_emb" in batch:
-        raise NotImplementedError("a vision prefix or encoder input is not "
-                                  "ported yet (ROADMAP.md queue 1, item 15)")
-    x = embed(params["embed"], batch["tokens"], cfg)
-    x = stack_apply(cfg, params.layers, x)
+def encode_memory(cfg: ModelConfig, params: LMParams, frame_emb):
+    """Encoder-decoder: the encoder over frame embeddings ``[B, Se, D]``
+    (causal, as the JAX encoder's ``gqa_train``), normed: the memory the
+    decoder's cross attention reads."""
+    if params.encoder is None:
+        raise ValueError(f"{cfg.name} has no encoder")
+    mem, _ = stack_apply(cfg, params.encoder, frame_emb.to(cfg.compute_dtype))
+    return rmsnorm(params["enc_norm"], mem, cfg.norm_eps)
+
+
+@torch.no_grad()
+def forward(cfg: ModelConfig, params: LMParams, batch):
+    """batch: {tokens [B, S], (prefix_emb [B, P, D] | frame_emb [B, Se,
+    D])}. Returns (logits [B, S, V] at the token positions, aux)."""
+    tokens = batch["tokens"]
+    x = embed(params["embed"], tokens, cfg)
+    memory = None
+    if cfg.is_encdec:
+        memory = encode_memory(cfg, params, batch["frame_emb"])
+    n_prefix = 0
+    if cfg.frontend == "vision" and "prefix_emb" in batch:
+        pre = batch["prefix_emb"].to(cfg.compute_dtype)
+        n_prefix = pre.shape[1]
+        x = torch.cat([pre, x], dim=1)
+    x, aux = stack_apply(cfg, params.layers, x, token_ids=tokens,
+                         memory=memory)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return unembed(params["embed"], x, cfg)
+    if n_prefix:
+        x = x[:, n_prefix:]
+    return unembed(params["embed"], x, cfg), aux
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int, device=None) -> list:
-    """Zeroed per-layer caches ``[{"mixer": {"k", "v", "pos"}}]`` on
-    ``device`` (the card unless the caller names the CPU) — the allocating
-    counterpart of the JAX ``init_cache_specs``."""
-    _decoder_only(cfg)
+    """Zeroed per-layer decoder caches ``[{"mixer": {...}}]`` on
+    ``device`` (the card unless the caller names the CPU) — the
+    allocating counterpart of the JAX ``init_cache_specs``."""
     dec, _ = plans(cfg)
     return stack_cache(cfg, dec, batch, seq, resolve_device(device))
 
 
 @torch.no_grad()
-def serve_step(cfg: ModelConfig, params: LMParams, caches, tokens):
-    """tokens: [B, 1] newest token ids. Returns (logits [B, 1, V], caches);
-    the caches are updated in place."""
+def serve_step(cfg: ModelConfig, params: LMParams, caches, tokens,
+               memory=None):
+    """tokens: [B, 1] newest token ids (``memory``: the encoder-decoder's
+    ``[B, Se, D]`` from ``encode_memory``). Returns (logits [B, 1, V],
+    caches); the caches are updated in place."""
     x = embed(params["embed"], tokens, cfg)
-    x, caches = stack_decode(cfg, params.layers, x, caches)
+    x, caches = stack_decode(cfg, params.layers, x, caches, memory=memory)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return unembed(params["embed"], x, cfg), caches
 
 
+def _take(cfg: ModelConfig, defs: dict, tree, path: str, periods=None,
+          period=None) -> dict:
+    """The subtree ``tree`` (numpy leaves) checked against ``defs`` leaf
+    for leaf, as CPU tensors; with ``period``, each leaf's slice of its
+    leading axis of ``periods``."""
+    if not isinstance(tree, dict):
+        raise ValueError(f"{path}: expected a subtree, got "
+                         f"{type(tree).__name__}")
+    extra = sorted(set(tree) - set(defs))
+    missing = sorted(set(defs) - set(tree))
+    if extra or missing:
+        raise ValueError(f"{path}: extra leaves {extra}, missing leaves "
+                         f"{missing}")
+    out = {}
+    for name, d in defs.items():
+        sub = f"{path}.{name}"
+        if isinstance(d, dict):
+            out[name] = _take(cfg, d, tree[name], sub, periods, period)
+            continue
+        a = np.asarray(tree[name])
+        if period is not None:
+            if a.ndim != len(d.shape) + 1 or a.shape[0] != periods:
+                raise ValueError(f"{sub}: {a.shape} is not stacked over "
+                                 f"{periods} periods")
+            a = a[period]
+        if tuple(a.shape) != tuple(d.shape):
+            raise ValueError(f"{sub}: shape {a.shape} != {d.shape}")
+        out[name] = torch.from_numpy(np.array(a)).to(cfg.param_dtype)
+    return out
+
+
+def _unstack(cfg: ModelConfig, plan, stack, path: str) -> list:
+    """A JAX ``{head, body, tail}`` stack as ``LayerParams`` in
+    ``plan.layers`` order, ``body``'s period axis unstacked."""
+    parts = {"head": len(plan.head), "body": len(plan.pattern),
+             "tail": len(plan.tail)}
+    if not isinstance(stack, dict) or set(stack) != set(parts) or any(
+            len(stack[k]) != n for k, n in parts.items()):
+        raise ValueError(f"{path}: expected head/body/tail lists of "
+                         f"{parts}")
+    layers = [LayerParams(p, _take(cfg, layer_defs(cfg, p), stack["head"][i],
+                                   f"{path}.head[{i}]"))
+              for i, p in enumerate(plan.head)]
+    for period in range(plan.n_periods):
+        layers += [LayerParams(p, _take(cfg, layer_defs(cfg, p),
+                                        stack["body"][i],
+                                        f"{path}.body[{i}]", plan.n_periods,
+                                        period))
+                   for i, p in enumerate(plan.pattern)]
+    layers += [LayerParams(p, _take(cfg, layer_defs(cfg, p), stack["tail"][i],
+                                    f"{path}.tail[{i}]"))
+               for i, p in enumerate(plan.tail)]
+    return layers
+
+
 def from_jax_params(cfg: ModelConfig, params_np: Dict[str, Any]) -> LMParams:
     """The JAX package's parameter pytree (leaves as numpy arrays) as the
-    port's parameters, on the CPU (``.to(device)`` moves them):
-    ``decoder.body``'s leading period axis is unstacked into per-layer
-    modules in ``plan.layers`` order. Every JAX leaf is used exactly once;
-    a missing or extra leaf raises ``ValueError``."""
-    _decoder_only(cfg)
-    dec, _ = plans(cfg)
-
-    def take(defs: dict, tree: dict, path: str, period=None) -> dict:
-        if not isinstance(tree, dict):
-            raise ValueError(f"{path}: expected a subtree, got "
-                             f"{type(tree).__name__}")
-        extra = sorted(set(tree) - set(defs))
-        missing = sorted(set(defs) - set(tree))
-        if extra or missing:
-            raise ValueError(f"{path}: extra leaves {extra}, missing leaves "
-                             f"{missing}")
-        out = {}
-        for name, d in defs.items():
-            sub = f"{path}.{name}"
-            if isinstance(d, dict):
-                out[name] = take(d, tree[name], sub, period)
-                continue
-            a = np.asarray(tree[name])
-            if period is not None:
-                if a.ndim != len(d.shape) + 1 or a.shape[0] != dec.n_periods:
-                    raise ValueError(f"{sub}: {a.shape} is not stacked over "
-                                     f"{dec.n_periods} periods")
-                a = a[period]
-            if tuple(a.shape) != tuple(d.shape):
-                raise ValueError(f"{sub}: shape {a.shape} != {d.shape}")
-            out[name] = torch.from_numpy(np.array(a)).to(cfg.param_dtype)
-        return out
-
-    expect = {"embed", "final_norm", "decoder"}
+    port's parameters, on the CPU (``.to(device)`` moves them): each
+    stack's ``body`` leading period axis is unstacked into per-layer
+    modules in plan order (``decoder``, and ``encoder`` for an
+    encoder-decoder). Every JAX leaf is used exactly once; a missing or
+    extra leaf raises ``ValueError``."""
+    dec, enc = plans(cfg)
+    top_defs = _top_defs(cfg)
+    expect = set(top_defs) | {"decoder"} | ({"encoder"} if enc else set())
     if set(params_np) != expect:
         raise ValueError(f"top level: extra leaves "
                          f"{sorted(set(params_np) - expect)}, missing leaves "
                          f"{sorted(expect - set(params_np))}")
-    top = {k: take(d, params_np[k], k) for k, d in _top_defs(cfg).items()}
-    stack = params_np["decoder"]
-    parts = {"head": len(dec.head), "body": len(dec.pattern),
-             "tail": len(dec.tail)}
-    if not isinstance(stack, dict) or set(stack) != set(parts) or any(
-            len(stack[k]) != n for k, n in parts.items()):
-        raise ValueError(f"decoder: expected head/body/tail lists of "
-                         f"{parts}")
-    layers = [LayerParams(p, take(layer_defs(cfg, p), stack["head"][i],
-                                  f"decoder.head[{i}]"))
-              for i, p in enumerate(dec.head)]
-    for period in range(dec.n_periods):
-        layers += [LayerParams(p, take(layer_defs(cfg, p), stack["body"][i],
-                                       f"decoder.body[{i}]", period))
-                   for i, p in enumerate(dec.pattern)]
-    layers += [LayerParams(p, take(layer_defs(cfg, p), stack["tail"][i],
-                                   f"decoder.tail[{i}]"))
-               for i, p in enumerate(dec.tail)]
-    return LMParams(top, layers)
+    top = {k: _take(cfg, d, params_np[k], k) for k, d in top_defs.items()}
+    layers = _unstack(cfg, dec, params_np["decoder"], "decoder")
+    encoder = None if enc is None else \
+        _unstack(cfg, enc, params_np["encoder"], "encoder")
+    return LMParams(top, layers, encoder)

@@ -8,8 +8,11 @@ per-layer parameters in ``plan.layers`` order and apply and decode are
 loops over it. The head/body/tail split only matters when carrying JAX
 weights across (``lm.from_jax_params``).
 
-Only ``kind == "attn"`` layers with GQA attention and a dense MLP are
-ported; any other layer kind, MoE or cross layer raises.
+Every layer kind of the JAX package is here: GQA (global or sliding
+window) or MLA attention, the Mamba, mLSTM and sLSTM mixers, a dense or
+MoE MLP (or none), and the encoder-decoder's cross attention. Decode
+keeps heterogeneous per-layer caches: ring buffers for local attention,
+MLA's compressed cache, O(1) recurrent states.
 """
 
 from __future__ import annotations
@@ -20,8 +23,10 @@ from typing import List, Tuple
 import torch
 
 from . import attention as attn
+from . import ssm
 from .config import ModelConfig
 from .layers import mlp, mlp_defs, rmsnorm, rmsnorm_defs
+from .moe import moe, moe_defs, zero_aux
 from .params import ParamTree
 
 
@@ -99,62 +104,124 @@ class LayerParams(ParamTree):
         self.plan = plan
 
 
-def _check_ported(cfg: ModelConfig, plan: LayerPlan) -> None:
-    if plan.kind != "attn" or cfg.attention != "gqa" \
-            or plan.mlp != "dense" or plan.cross:
-        raise NotImplementedError(
-            f"layer {plan} of attention {cfg.attention!r} is not ported yet "
-            f"(ROADMAP.md queue 1, item 15): only dense GQA decoder layers")
+_MIXERS = {  # kind -> (defs, train, decode, cache spec)
+    "mamba": (ssm.mamba_defs, ssm.mamba_train, ssm.mamba_decode,
+              ssm.mamba_cache_spec),
+    "mlstm": (ssm.mlstm_defs, ssm.mlstm_train, ssm.mlstm_decode,
+              ssm.mlstm_cache_spec),
+    "slstm": (ssm.slstm_defs, ssm.slstm_train, ssm.slstm_decode,
+              ssm.slstm_cache_spec),
+}
 
 
 def layer_defs(cfg: ModelConfig, plan: LayerPlan):
-    _check_ported(cfg, plan)
     D = cfg.d_model
-    return {"norm1": rmsnorm_defs(D), "attn": attn.gqa_defs(cfg),
-            "norm2": rmsnorm_defs(D), "mlp": mlp_defs(cfg)}
+    defs: dict = {"norm1": rmsnorm_defs(D)}
+    if plan.kind == "attn":
+        defs["attn"] = (attn.mla_defs(cfg) if cfg.attention == "mla"
+                        else attn.gqa_defs(cfg))
+    else:
+        defs["mixer"] = _MIXERS[plan.kind][0](cfg)
+    if plan.cross:
+        defs["norm_x"] = rmsnorm_defs(D)
+        defs["cross"] = attn.cross_defs(cfg)
+    if plan.mlp == "dense":
+        defs["norm2"] = rmsnorm_defs(D)
+        defs["mlp"] = mlp_defs(cfg)
+    elif plan.mlp == "moe":
+        defs["norm2"] = rmsnorm_defs(D)
+        defs["moe"] = moe_defs(cfg)
+    return defs
 
 
-def layer_apply(cfg: ModelConfig, plan: LayerPlan, params, x):
-    """Prefill application of one layer: x [B, L, D] -> [B, L, D]."""
-    _check_ported(cfg, plan)
+def layer_apply(cfg: ModelConfig, plan: LayerPlan, params, x,
+                token_ids=None, memory=None):
+    """Prefill application of one layer: x [B, L, D] -> (x, aux); aux is
+    the MoE layer's (``moe.moe``), None for a layer without experts."""
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
-    x = x + attn.gqa_train(params["attn"], h, cfg, window=plan.window)
-    h2 = rmsnorm(params["norm2"], x, cfg.norm_eps)
-    return x + mlp(params["mlp"], h2)
+    if plan.kind == "attn":
+        if cfg.attention == "mla":
+            y = attn.mla_train(params["attn"], h, cfg)
+        else:
+            y = attn.gqa_train(params["attn"], h, cfg, window=plan.window)
+    else:
+        y = _MIXERS[plan.kind][1](params["mixer"], h, cfg)
+    x = x + y
+    if plan.cross:
+        hx = rmsnorm(params["norm_x"], x, cfg.norm_eps)
+        x = x + attn.cross_attention(params["cross"], hx, memory, cfg)
+    aux = None
+    if plan.mlp == "dense":
+        x = x + mlp(params["mlp"], rmsnorm(params["norm2"], x, cfg.norm_eps))
+    elif plan.mlp == "moe":
+        y2, aux = moe(params["moe"], rmsnorm(params["norm2"], x,
+                                             cfg.norm_eps),
+                      cfg, token_ids=token_ids)
+        x = x + y2
+    return x, aux
 
 
-def layer_decode(cfg: ModelConfig, plan: LayerPlan, params, x, cache):
+def layer_decode(cfg: ModelConfig, plan: LayerPlan, params, x, cache,
+                 memory=None):
     """Single-token decode of one layer. Returns (x, cache); the cache is
     updated in place."""
-    _check_ported(cfg, plan)
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
-    y, cache_m = attn.gqa_decode(params["attn"], h, cache["mixer"], cfg,
-                                 window=plan.window)
+    if plan.kind == "attn":
+        if cfg.attention == "mla":
+            y, cache_m = attn.mla_decode(params["attn"], h, cache["mixer"],
+                                         cfg)
+        else:
+            y, cache_m = attn.gqa_decode(params["attn"], h, cache["mixer"],
+                                         cfg, window=plan.window)
+    else:
+        y, cache_m = _MIXERS[plan.kind][2](params["mixer"], h,
+                                           cache["mixer"], cfg)
     x = x + y
-    x = x + mlp(params["mlp"], rmsnorm(params["norm2"], x, cfg.norm_eps))
+    if plan.cross:
+        hx = rmsnorm(params["norm_x"], x, cfg.norm_eps)
+        x = x + attn.cross_attention(params["cross"], hx, memory, cfg)
+    if plan.mlp == "dense":
+        x = x + mlp(params["mlp"], rmsnorm(params["norm2"], x, cfg.norm_eps))
+    elif plan.mlp == "moe":
+        # decode is drop-free (capacity = all tokens): serving must not
+        # depend on what else is in the batch
+        y2, _ = moe(params["moe"], rmsnorm(params["norm2"], x, cfg.norm_eps),
+                    cfg, token_ids=None,
+                    capacity_factor=float(cfg.n_experts))
+        x = x + y2
     return x, {"mixer": cache_m}
 
 
 def layer_cache_spec(cfg: ModelConfig, plan: LayerPlan, batch: int,
                      seq: int):
-    _check_ported(cfg, plan)
-    return {"mixer": attn.gqa_cache_spec(cfg, batch, seq,
-                                         window=plan.window)}
+    """{"mixer": {leaf: (shape, dtype)}} of one layer's cache."""
+    if plan.kind == "attn":
+        if cfg.attention == "mla":
+            spec = attn.mla_cache_spec(cfg, batch, seq)
+        else:
+            spec = attn.gqa_cache_spec(cfg, batch, seq, window=plan.window)
+    else:
+        spec = _MIXERS[plan.kind][3](cfg, batch)
+    return {"mixer": spec}
 
 
-def stack_apply(cfg: ModelConfig, layers, x):
+def stack_apply(cfg: ModelConfig, layers, x, token_ids=None, memory=None):
     """Full-sequence forward through ``layers`` (``LayerParams`` in
-    ``plan.layers`` order)."""
+    ``plan.layers`` order). Returns (x, aux), the aux summed over the
+    layers as the JAX ``stack_apply`` sums it."""
+    aux = zero_aux(cfg, x.device)
     for lp in layers:
-        x = layer_apply(cfg, lp.plan, lp, x)
-    return x
+        x, a = layer_apply(cfg, lp.plan, lp, x, token_ids, memory)
+        if a is not None:
+            aux = {k: aux[k] + a[k] for k in aux}
+    return x, aux
 
 
-def stack_decode(cfg: ModelConfig, layers, x, caches):
+def stack_decode(cfg: ModelConfig, layers, x, caches, memory=None):
     """Single-token decode through every layer."""
     new_caches = []
     for lp, cache in zip(layers, caches):
-        x, c = layer_decode(cfg, lp.plan, lp, x, cache)
+        x, c = layer_decode(cfg, lp.plan, lp, x, cache, memory)
         new_caches.append(c)
     return x, new_caches
 

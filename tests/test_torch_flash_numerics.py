@@ -9,7 +9,8 @@ hi.hi + hi.lo + lo.hi with f32 sums; its bf16 variant multiplies the f32
 scores by the scale after the product and rounds the softmax weights to
 bf16 before the product with V, while the row sum takes them unrounded.
 Both run the online softmax over tiles of 32 keys (64 for f32 below
-dh=128) in the log2 domain. ``emulate`` repeats those roundings and
+dh=96) in the log2 domain; above dh=128 each score's dot is two dots over
+the halves of dh (a warp pair's), added in f32. ``emulate`` repeats those roundings and
 tiles; its sums are torch's f32 sums, in their own order. The
 tolerances are the card's, unchanged: f32 |d| < 2e-5, bf16
 |d| <= 2**-7 max(|want|, 1). Single-pass TF32 (the lo terms dropped) is
@@ -27,7 +28,8 @@ from repro_torch.kernels.flash_attention.kernel import flash_attention_plain
 
 LOG2E = 1.4426950408889634
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 96, 128, 256)
+SPLIT_ABOVE = 128  # above this head dim a warp pair splits every dot
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
@@ -59,7 +61,9 @@ def emulate(q, k, v, causal: bool, mode: str):
     B, Hq, Lq, dh = q.shape
     Hkv, Lk = k.shape[1], k.shape[2]
     g = Hq // Hkv
-    bk = 32 if mode == "bf16" or dh == 128 else 64
+    bk = 32 if mode == "bf16" or dh >= 96 else 64
+    halves = 2 if dh > SPLIT_ABOVE else 1
+    hd = dh // halves
     scale = np.float32(1.0 / (dh ** 0.5))
     qf = q.float()
     kf = k.float().repeat_interleave(g, 1)
@@ -74,7 +78,9 @@ def emulate(q, k, v, causal: bool, mode: str):
     i = torch.arange(Lq)[:, None]
     for k0 in range(0, Lk, bk):
         kt, vt = kf[:, :, k0:k0 + bk], vf[:, :, k0:k0 + bk]
-        s = product(qf, kt.transpose(-1, -2), mode) * sl2
+        s = sum(product(qf[..., h * hd:(h + 1) * hd],
+                        kt[..., h * hd:(h + 1) * hd].transpose(-1, -2), mode)
+                for h in range(halves)) * sl2
         if causal:
             j = torch.arange(k0, k0 + kt.shape[2])[None, :]
             s = s.masked_fill(i < j, NEG_INF)

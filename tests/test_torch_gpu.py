@@ -505,7 +505,8 @@ def test_cuda_end_to_end_equals_cpu():
 # flash attention: (B, Hq, Hkv, L, dh, dtype) — Qwen3-8B's and SmolLM-135M's
 # prefill attention, a ragged length, bf16, the other head dims, lengths
 # that cross the kernel's 16-row fragment and 64-row tile edges (1, 15, 65,
-# 129) in both types, bf16 at dh 64, and MHA (Hq == Hkv)
+# 129) in both types, bf16 at dh 64, MHA (Hq == Hkv), and Gemma-3's dh=256
+# (the warp-pair instances) and phi-3-vision's dh=96 in both types
 FLASH_SHAPES = [
     (1, 32, 8, 8192, 128, torch.float32),
     (4, 9, 3, 2048, 64, torch.float32),
@@ -524,10 +525,18 @@ FLASH_SHAPES = [
     (2, 16, 4, 1024, 64, torch.bfloat16),
     (2, 8, 8, 300, 128, torch.float32),
     (1, 12, 12, 257, 64, torch.bfloat16),
+    (1, 8, 4, 2048, 256, torch.float32),
+    (1, 8, 4, 2048, 256, torch.bfloat16),
+    (1, 32, 32, 1000, 96, torch.float32),
+    (1, 32, 32, 1000, 96, torch.bfloat16),
+    (2, 4, 2, 65, 256, torch.float32),
+    (2, 4, 4, 129, 96, torch.bfloat16),
 ]
 FLASH_IDS = ["qwen3-8k", "smollm-2k", "ragged-1000", "bf16", "dh16", "dh32",
              "L1", "L1-bf16", "L15", "L15-bf16", "L65", "L65-bf16", "L129",
-             "L129-bf16", "bf16-dh64", "mha", "mha-bf16"]
+             "L129-bf16", "bf16-dh64", "mha", "mha-bf16", "gemma-dh256",
+             "gemma-dh256-bf16", "phi3-dh96", "phi3-dh96-bf16", "L65-dh256",
+             "L129-dh96-bf16"]
 # every shape causal; the shapes of at most 2,048 rows also non-causal
 FLASH_CASES = [pytest.param(*s, True, id=f"{i}-causal")
                for s, i in zip(FLASH_SHAPES, FLASH_IDS)] + [
@@ -602,13 +611,13 @@ def test_cuda_prefill_and_decode_match_the_cpu(no_tf32):
     toks = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (2, 96)).astype(np.int32))
     before = flash_attention_kernel.launches
-    got = lm.forward(cfg, params, {"tokens": toks.cuda()})
+    got, _ = lm.forward(cfg, params, {"tokens": toks.cuda()})
     assert flash_attention_kernel.launches == before + cfg.n_layers
     params_cpu = lm.init_params(cfg, torch.Generator().manual_seed(0),
                                 device="cpu")
     params_cpu.load_state_dict({n: t.cpu() for n, t in
                                 params.state_dict().items()})
-    want = lm.forward(cfg, params_cpu, {"tokens": toks})
+    want, _ = lm.forward(cfg, params_cpu, {"tokens": toks})
     scale = float(want.abs().max())
     assert float((got.cpu() - want).abs().max()) / scale < 1e-5
     caches = lm.init_cache(cfg, 2, 96)
@@ -616,6 +625,44 @@ def test_cuda_prefill_and_decode_match_the_cpu(no_tf32):
              for i in range(96)]
     dec = torch.cat(steps, 1).cpu()
     assert float((dec - got.cpu()).abs().max()) / scale < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["kimi_k2_1t_a32b", "jamba_15_large_398b"])
+def test_cuda_moe_and_ssm_archs_match_the_cpu(no_tf32, arch):
+    """A MoE arch and a Mamba hybrid at their reduced configs: the card's
+    forward (the kernel on the global GQA layers; logits, aux and the
+    telemetry counts) against the same weights on the CPU, and the card's
+    decode through its caches against the CPU's, step by step."""
+    _need_card()
+    from repro_torch import configs
+    from repro_torch.models import lm
+
+    cfg = configs.get(arch, reduced=True)
+    cpu = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                            "cpu").to("cuda")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 40)).astype(np.int32))
+    before = flash_attention_kernel.launches
+    got, aux = lm.forward(cfg, params, {"tokens": toks.cuda()})
+    n_global = sum(p.kind == "attn" and not p.window
+                   for p in lm.plans(cfg)[0].layers)
+    assert flash_attention_kernel.launches == before + n_global
+    want, want_aux = lm.forward(cfg, cpu, {"tokens": toks})
+    scale = float(want.abs().max())
+    assert float((got.cpu() - want).abs().max()) / scale < 1e-5
+    assert torch.equal(aux["telemetry"].cpu(), want_aux["telemetry"])
+    for k in ("lb_loss", "z_loss", "dropped"):
+        assert abs(float(aux[k]) - float(want_aux[k])) < 1e-5, k
+    caches, caches_cpu = lm.init_cache(cfg, 2, 40), lm.init_cache(
+        cfg, 2, 40, "cpu")
+    for i in range(40):
+        a, caches = lm.serve_step(cfg, params, caches,
+                                  toks[:, i:i + 1].cuda())
+        b, caches_cpu = lm.serve_step(cfg, cpu, caches_cpu, toks[:, i:i + 1])
+        assert float((a.cpu() - b).abs().max()) / float(
+            b.abs().max()) < 1e-5, i
 
 
 # --------------------------------------------------------------------------

@@ -65,6 +65,9 @@ def _rel(a, b):
     (2, 4, 4, 384, 32, "bf16"),  # bf16 + non-pow2 length
     (1, 4, 2, 128, 128, "f32"),  # Qwen3's head dim
     (1, 4, 2, 200, 16, "f32"),   # ragged: the JAX wrapper pads to 256
+    (1, 4, 2, 128, 256, "f32"),  # Gemma-3's head dim
+    (1, 4, 4, 144, 96, "f32"),   # phi-3-vision's, MHA, ragged
+    (1, 4, 2, 128, 256, "bf16"),
 ])
 def test_flash_plain_matches_pallas_interpret(B, Hq, Hkv, L, dh, dtype):
     rng = np.random.default_rng(L + dh)
@@ -187,8 +190,8 @@ def test_forward_matches_jax(arch):
     for jimpl, timpl in (("pallas_interpret", "kernel"), ("xla", "plain")):
         want, _ = jlm.forward(jcfg.replace(attn_impl=jimpl), params,
                               {"tokens": jnp.asarray(toks)})
-        got = tlm.forward(tcfg.replace(attn_impl=timpl), tp,
-                          {"tokens": torch.from_numpy(toks)})
+        got, _ = tlm.forward(tcfg.replace(attn_impl=timpl), tp,
+                             {"tokens": torch.from_numpy(toks)})
         assert got.shape == (2, 16, jcfg.vocab_size)
         assert _rel(want, got) < REL, (jimpl, timpl)
 
@@ -212,7 +215,7 @@ def test_serve_step_matches_jax_and_prefill(arch):
             toks[:, i:i + 1]))
         assert _rel(jl, tl) < REL, i
         steps.append(tl)
-    full = tlm.forward(tcfg, tp, {"tokens": torch.from_numpy(toks)})
+    full, _ = tlm.forward(tcfg, tp, {"tokens": torch.from_numpy(toks)})
     assert _rel(full, torch.cat(steps, 1)) < 1e-3
 
 
@@ -307,22 +310,32 @@ def test_from_jax_params_uses_every_leaf_once():
 
 # ---- 7. registry and device rules ------------------------------------------
 
-@pytest.mark.parametrize("arch", sorted(tconfigs.UNPORTED))
-def test_unported_archs_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tconfigs.get(arch)
+# the fields whose values are typed by package (dtypes) or name a
+# different path (attn_impl: "kernel"/"plain" here, "xla"/"pallas" there)
+_TYPED = ("param_dtype", "compute_dtype", "attn_mat_dtype", "attn_impl")
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", jconfigs.ARCHS)
 def test_configs_match_jax(arch):
+    """Every architecture, full and reduced: field for field equal to the
+    JAX package's (dtypes by name), with the same parameter counts."""
+    import dataclasses
+    assert tconfigs.ARCHS == jconfigs.ARCHS
     for reduced in (False, True):
         j = jconfigs.get(arch, reduced=reduced)
         t = tconfigs.get(arch, reduced=reduced)
-        for f in ("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim",
-                  "d_ff", "vocab_size", "qk_norm", "qkv_bias",
-                  "tie_embeddings", "rope_theta", "norm_eps"):
+        names = {f.name for f in dataclasses.fields(j)}
+        assert names == {f.name for f in dataclasses.fields(t)}
+        for f in sorted(names - set(_TYPED)):
             assert getattr(j, f) == getattr(t, f), (arch, f)
+        for f in _TYPED[:3]:
+            assert str(getattr(t, f)).split(".")[-1] == \
+                np.dtype(getattr(j, f)).name, (arch, f)
+        assert j.head_dim == t.head_dim and j.is_encdec == t.is_encdec
         assert j.param_count() == t.param_count()
+        assert j.active_param_count() == t.active_param_count()
     assert tconfigs.get("qwen3-8b").param_count() == 8_190_427_136
     with pytest.raises(ValueError, match="attn_impl"):
         tconfigs.get("qwen3-8b").replace(attn_impl="xla")
+    with pytest.raises(ValueError, match="unknown architecture"):
+        tconfigs.get("gpt-2")

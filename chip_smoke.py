@@ -204,6 +204,36 @@ Phases (any failure raises, so the exit code is non-zero):
      card: forward and ``serve_step`` card against CPU, decode against
      the drop-free prefill, each within LOGIT_TOL; each global GQA layer
      one flash launch (the kernel row's ``launches_lm_archs``);
+  L7. the flash backward (``csrc/flash_attention_bwd.cu``: dq and D, then
+     dk and dv a KV head's group at a time) against
+     ``flash_attention_backward_plain`` from the forward's own out and lse
+     on SmolLM-135M's training launch, Qwen3-8B's, Gemma-3's dh=256,
+     phi-3-vision's dh=96, dh=16, a ragged length, non-causal and bf16:
+     dq, dk and dv each within FLASH_BWD_TOL of the largest |plain|;
+     CUDA-event medians beside the plain backward, SDPA's backward and the
+     bound (2.5 x the forward's operations at the card's tensor-core rate
+     for the type: bf16 over 989 TFLOP/s, f32 as split-TF32); the
+     forward with no lse (serving's) at L1's shape beside L1's time;
+  L8. ``launch.train.train`` on SmolLM-135M at its published widths and
+     depth (30 layers, d 576, 9/3 heads, dh 64, vocab 49,152; f32 weights
+     from a seed): 20 steps of 8 x 4,096 tokens (the train_4k cell's
+     length; its batch of 256 cut to 8) in 2 microbatches, async saves
+     every 10 steps: the loss finite and its last 5 steps' mean below the
+     first 5's; ms a step, tokens/s, model FLOP/s (6 params tokens plus
+     attention) against the f32 peak, peak memory, one forward and one
+     backward flash launch a layer a microbatch; one more step of the
+     trained state under the profiler: device kernel time by group (flash
+     backward, flash forward, matmuls, the rest) and the card's busy
+     share. Then one step at 2 x
+     2,048 from one seeded state and batch with ``attn_impl="kernel"`` and
+     ``"plain"``: loss and grad_norm within TRAIN_REL, every updated leaf
+     within TRAIN_PARAM_TOL;
+  L9. the MoE trainer with router telemetry, Kimi-K2 at its reduced config
+     as ``tests/test_system.py::test_train_moe_with_telemetry`` runs it (12
+     steps, ``controller_every=4``, 2 x 32), on the card and on the CPU
+     from one seed: losses within LOGIT_TOL, the telemetry matrices equal
+     as int32, ``RouterTelemetry.load_vector`` and the capacity factors
+     equal; the insert, pool and scan launches of the card's run;
   8. one JSON line of the kernels and the end-to-end numbers, the card
      line, and the result line.
 
@@ -218,8 +248,11 @@ comparisons), the streaming loop (phase S1-S2, reported in its numbers),
 the routed ingest (phase R, with its queries), the pool path (phase
 T1-T3; the grouped rows' launches), the object path (phase O, before its
 comparisons; the single-sketch rows' launches) and the prefill (L2, the
-kernel forward). Each kernel's
-``launches`` in the JSON line is from the path it was ported for.
+kernel forward); the trainer (L8, the flash forward and backward) and
+the MoE trainer (L9, the telemetry's kernels) each count from 0 too, in
+every row's ``launches_train``. Each kernel's
+``launches`` in the JSON line is from the path it was ported for (the
+flash backward's from L8).
 TF32 is off throughout (the models are f32), except in the one forward
 of L2 that shows the tolerance would catch it.
 Exits non-zero without printing a result when no card is present, or when
@@ -267,7 +300,8 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import \
     ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
-    HEAD_DIMS as FLASH_HEAD_DIMS, flash_attention_kernel,
+    HEAD_DIMS as FLASH_HEAD_DIMS, flash_attention_backward_kernel,
+    flash_attention_backward_plain, flash_attention_kernel,
     flash_attention_plain)
 from repro_torch.kernels.heavy_hitters.kernel import (  # noqa: E402
     cell_decode_kernel_sharded, cell_decode_plain)
@@ -294,10 +328,13 @@ from repro_torch.data.tokens import (DEFAULT_BAND_VOCAB,  # noqa: E402
 from repro_torch.distributed.ranks import backend_for, init_group  # noqa
 from repro_torch.telemetry import (CapacityController,  # noqa: E402
                                    RouterTelemetry)
+from repro_torch.launch import step_fns  # noqa: E402
 from repro_torch.launch.serve import DecodeServer, Request  # noqa: E402
+from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.launch.serve_sketch import SketchServer  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.sketch.ingest import (StackedBatch,  # noqa: E402
                                        _degenerate_batch, _partition_stack)
 from repro_torch.sketch.reshard import RESHARD_SPLIT  # noqa: E402
@@ -335,6 +372,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, published peak
 # cheapest way the card has to f32 accuracy)
 BF16_FLOPS_PER_S = 989e12
 TF32_FLOPS_PER_S = 495e12
+F32_FLOPS_PER_S = 67e12  # f32 outside the tensor cores (SIMT FMAs)
 SEED = 0
 INSERT_REPS = 5
 POOL_REPS = 7
@@ -456,6 +494,46 @@ DSV2_PREFILL = 2048
 REDUCED_ARCHS = ("kimi_k2_1t_a32b", "jamba_15_large_398b", "xlstm_13b",
                  "phi3_vision_42b", "seamless_m4t_medium")
 REDUCED_BATCH, REDUCED_LEN, REDUCED_FRAMES = 2, 64, 24
+# L7: the flash backward (label, B, Hq, Hkv, L, dh, dtype, causal); the
+# first is the L8 trainer's own launch (a microbatch of 4 x 4,096) and
+# gives the kernel row's numbers
+FLASH_BWD_CASES = (
+    ("smollm-135m train_4k", 4, 9, 3, 4096, 64, torch.float32, True),
+    ("smollm-135m full batch", 8, 9, 3, 4096, 64, torch.float32, True),
+    ("qwen3-8b train_4k", 1, 32, 8, 4096, 128, torch.float32, True),
+    ("gemma3-4b global dh=256", 1, 8, 4, 2048, 256, torch.float32, True),
+    ("phi-3-vision dh=96", 1, 32, 32, 2048, 96, torch.float32, True),
+    ("dh=16", 2, 8, 2, 2048, 16, torch.float32, True),
+    ("ragged L=1000", 2, 9, 3, 1000, 64, torch.float32, True),
+    ("non-causal", 2, 9, 3, 2048, 64, torch.float32, False),
+    ("bf16", 2, 32, 8, 2048, 128, torch.bfloat16, True),
+)
+FLASH_BWD_REPS = 5
+# dq, dk, dv against the plain backward: max |d| over the largest |plain|
+# of the three; f32 sums in another order move a gradient ~1e-6 of it,
+# bf16 gradients are rounded to 2**-8 of their size
+FLASH_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# L8: SmolLM-135M at its published widths and depth trained at the
+# train_4k cell's sequence length (its batch of 256 cut to 8, the
+# reference trainer's default), in 2 microbatches of 4 x 4,096
+TRAIN_ARCH = "smollm_135m"
+TRAIN_STEPS = 20
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICROBATCHES = 8, 4096, 2
+TRAIN_LR = 1e-3
+TRAIN_CKPT_EVERY = 10
+# one step from one state and batch with the kernel and with the plain
+# attention; eps = 1e-3 keeps AdamW's update a smooth function of the
+# gradient (tests/test_torch_train.py), so the two steps' parameters
+# agree to TRAIN_PARAM_TOL; loss and gradient norm to TRAIN_REL
+TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 2048
+TRAIN_REL, TRAIN_PARAM_TOL = 1e-5, 1e-6
+# L9: the MoE trainer with telemetry, as
+# tests/test_system.py::test_train_moe_with_telemetry runs it
+MOE_TRAIN = dict(arch="kimi_k2_1t_a32b", steps=12, batch_size=2, seq_len=32,
+                 controller_every=4)
+TRAIN_PATH = ("flash_attention_kernel", "flash_attention_backward_kernel")
+MOE_TRAIN_PATH = ("sketch_insert_kernel_sharded", "pool_pass_kernel_sharded",
+                  "vertex_scan_kernel_sharded")
 
 WRAPPERS = {
     "sketch_insert_kernel_sharded": sketch_insert_kernel_sharded,
@@ -464,6 +542,7 @@ WRAPPERS = {
     "vertex_scan_kernel_sharded": vertex_scan_kernel_sharded,
     "cell_decode_kernel_sharded": cell_decode_kernel_sharded,
     "flash_attention_kernel": flash_attention_kernel,
+    "flash_attention_backward_kernel": flash_attention_backward_kernel,
 }
 MAIN_PATH = ("sketch_insert_kernel_sharded", "pool_pass_kernel_sharded",
              "sketch_query_kernel_sharded", "vertex_scan_kernel_sharded")
@@ -502,6 +581,10 @@ KERNELS = {
     "flash_attention_kernel": dict(
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:67"),
+    "flash_attention_backward_kernel": dict(
+        source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        replaces="none (gradient of the TPU kernel's function; the JAX "
+                 "package differentiates `_masked_attention`)"),
     # the single-sketch entries: the kernels above at S = 1 on [1, ...]
     # views, through the object API
     "sketch_insert_kernel": dict(
@@ -1582,18 +1665,19 @@ def flash_check(got, want):
     return float(d.max()), int(bad.sum()), tol
 
 
-def sdpa(q, k, v):
-    """PyTorch's fused attention on the same inputs: the yardstick of L1,
-    timed here and called nowhere in the port."""
+def sdpa(q, k, v, causal: bool = True):
+    """PyTorch's fused attention on the same inputs: the yardstick of L1
+    and (its backward) of L7, timed here and called nowhere in the
+    port."""
     F = torch.nn.functional
     try:
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                               enable_gqa=True)
     except TypeError:  # a PyTorch without enable_gqa: repeat the KV heads
         g = q.shape[1] // k.shape[1]
         return F.scaled_dot_product_attention(
             q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1),
-            is_causal=True)
+            is_causal=causal)
 
 
 def check_flash_kernel(dev, tag) -> dict:
@@ -2176,6 +2260,353 @@ def _free_card() -> None:
     card."""
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------
+# L7-L9: training
+# --------------------------------------------------------------------------
+
+def flash_bwd_errors(got, want) -> list:
+    """max |d| of dq, dk and dv, each over the largest |plain| of the three
+    (at one key, dq and dk are 0 but for rounding)."""
+    scale = max(float(w.float().abs().max()) for w in want)
+    return [float((a.float() - b.float()).abs().max()) / max(scale, 1e-30)
+            for a, b in zip(got, want)]
+
+
+def sdpa_backward(q, k, v, do, causal):
+    """A closure running SDPA's backward on the same inputs once (its
+    forward run here, once)."""
+    qq, kk, vv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    out = sdpa(qq, kk, vv, causal)
+    return lambda: torch.autograd.grad(out, (qq, kk, vv), do,
+                                       retain_graph=True)
+
+
+def check_flash_backward(dev, tag, l1_ms=None) -> dict:
+    """L7: the backward pair against ``flash_attention_backward_plain`` on
+    every FLASH_BWD_CASES case, from the forward's own out and lse;
+    CUDA-event medians of the pair, the plain backward and SDPA's backward.
+    Bound: 2.5 x the forward's operations (4 dh a kept pair) at the card's
+    tensor-core rate for the type, as the forward's (``flash_ops_ms``: bf16
+    over its peak, f32 as split-TF32's three MMAs a product), against the
+    bytes of q, k, v, out, dout, lse, dq, dk and dv. Also the forward at L1's main shape with no lse
+    (serving's) beside L1's time, and with lse (training's)."""
+    cases = []
+    for label, B, Hq, Hkv, L, dh, dtype, causal in FLASH_BWD_CASES:
+        q, k, v = flash_inputs(B, Hq, Hkv, L, dh, dtype, dev)
+        rng = np.random.default_rng(SEED + 3 * L + dh)
+        do = torch.from_numpy(rng.standard_normal(q.shape, dtype=np.float32)
+                              ).to(dev, dtype)
+        out, lse = flash_attention_kernel(q, k, v, causal, lse=True)
+        got = flash_attention_backward_kernel(q, k, v, out, lse, do, causal)
+        want = flash_attention_backward_plain(q, k, v, out, lse, do, causal)
+        _sync()
+        errs = flash_bwd_errors(got, want)
+        abs_err = max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(got, want))
+        del got, want
+        ms = float(np.median(event_times(
+            lambda: flash_attention_backward_kernel(q, k, v, out, lse, do,
+                                                    causal), FLASH_BWD_REPS)))
+        plain_ms = float(np.median(event_times(
+            lambda: flash_attention_backward_plain(q, k, v, out, lse, do,
+                                                   causal), FLASH_BWD_REPS)))
+        lib = sdpa_backward(q, k, v, do, causal)
+        library_ms = float(np.median(event_times(lib, FLASH_BWD_REPS)))
+        del lib
+        fwd_ms = float(np.median(event_times(
+            lambda: flash_attention_kernel(q, k, v, causal), FLASH_BWD_REPS)))
+        fwd_lse_ms = float(np.median(event_times(
+            lambda: flash_attention_kernel(q, k, v, causal, lse=True),
+            FLASH_BWD_REPS)))
+        pairs = L * (L + 1) // 2 if causal else L * L
+        flops = 4 * dh * B * Hq * pairs
+        ops_ms, rate = flash_ops_ms(2.5 * flops, dtype)
+        nbytes = (5 * q.numel() + 4 * k.numel()) * q.element_size() + \
+            4 * lse.numel()
+        bound = max(ops_ms, 1e3 * nbytes / HBM_BYTES_PER_S)
+        tol = FLASH_BWD_TOL[dtype]
+        cases.append(dict(
+            label=label, shape=f"q {list(q.shape)} k {list(k.shape)} "
+            f"{str(dtype)[6:]} {'causal' if causal else 'non-causal'}",
+            rel_err_dq_dk_dv=errs, max_abs_err=abs_err, tolerance=tol,
+            out_of_tolerance=int(max(errs) >= tol), ms=ms, plain_ms=plain_ms,
+            library_ms=library_ms, nbytes=nbytes, ops_ms=ops_ms,
+            ops_rate=rate, bound_ms=bound, bound_share=bound / ms,
+            forward_ms=fwd_ms, forward_lse_ms=fwd_lse_ms))
+        _log(f"L7 flash backward {label} {cases[-1]['shape']}: dq, dk, dv "
+             f"max|d| / max|plain| {[f'{e:.3g}' for e in errs]} (tolerance "
+             f"{tol}); pair {ms:.3f} ms ({2.5 * flops / ms / 1e9:.2f} TFLOP/s"
+             f" as 2.5 x the forward's), plain {plain_ms:.3f} ms, SDPA's "
+             f"backward {library_ms:.3f} ms, kernel/SDPA "
+             f"{ms / library_ms:.3f}; bound {bound:.4f} ms (2.5 x {flops} "
+             f"flops as {rate} against {nbytes} bytes over "
+             f"{HBM_BYTES_PER_S / 1e12:g} TB/s),"
+             f" {bound / ms:.3f} of it reached; forward {fwd_ms:.3f} ms, with"
+             f" lse {fwd_lse_ms:.3f} (medians of {FLASH_BWD_REPS}) {tag}")
+        del q, k, v, do, out, lse
+        torch.cuda.empty_cache()
+    # serving's forward (no lse) at L1's main shape, beside L1's own time
+    label, B, Hq, Hkv, L, dh, dtype = FLASH_CASES[0]
+    q, k, v = flash_inputs(B, Hq, Hkv, L, dh, dtype, dev)
+    serve_ms = float(np.median(event_times(
+        lambda: flash_attention_kernel(q, k, v, True), FLASH_REPS)))
+    lse_ms = float(np.median(event_times(
+        lambda: flash_attention_kernel(q, k, v, True, lse=True), FLASH_REPS)))
+    del q, k, v
+    torch.cuda.empty_cache()
+    _log(f"L7 forward at L1's {label} shape: no lse (serving) {serve_ms:.3f}"
+         f" ms, L1's {l1_ms} ms; with lse (training) {lse_ms:.3f} ms {tag}")
+    if any(c["out_of_tolerance"] for c in cases):
+        raise AssertionError("L7: the flash backward disagrees with its "
+                             "plain version")
+    main = cases[0]
+    return {"flash_attention_backward_kernel": dict(
+        mismatches=0, max_abs_err=main["max_abs_err"],
+        rel_err_dq_dk_dv=main["rel_err_dq_dk_dv"], ms=main["ms"],
+        plain_ms=main["plain_ms"], library_ms=main["library_ms"],
+        nbytes=main["nbytes"], ops_ms=main["ops_ms"],
+        ops_rate=f"2.5 x forward {main['ops_rate']}", shape=main["shape"],
+        tolerance=main["tolerance"],
+        forward_ms_no_lse_at_l1_shape=serve_ms,
+        forward_ms_lse_at_l1_shape=lse_ms, l1_forward_ms=l1_ms,
+        cases=[{k: v for k, v in c.items() if k != "nbytes"}
+               for c in cases])}
+
+
+def _train_batch(cfg, B, S, dev):
+    """A seeded (tokens, labels) batch of the L8 check."""
+    toks = np.random.default_rng(SEED + 8).integers(
+        0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+    return {"tokens": torch.from_numpy(toks[:, :-1].copy()).to(dev),
+            "labels": torch.from_numpy(toks[:, 1:].copy()).to(dev)}
+
+
+# L8's profiled step: a device kernel's group by its name
+TRAIN_PROFILE_GROUPS = (
+    ("flash_backward", re.compile(r"lsk_flash_bwd")),
+    ("flash_forward", re.compile(r"lsk_flash_attention")),
+    ("matmul", re.compile(r"gemm|xmma|cutlass", re.I)),
+)
+
+
+def profile_train_step(cfg, state, dev, tag) -> dict:
+    """L8: one more train step of the trained state (TRAIN_BATCH x
+    TRAIN_SEQ in TRAIN_MICROBATCHES microbatches, the run's optimizer)
+    under the profiler: device kernel time by TRAIN_PROFILE_GROUPS (the
+    rest under "other"), each group's share of it, the top kernels, and
+    the kernel time's share of the profiled step's wall time (the card's
+    busy share; the profiler's host overhead lengthens that wall)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    opt = AdamWConfig(lr_peak=TRAIN_LR, warmup_steps=max(2, TRAIN_STEPS // 20),
+                      decay_steps=TRAIN_STEPS)
+    step = step_fns.make_train_step(cfg, opt, TRAIN_MICROBATCHES)
+    batch = _train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _sync()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        float(m["loss"])
+        _sync()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
+               and not getattr(e, "is_user_annotation", False)]
+    by_group = {g: 0.0 for g, _ in TRAIN_PROFILE_GROUPS}
+    by_group["other"] = 0.0
+    for e in kernels:
+        g = next((g for g, pat in TRAIN_PROFILE_GROUPS
+                  if pat.search(e.key)), "other")
+        by_group[g] += e.self_device_time_total / 1e3
+    dev_ms = sum(by_group.values())
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    out = dict(profile_wall_ms=1e3 * wall, profile_device_ms=dev_ms,
+               profile_busy_share=dev_ms / 1e3 / wall,
+               profile_device_ms_by_group=by_group,
+               profile_share_by_group={g: v / max(dev_ms, 1e-12)
+                                       for g, v in by_group.items()},
+               profile_launches=sum(e.count for e in kernels))
+    _log(f"L8 profile of one train step ({TRAIN_BATCH} x {TRAIN_SEQ} in "
+         f"{TRAIN_MICROBATCHES} microbatches): wall {1e3 * wall:.1f} ms, "
+         f"device kernels {dev_ms:.1f} ms (busy share "
+         f"{out['profile_busy_share']:.4f}), {out['profile_launches']} "
+         f"kernels; device ms by group {json.dumps(by_group)}, shares "
+         f"{json.dumps(out['profile_share_by_group'])}; top (ms): "
+         + json.dumps({e.key[:60]: round(e.self_device_time_total / 1e3, 3)
+                       for e in top}) + f" {tag}")
+    return out
+
+
+def train_phase(dev, tag) -> dict:
+    """L8: ``launch.train.train`` on SmolLM-135M at its published widths
+    and depth, TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens in
+    TRAIN_MICROBATCHES microbatches (async saves every TRAIN_CKPT_EVERY
+    steps and the final blocking one, into a temporary directory); the
+    flash launches counted from 0 over the run. Then one train step from
+    one seeded state and batch (TRAIN_CHECK_BATCH x TRAIN_CHECK_SEQ) with
+    ``attn_impl="kernel"`` and with ``"plain"``: loss, grad_norm and
+    every updated leaf compared."""
+    cfg = configs.get(TRAIN_ARCH, reduced=LM_REDUCED)
+    n_layers = n_flash_layers(cfg)
+    stats = {}
+    _free_card()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-train-") as tmp:
+        (losses, sec), launches = count_launches((), lambda: _timed(
+            lambda: train(TRAIN_ARCH, steps=TRAIN_STEPS, smoke=LM_REDUCED,
+                          batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                          ckpt_dir=tmp, ckpt_every=TRAIN_CKPT_EVERY,
+                          microbatches=TRAIN_MICROBATCHES, log_every=5,
+                          seed=SEED, lr_peak=TRAIN_LR, device=dev,
+                          stats=stats)))
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in stats["state"].params.parameters())
+    profiled = profile_train_step(cfg, stats.pop("state"), dev, tag)
+    _free_card()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_ms = 1e3 * float(np.median(stats["step_s"][1:]))
+    mb = TRAIN_BATCH // TRAIN_MICROBATCHES
+    attn = 3 * n_layers * flash_flops(mb, cfg.n_heads, TRAIN_SEQ,
+                                      cfg.head_dim) * TRAIN_MICROBATCHES
+    model_flops = 6 * n_params * tokens + attn
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    out = dict(arch=cfg.name, layers=cfg.n_layers, param_count=n_params,
+               steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+               microbatches=TRAIN_MICROBATCHES, lr_peak=TRAIN_LR,
+               losses=losses, loss_first5=first, loss_last5=last,
+               seconds=sec, first_step_ms=1e3 * stats["step_s"][0],
+               step_ms=step_ms, tokens_per_s=tokens / step_ms * 1e3,
+               model_flops_per_step=model_flops,
+               model_flops_share_f32_peak=model_flops / (step_ms * 1e-3)
+               / F32_FLOPS_PER_S,
+               peak_memory_bytes=peak,
+               flash_forward_launches=launches["flash_attention_kernel"],
+               flash_backward_launches=launches[
+                   "flash_attention_backward_kernel"],
+               launches=launches,
+               grad_norm_last=stats["metrics"][-1]["grad_norm"], **profiled)
+    _log(f"L8 train {cfg.name} ({cfg.n_layers} layers, {n_params} "
+         f"parameters): {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+         f"tokens in {TRAIN_MICROBATCHES} microbatches in {sec:.1f} s; "
+         f"first step {out['first_step_ms']:.1f} ms, median of the rest "
+         f"{step_ms:.1f} ms ({out['tokens_per_s']:.1f} tokens/s, "
+         f"{model_flops / (step_ms * 1e-3) / 1e12:.2f} model TFLOP/s = "
+         f"{out['model_flops_share_f32_peak']:.3f} of the f32 peak); loss "
+         f"first 5 {first:.4f}, last 5 {last:.4f}; peak device memory "
+         f"{peak} bytes; flash launches forward "
+         f"{out['flash_forward_launches']}, backward "
+         f"{out['flash_backward_launches']} ({n_layers} layers x "
+         f"{TRAIN_MICROBATCHES} microbatches x {TRAIN_STEPS} steps) {tag}")
+    if not (np.isfinite(losses).all() and last < first):
+        raise AssertionError("L8: the loss is not finite or did not fall")
+
+    # one step, kernel against plain attention, from one state and batch
+    opt = AdamWConfig(lr_peak=1e-3, warmup_steps=2, decay_steps=10, eps=1e-3)
+    batch = _train_batch(cfg, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ, dev)
+    res = {}
+    for impl in ("kernel", "plain"):
+        c = cfg.replace(attn_impl=impl)
+        state = step_fns.init_train_state(
+            c, opt, torch.Generator().manual_seed(SEED), dev)
+        (state, m), n = count_launches((), lambda: step_fns.make_train_step(
+            c, opt)(state, batch))
+        res[impl] = (m, {k: p.detach() for k, p in
+                         state.params.named_parameters()}, n)
+        del state
+        _free_card()
+    (mk, pk, nk), (mp, pp, npl) = res["kernel"], res["plain"]
+    rel = {k: abs(float(mk[k]) - float(mp[k])) / abs(float(mp[k]))
+           for k in ("loss", "grad_norm")}
+    param_err = max(float((pk[k] - pp[k]).abs().max()) for k in pp)
+    out.update(check_loss_rel=rel["loss"], check_grad_norm_rel=rel[
+        "grad_norm"], check_param_max_abs=param_err,
+        check_launches_kernel={k: nk[k] for k in TRAIN_PATH},
+        check_launches_plain={k: npl[k] for k in TRAIN_PATH})
+    loss_k, loss_p = float(mk["loss"]), float(mp["loss"])
+    _log(f"L8 one step at {TRAIN_CHECK_BATCH} x {TRAIN_CHECK_SEQ}, kernel vs"
+         f" plain attention from one state and batch: loss {loss_k:.6f} vs "
+         f"{loss_p:.6f} (rel {rel['loss']:.3g}), "
+         f"grad_norm rel {rel['grad_norm']:.3g} (tolerance {TRAIN_REL}), "
+         f"every updated leaf max|d| {param_err:.3g} (tolerance "
+         f"{TRAIN_PARAM_TOL}); flash launches kernel step "
+         f"{out['check_launches_kernel']}, plain step "
+         f"{out['check_launches_plain']} {tag}")
+    del res, pk, pp
+    _free_card()
+    if max(rel.values()) > TRAIN_REL or param_err > TRAIN_PARAM_TOL or \
+            any(npl[k] for k in TRAIN_PATH):
+        raise AssertionError("L8: the kernel and plain train steps differ")
+    return out
+
+
+def check_train_on_the_card(cfg, out) -> None:
+    """L8's launch checks, which only the card can make: every step's
+    forward and backward took one flash launch a global layer a
+    microbatch, and the check's kernel step one each a layer."""
+    n = n_flash_layers(cfg)
+    want = n * TRAIN_MICROBATCHES * TRAIN_STEPS
+    if out["flash_forward_launches"] != want or \
+            out["flash_backward_launches"] != want or \
+            any(out["check_launches_kernel"][k] != n for k in TRAIN_PATH):
+        raise AssertionError(f"L8: flash launches {out['launches']}, check "
+                             f"{out['check_launches_kernel']}; want {want} "
+                             f"and {n}")
+
+
+def check_moe_train_on_the_card(out) -> None:
+    """L9's path check, which only the card can make: the telemetry's
+    insert, pool and scan kernels each launched during the run."""
+    if not all(out["launches"][k] for k in MOE_TRAIN_PATH):
+        raise AssertionError(f"L9: a kernel of the telemetry path never "
+                             f"launched: {out['launches']}")
+
+
+def moe_train_phase(dev, tag) -> dict:
+    """L9: the MoE trainer with telemetry (MOE_TRAIN, as the reference's
+    test runs it) on the card, every launch counted from 0, and the same
+    from the same seed on the CPU: losses within LOGIT_TOL, the summed
+    telemetry matrices equal as int32, ``RouterTelemetry.load_vector`` and
+    every capacity factor equal."""
+    kw = dict(MOE_TRAIN, smoke=True, ckpt_every=0, log_every=100, seed=SEED)
+    card, host = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-moe-") as tmp:
+        (losses, sec), launches = count_launches((), lambda: _timed(
+            lambda: train(**kw, ckpt_dir=os.path.join(tmp, "card"),
+                          device=dev, stats=card)))
+        t0 = time.perf_counter()
+        want = train(**kw, ckpt_dir=os.path.join(tmp, "cpu"), device="cpu",
+                     stats=host)
+        cpu_sec = time.perf_counter() - t0
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+    tele_equal = torch.equal(card["state"].telemetry.cpu(),
+                             host["state"].telemetry)
+    load, load_cpu = card["telemetry"].load_vector(), \
+        host["telemetry"].load_vector()
+    out = dict(arch=MOE_TRAIN["arch"], steps=MOE_TRAIN["steps"],
+               seconds=sec, cpu_seconds=cpu_sec, losses=losses,
+               loss_rel_err=rel, telemetry_equal=tele_equal,
+               telemetry_sum=int(card["state"].telemetry.sum()),
+               load_vector_equal=bool(np.array_equal(load, load_cpu)),
+               capacity_factors=card["cf"],
+               capacity_factors_equal=card["cf"] == host["cf"],
+               dropped_last=card["metrics"][-1]["dropped"],
+               launches=launches)
+    _log(f"L9 MoE trainer {MOE_TRAIN}: card {sec:.2f} s, CPU {cpu_sec:.2f} "
+         f"s; losses card vs CPU max rel {rel:.3g} (tolerance {LOGIT_TOL}); "
+         f"telemetry matrices {'equal' if tele_equal else 'differ'} (sum "
+         f"{out['telemetry_sum']}), load vectors "
+         f"{'equal' if out['load_vector_equal'] else 'differ'}, capacity "
+         f"factors {card['cf']} vs {host['cf']}; launches on the card "
+         f"{ {k: launches[k] for k in MOE_TRAIN_PATH + TRAIN_PATH} } {tag}")
+    del card, host
+    _free_card()
+    if not (rel <= LOGIT_TOL and tele_equal and out["load_vector_equal"]
+            and out["capacity_factors_equal"]):
+        raise AssertionError("L9: the card's MoE trainer differs from the "
+                             "CPU's")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -4507,20 +4938,22 @@ def _row_paths(name: str) -> tuple:
         return ("bigram",)
     if name in ("sketch_query_kernel_sharded", "vertex_scan_kernel_sharded"):
         return ("server", "collective")
-    if name == "flash_attention_kernel":
+    if name in ("flash_attention_kernel", "flash_attention_backward_kernel"):
         return ()
     return ("server", "server_pool", "reshard", "collective")
 
 
 def kernel_entries(results: dict, launches: dict,
-                   new_paths: dict | None = None) -> list:
+                   new_paths: dict | None = None,
+                   train_paths: dict | None = None) -> list:
     """The ``kernels`` list of the JSON line. Each bound is the larger of
     the bytes the check counted over HBM_BYTES_PER_S and the time of the
     operations it counted, where it counted any (``ops_ms``, at the rate
     ``ops_rate`` names); ``library_ms`` is null where no single PyTorch
     call computes the kernel's function. ``launches_new_paths`` gives each
     row's wrapper launches on the paths of phases V and M
-    (``_row_paths``)."""
+    (``_row_paths``), ``launches_train`` on the training paths of L8 and
+    L9."""
     out = []
     for kname, r in results.items():
         bytes_ms = 1e3 * r["nbytes"] / HBM_BYTES_PER_S
@@ -4536,7 +4969,9 @@ def kernel_entries(results: dict, launches: dict,
             library_ms=r.get("library_ms"),
             launches_new_paths={p: new_paths[p][wrapper]
                                 for p in _row_paths(kname)}
-            if new_paths else {}))
+            if new_paths else {},
+            launches_train={p: n[wrapper] for p, n in train_paths.items()}
+            if train_paths else {}))
     return out
 
 
@@ -4648,22 +5083,35 @@ def main() -> int:
     launches.update({k: o_launches[w] for k, w in OBJECT_KERNELS.items()})
     torch.cuda.empty_cache()
 
-    results.update(check_flash_kernel(dev, tag))  # L1
-    results["flash_attention_kernel"]["build"] = flash_build
-    cfg_lm, params = lm_model(dev, tag)  # L2
-    lm_out, tokens, head = prefill_phase(cfg_lm, params, dev, tag)
-    check_prefill_on_the_card(cfg_lm, lm_out)
-    launches["flash_attention_kernel"] = lm_out["prefill_flash_launches"]
-    lm_out.update(serve_phase(cfg_lm, params, tokens, head, dev, tag))  # L3
-    del params, head
-    torch.cuda.empty_cache()
-    arch_out, arch_launches = arch_phases(dev, tag)  # L4-L6
+    with torch.no_grad():  # serving: L1-L6 build no graph
+        results.update(check_flash_kernel(dev, tag))  # L1
+        results["flash_attention_kernel"]["build"] = flash_build
+        cfg_lm, params = lm_model(dev, tag)  # L2
+        lm_out, tokens, head = prefill_phase(cfg_lm, params, dev, tag)
+        check_prefill_on_the_card(cfg_lm, lm_out)
+        launches["flash_attention_kernel"] = lm_out["prefill_flash_launches"]
+        lm_out.update(serve_phase(cfg_lm, params, tokens, head, dev,
+                                  tag))  # L3
+        del params, head
+        torch.cuda.empty_cache()
+        arch_out, arch_launches = arch_phases(dev, tag)  # L4-L6
     results["flash_attention_kernel"]["launches_lm_archs"] = arch_launches
+
+    results.update(check_flash_backward(  # L7
+        dev, tag, results["flash_attention_kernel"]["ms"]))
+    train_out = train_phase(dev, tag)  # L8
+    check_train_on_the_card(configs.get(TRAIN_ARCH, reduced=LM_REDUCED),
+                            train_out)
+    launches["flash_attention_backward_kernel"] = \
+        train_out["flash_backward_launches"]
+    moe_out = moe_train_phase(dev, tag)  # L9
+    check_moe_train_on_the_card(moe_out)
+    train_paths = {"L8": train_out["launches"], "L9": moe_out["launches"]}
 
     seconds = time.perf_counter() - t_start
     _log(f"total {seconds:.1f} s")
     print(json.dumps({"kernels": kernel_entries(results, launches,
-                                                new_paths),
+                                                new_paths, train_paths),
                       "card": card, "peak_memory_bytes": peak,
                       "analytics_peak_memory_bytes": a_peak,
                       "ingest_edges_per_s": edges_per_s,
@@ -4673,6 +5121,7 @@ def main() -> int:
                       "merge": merge_out, "object": obj_out,
                       "collective": collective_out,
                       **profile, **lm_out, "archs": arch_out,
+                      "train": train_out, "moe_train": moe_out,
                       "seconds": seconds}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

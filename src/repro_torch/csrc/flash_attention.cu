@@ -8,7 +8,11 @@
 // i >= j (masked scores -1e30), a running max m, sum l and dh-wide
 // accumulator per row in f32, the result acc / max(l, 1e-30) cast to the
 // input type. Ragged lengths are masked here (keys j >= Lk score -1e30,
-// rows i >= Lq are not stored), so the wrapper pads nothing.
+// rows i >= Lq are not stored), so the wrapper pads nothing. With a
+// non-null lse the kernel also writes each row's log-sum-exp of its
+// scaled scores, m + log(max(l, 1e-30)) in f32 [B, Hq, Lq], which the
+// backward (flash_attention_bwd.cu) reads to recompute P; serving passes
+// null and writes nothing more.
 //
 // Design: FlashAttention-2 on the tensor cores through mma.sync.
 //   - one block of 4 warps (8 above dh=128, below) per (query head of
@@ -95,6 +99,7 @@ constexpr int BQ = 64;  // query rows per block, 16 per warp (pair)
 constexpr int ROW_WARPS = BQ / 16;
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <typename T, int DH>
 struct Tile {
@@ -247,8 +252,8 @@ __global__ void __launch_bounds__(Tile<T, DH>::THREADS)
     lsk_flash_attention_kernel(const T* __restrict__ q,
                                const T* __restrict__ k,
                                const T* __restrict__ v, T* __restrict__ out,
-                               int Hq, int Hkv, int Lq, int Lk, int causal,
-                               float scale) {
+                               float* __restrict__ lse, int Hq, int Hkv,
+                               int Lq, int Lk, int causal, float scale) {
   using C = Tile<T, DH>;
   constexpr int BK = C::BK, NT = C::NT, ND = C::ND;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -523,12 +528,17 @@ __global__ void __launch_bounds__(Tile<T, DH>::THREADS)
 #pragma unroll
     for (int n = 0; n < ND; ++n)
       store2(po + 8 * n, o[n][2 * r] / l[r], o[n][2 * r + 1] / l[r]);
+    // m is in the log2 domain (scores times log2(e)); both warps of a
+    // pair hold the same m and l, the first writes
+    if (lse != nullptr && t4 == 0 && half == 0)
+      lse[(int64_t)bh * Lq + i] = (m[r] + log2f(l[r])) * LN2;
   }
 }
 
 template <int DH, typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Hq, int Hkv, int Lq, int Lk, int causal, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+           int B, int Hq, int Hkv, int Lq, int Lk, int causal,
+           cudaStream_t stream) {
   const size_t smem = Tile<T, DH>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       lsk_flash_attention_kernel<T, DH>,
@@ -539,28 +549,34 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const float scale = (float)(1.0 / sqrt((double)DH));
   lsk_flash_attention_kernel<T, DH><<<grid, Tile<T, DH>::THREADS, smem,
                                       stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, Hq, Hkv, Lq, Lk,
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, Hq, Hkv, Lq, Lk,
       causal, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out, int B,
-             int Hq, int Hkv, int Lq, int Lk, int dh, int causal,
-             cudaStream_t stream) {
+int dispatch(const void* q, const void* k, const void* v, void* out,
+             float* lse, int B, int Hq, int Hkv, int Lq, int Lk, int dh,
+             int causal, cudaStream_t stream) {
   switch (dh) {
     case 16:
-      return launch<16, T>(q, k, v, out, B, Hq, Hkv, Lq, Lk, causal, stream);
+      return launch<16, T>(q, k, v, out, lse, B, Hq, Hkv, Lq, Lk, causal,
+                             stream);
     case 32:
-      return launch<32, T>(q, k, v, out, B, Hq, Hkv, Lq, Lk, causal, stream);
+      return launch<32, T>(q, k, v, out, lse, B, Hq, Hkv, Lq, Lk, causal,
+                             stream);
     case 64:
-      return launch<64, T>(q, k, v, out, B, Hq, Hkv, Lq, Lk, causal, stream);
+      return launch<64, T>(q, k, v, out, lse, B, Hq, Hkv, Lq, Lk, causal,
+                             stream);
     case 96:
-      return launch<96, T>(q, k, v, out, B, Hq, Hkv, Lq, Lk, causal, stream);
+      return launch<96, T>(q, k, v, out, lse, B, Hq, Hkv, Lq, Lk, causal,
+                             stream);
     case 128:
-      return launch<128, T>(q, k, v, out, B, Hq, Hkv, Lq, Lk, causal, stream);
+      return launch<128, T>(q, k, v, out, lse, B, Hq, Hkv, Lq, Lk, causal,
+                             stream);
     case 256:
-      return launch<256, T>(q, k, v, out, B, Hq, Hkv, Lq, Lk, causal, stream);
+      return launch<256, T>(q, k, v, out, lse, B, Hq, Hkv, Lq, Lk, causal,
+                             stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -569,18 +585,20 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int B,
 }  // namespace
 
 extern "C" int lsk_flash_attention(const void* q, const void* k, const void* v,
-                                   void* out, int B, int Hq, int Hkv, int Lq,
-                                   int Lk, int dh, int causal, int is_bf16,
-                                   void* stream) {
+                                   void* out, void* lse, int B, int Hq,
+                                   int Hkv, int Lq, int Lk, int dh,
+                                   int causal, int is_bf16, void* stream) {
   if (B == 0 || Hq == 0 || Lq == 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || (Lq + BQ - 1) / BQ > 65535)
     return (int)cudaErrorInvalidValue;
   // cp.async and the vector loads and stores move 16, 8 or 4 B at a time
-  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16)
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16 ||
+      (uintptr_t)lse % 4)
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = (cudaStream_t)stream;
-  return is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, out, B, Hq, Hkv, Lq, Lk,
-                                           dh, causal, s)
-                 : dispatch<float>(q, k, v, out, B, Hq, Hkv, Lq, Lk, dh,
+  float* l = (float*)lse;
+  return is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, out, l, B, Hq, Hkv, Lq,
+                                           Lk, dh, causal, s)
+                 : dispatch<float>(q, k, v, out, l, B, Hq, Hkv, Lq, Lk, dh,
                                    causal, s);
 }

@@ -22,7 +22,18 @@ and rounds the softmax weights to bf16 for the product with V, and its
 f32 variant keeps f32 accuracy by splitting every operand into two TF32
 parts (``tests/test_torch_flash_numerics.py`` emulates both on the CPU).
 
-q [B, Hq, Lq, dh]; k, v [B, Hkv, Lk, dh]; returns [B, Hq, Lq, dh].
+q [B, Hq, Lq, dh]; k, v [B, Hkv, Lk, dh]; returns [B, Hq, Lq, dh] and,
+when asked (``lse=True``), the per-row log-sum-exp of the scaled,
+masked scores, f32 ``[B, Hq, Lq]``: what the backward reads to recompute
+the softmax weights.
+
+The backward (``flash_attention_backward_kernel``, source
+``csrc/flash_attention_bwd.cu``) replaces no TPU kernel: the JAX kernel
+has no VJP, and the JAX trainer differentiates its masked XLA attention.
+It is the gradient of the same function, in two launches without atomics
+(dq and D, then dk and dv a KV head's group at a time);
+``flash_attention_backward_plain`` is its plain version, with the
+explicit formulas.
 """
 
 from __future__ import annotations
@@ -37,7 +48,7 @@ DTYPES = (torch.float32, torch.bfloat16)
 PLAIN_BLOCK_Q = 512  # query rows per block of the plain version
 
 
-def flash_attention_plain(q, k, v, causal: bool = True):
+def flash_attention_plain(q, k, v, causal: bool = True, lse: bool = False):
     B, Hq, Lq, dh = q.shape
     Hkv, Lk = k.shape[1], k.shape[2]
     g = Hq // Hkv
@@ -46,6 +57,7 @@ def flash_attention_plain(q, k, v, causal: bool = True):
     kf = k.float()[:, :, None]  # [B, Hkv, 1, Lk, dh]
     vf = v.float()[:, :, None]
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse_out = torch.empty((B, Hq, Lq), dtype=torch.float32, device=q.device)
     j = torch.arange(Lk, device=q.device)
     for a in range(0, Lq, PLAIN_BLOCK_Q):
         z = min(a + PLAIN_BLOCK_Q, Lq)
@@ -57,9 +69,49 @@ def flash_attention_plain(q, k, v, causal: bool = True):
         m = s.amax(dim=-1, keepdim=True)
         p = torch.exp(s - m)
         acc = p @ vf
-        o = acc / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-        out[:, :, a:z] = o.reshape(B, Hq, z - a, dh).to(q.dtype)
-    return out
+        l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+        out[:, :, a:z] = (acc / l).reshape(B, Hq, z - a, dh).to(q.dtype)
+        lse_out[:, :, a:z] = (m + torch.log(l)).reshape(B, Hq, z - a)
+    return (out, lse_out) if lse else out
+
+
+def flash_attention_backward_plain(q, k, v, out, lse, dout,
+                                   causal: bool = True):
+    """(dq, dk, dv) of ``flash_attention_plain``'s function, in plain
+    PyTorch over blocks of PLAIN_BLOCK_Q query rows, every sum in f32:
+    P = exp(S scale - lse) under the forward's top-left causal rule
+    (masked P = 0), D = rowsum(dO o O), dV = P^T dO, dS = P o (dO V^T -
+    D), dq = dS K scale, dK = dS^T q scale; dK and dV summed over each KV
+    head's query group. The grads come back in q's dtype."""
+    B, Hq, Lq, dh = q.shape
+    Hkv, Lk = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    scale = 1.0 / (dh ** 0.5)
+    kf = k.float()[:, :, None]  # [B, Hkv, 1, Lk, dh]
+    vf = v.float()[:, :, None]
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.zeros(kf.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(vf.shape, dtype=torch.float32, device=q.device)
+    j = torch.arange(Lk, device=q.device)
+    for a in range(0, Lq, PLAIN_BLOCK_Q):
+        z = min(a + PLAIN_BLOCK_Q, Lq)
+
+        def grouped(x):
+            return x[:, :, a:z].float().reshape(B, Hkv, g, z - a, -1)
+
+        qb, ob, dob = grouped(q), grouped(out), grouped(dout)
+        s = (qb @ kf.transpose(-1, -2)) * scale  # [B, Hkv, g, bq, Lk]
+        p = torch.exp(s - grouped(lse[..., None]))
+        if causal:
+            i = torch.arange(a, z, device=q.device)
+            p = p.masked_fill(i[:, None] < j[None, :], 0.0)
+        dv += (p.transpose(-1, -2) @ dob).sum(2, keepdim=True)
+        dd = (dob * ob).sum(-1, keepdim=True)
+        ds = p * (dob @ vf.transpose(-1, -2) - dd)
+        dq[:, :, a:z] = ((ds @ kf) * scale).reshape(B, Hq, z - a, dh).to(
+            q.dtype)
+        dk += (ds.transpose(-1, -2) @ qb).sum(2, keepdim=True) * scale
+    return dq, dk[:, :, 0].to(k.dtype), dv[:, :, 0].to(v.dtype)
 
 
 def _check(q, k, v):
@@ -86,17 +138,57 @@ def _check(q, k, v):
                          "(the kernel copies 16 B at a time)")
 
 
-def flash_attention_kernel(q, k, v, causal: bool = True):
+def flash_attention_kernel(q, k, v, causal: bool = True, lse: bool = False):
+    """out, or (out, lse) with ``lse``: serving passes no lse buffer and the
+    kernel writes none."""
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal)
+        return flash_attention_plain(q, k, v, causal, lse)
     _check(q, k, v)
     B, Hq, Lq, dh = q.shape
     Hkv, Lk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
-    build.call("lsk_flash_attention", q, k, v, out, B, Hq, Hkv, Lq, Lk, dh,
-               int(causal), int(q.dtype == torch.bfloat16))
+    lse_out = torch.empty((B, Hq, Lq), dtype=torch.float32,
+                          device=q.device) if lse else None
+    build.call("lsk_flash_attention", q, k, v, out, lse_out, B, Hq, Hkv, Lq,
+               Lk, dh, int(causal), int(q.dtype == torch.bfloat16))
     flash_attention_kernel.launches += 1
-    return out
+    return (out, lse_out) if lse else out
 
 
 flash_attention_kernel.launches = 0
+
+
+def flash_attention_backward_kernel(q, k, v, out, lse, dout,
+                                    causal: bool = True):
+    """(dq, dk, dv) by the two backward launches: ``lsk_flash_bwd_dq``
+    (which writes D, f32 [B, Hq, Lq]) then ``lsk_flash_bwd_dkdv``. One
+    launch of the pair adds one to ``launches``."""
+    if q.device.type == "cpu":
+        return flash_attention_backward_plain(q, k, v, out, lse, dout, causal)
+    _check(q, k, v)
+    _check(out, dout, dout)  # device, dtype, layout and alignment
+    if out.shape != q.shape or dout.shape != q.shape or \
+            out.dtype != q.dtype or dout.dtype != q.dtype:
+        raise ValueError(f"out {tuple(out.shape)} {out.dtype} and dout "
+                         f"{tuple(dout.shape)} {dout.dtype} must match q's "
+                         f"{tuple(q.shape)} {q.dtype}")
+    B, Hq, Lq, dh = q.shape
+    Hkv, Lk = k.shape[1], k.shape[2]
+    if lse.shape != (B, Hq, Lq) or lse.dtype != torch.float32 \
+            or not lse.is_contiguous() or lse.device != q.device:
+        raise ValueError(f"lse must be contiguous f32 {(B, Hq, Lq)} on "
+                         f"{q.device}, got {lse.dtype} {tuple(lse.shape)} "
+                         f"on {lse.device}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(v)
+    delta = torch.empty((B, Hq, Lq), dtype=torch.float32, device=q.device)
+    bf16 = int(q.dtype == torch.bfloat16)
+    build.call("lsk_flash_bwd_dq", q, k, v, out, dout, lse, delta, dq, B, Hq,
+               Hkv, Lq, Lk, dh, int(causal), bf16)
+    build.call("lsk_flash_bwd_dkdv", q, k, v, dout, lse, delta, dk, dv, B,
+               Hq, Hkv, Lq, Lk, dh, int(causal), bf16)
+    flash_attention_backward_kernel.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_backward_kernel.launches = 0

@@ -87,7 +87,8 @@ class DecodeServer:
                              f"request needs frame_emb [Se, D]")
         frames = torch.as_tensor(np.asarray(req.frame_emb, np.float32),
                                  device=self.device)[None]
-        mem = lm.encode_memory(self.cfg, self.params, frames)
+        with torch.no_grad():
+            mem = lm.encode_memory(self.cfg, self.params, frames)
         if self.memory is None:
             self.memory = torch.zeros((self.B,) + mem.shape[1:],
                                       dtype=mem.dtype, device=self.device)

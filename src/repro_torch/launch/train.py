@@ -1,0 +1,160 @@
+"""The trainer: train loop + LSketch router telemetry + checkpoints
+(counterpart of ``repro.launch.train``), on one device.
+
+Wiring per step, with the reference's cadence:
+  1. a ``TokenPipeline`` batch (host, prefetched);
+  2. the train step (forward, backward, AdamW; ``make_train_step``);
+  3. every ``controller_every`` steps, the MoE telemetry count matrix
+     summed since the last read goes to ``RouterTelemetry.ingest`` and
+     ``CapacityController.update`` moves the capacity factor (logged; as
+     in the reference, the step does not read it back);
+  4. ``CheckpointManager.save`` (async) every ``ckpt_every`` steps and a
+     blocking save at the end: the train state under its dotted leaf
+     names (``step_fns.state_leaves``) and the pipeline cursor, so
+     ``resume`` continues exactly. The pipeline is built after the
+     restore, as its worker captures its cursor when it starts.
+
+Runs on the card unless the caller passes ``device="cpu"`` (CLI
+``--device cpu``); the telemetry sketch lives on the same device.
+
+Usage: python -m repro_torch.launch.train --arch smollm-135m --steps 200
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+import repro_torch.configs as configs
+from repro_torch.core.types import resolve_device
+from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+from repro_torch.distributed.checkpoint import CheckpointManager
+from repro_torch.launch.step_fns import (init_train_state, load_state_leaves,
+                                         make_train_step, state_leaves)
+from repro_torch.optim import AdamWConfig
+from repro_torch.telemetry import CapacityController, RouterTelemetry
+
+
+def train(arch: str = "smollm-135m", steps: int = 100, smoke: bool = True,
+          batch_size: int = 8, seq_len: int = 128, ckpt_dir: str | None = None,
+          ckpt_every: int = 50, controller_every: int = 10,
+          microbatches: int = 1, resume: bool = False, log_every: int = 10,
+          seed: int = 0, cfg=None, lr_peak: float = 3e-4,
+          schedule_steps: int | None = None, device=None, stats=None):
+    """Train ``steps`` steps (from a checkpoint's step with ``resume``);
+    returns the per-step losses. ``stats``, a dict when given, receives
+    the capacity factors after each controller update (``"cf"``), each
+    step's metrics as floats (``"metrics"``) and seconds (``"step_s"``:
+    batch to loss, synchronised by reading the loss), the telemetry
+    handle (``"telemetry"``) and the final train state (``"state"``)."""
+    dev = resolve_device(device)
+    cfg = cfg if cfg is not None else configs.get(arch, reduced=smoke)
+    arch = cfg.name
+    horizon = schedule_steps or steps  # fixed horizon => exact resume
+    opt_cfg = AdamWConfig(lr_peak=lr_peak,
+                          warmup_steps=max(2, horizon // 20),
+                          decay_steps=horizon)
+    pipe_cfg = TokenPipelineConfig(
+        vocab_size=cfg.vocab_size, batch_size=batch_size, seq_len=seq_len,
+        seed=seed)
+    ckpt = CheckpointManager(ckpt_dir or os.path.join(
+        tempfile.gettempdir(), f"repro_torch_ckpt_{arch}"), keep=2)
+
+    tele = RouterTelemetry(n_experts=max(cfg.n_experts, 1), device=dev) \
+        if cfg.n_experts else None
+    controller = CapacityController(tele) if tele else None
+    capacity_factor = cfg.capacity_factor
+    if stats is not None:
+        stats.update(cf=[], metrics=[], step_s=[], telemetry=tele)
+
+    # drawn on the CPU: one seed gives the same weights on every device
+    state = init_train_state(cfg, opt_cfg,
+                             torch.Generator().manual_seed(seed), dev)
+    step_fn = make_train_step(cfg, opt_cfg, microbatches)
+
+    start = 0
+    cursor = 0
+    if resume and ckpt.latest_step() is not None:
+        arrays, extra = ckpt.restore(list(state_leaves(state)))
+        state = load_state_leaves(state, arrays)
+        start = extra["step"]
+        cursor = extra["cursor"]
+        print(f"[train] resumed at step {start}")
+    # the pipeline worker captures its cursor at thread start — it must
+    # be constructed *after* restore for exact resume
+    pipe = TokenPipeline(pipe_cfg, cursor=cursor)
+
+    losses = []
+    prev_tele = state.telemetry.cpu().numpy()
+    try:
+        for step in range(start, steps):
+            t0 = time.time()
+            batch = next(pipe)
+            tbatch = {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(
+                dev) for k in ("tokens", "labels")}
+            state, metrics = step_fn(state, tbatch)
+            loss = float(metrics["loss"])
+            losses.append(loss)
+            if stats is not None:
+                stats["step_s"].append(time.time() - t0)
+                stats["metrics"].append({k: float(v)
+                                         for k, v in metrics.items()})
+
+            if tele is not None and step % controller_every == 0:
+                cur = state.telemetry.cpu().numpy()
+                tele.ingest(cur - prev_tele, step)
+                prev_tele = cur
+                capacity_factor = controller.update(capacity_factor)
+                if stats is not None:
+                    stats["cf"].append(capacity_factor)
+
+            if ckpt_every and step and step % ckpt_every == 0:
+                ckpt.save(step, state_leaves(state),
+                          extra={"step": step, "cursor": pipe.cursor},
+                          blocking=False)
+            if step % log_every == 0:
+                dt = time.time() - t0
+                extra = ""
+                if tele is not None:
+                    extra = (f" imb={tele.imbalance(last=2):.2f}"
+                             f" cf={capacity_factor:.2f}")
+                print(f"[train] step={step} loss={loss:.4f} "
+                      f"dt={dt*1e3:.0f}ms{extra}")
+        ckpt.save(steps, state_leaves(state),
+                  extra={"step": steps, "cursor": pipe.cursor},
+                  blocking=True)
+        if stats is not None:
+            stats["state"] = state
+    finally:
+        pipe.close()
+    return losses
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--full", dest="smoke", action="store_false")
+    ap.add_argument("--batch-size", type=int, default=8)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    args = ap.parse_args(argv)
+    losses = train(arch=args.arch, steps=args.steps, smoke=args.smoke,
+                   batch_size=args.batch_size, seq_len=args.seq_len,
+                   microbatches=args.microbatches, resume=args.resume,
+                   ckpt_dir=args.ckpt_dir, device=args.device)
+    print(f"final loss {losses[-1]:.4f} (first {losses[0]:.4f})")
+
+
+if __name__ == "__main__":
+    main()

@@ -73,7 +73,8 @@ class ModelConfig:
     tie_embeddings: bool = False
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.float32
-    remat: str = "none"  # none | full | dots (training; not ported yet)
+    remat: str = "none"  # none | full | dots (the reference's activation
+    # rematerialisation; the port's trainer does not rematerialise)
     attn_impl: str = "kernel"  # kernel | plain
     # storage dtype of the [B,H,Sq,Sk] score/prob tensors of the plain
     # attention; the softmax itself always reduces in f32
@@ -90,6 +91,12 @@ class ModelConfig:
     @property
     def head_dim(self) -> int:
         return self.d_head or (self.d_model // self.n_heads)
+
+    @property
+    def is_subquadratic(self) -> bool:
+        """Eligible for the long_500k cell (SSM / hybrid / local-attn)."""
+        return (self.family in ("ssm", "hybrid")
+                or (self.sliding_window > 0 and self.global_every > 0))
 
     @property
     def is_encdec(self) -> bool:

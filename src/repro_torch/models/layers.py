@@ -1,5 +1,5 @@
-"""Shared model layers: RMSNorm, RoPE, SwiGLU MLP, embeddings (counterpart
-of ``repro.models.layers``; the loss waits for the training slice)."""
+"""Shared model layers: RMSNorm, RoPE, SwiGLU MLP, embeddings and the
+loss (counterpart of ``repro.models.layers``)."""
 
 from __future__ import annotations
 
@@ -78,3 +78,19 @@ def embed(params, tokens, cfg: ModelConfig):
 def unembed(params, x, cfg: ModelConfig):
     w = params["tok"].T if cfg.tie_embeddings else params["unembed"]
     return x @ w
+
+
+# ---- loss -----------------------------------------------------------------
+
+def softmax_xent(logits, labels, mask=None):
+    """Token-mean cross entropy in f32: logsumexp minus the gold logit;
+    labels int, mask optional bool (a masked mean over max(sum(mask),
+    1))."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        m = mask.float()
+        return torch.sum(nll * m) / torch.clamp_min(torch.sum(m), 1.0)
+    return torch.mean(nll)

@@ -9,13 +9,16 @@ Three input topologies, as in the JAX package:
     tokens through the decoder with cross attention to its memory) —
     seamless-m4t.
 
-``forward`` is the prefill (every global GQA layer's attention through the
-flash wrapper when ``cfg.attn_impl == "kernel"``) and returns (logits,
-aux), the aux summed over the MoE layers; ``init_cache``/``serve_step``
-the serving lowering, one token per step against per-layer caches, with
-``encode_memory`` run once per request for the encoder-decoder. All run
-under ``torch.no_grad()``. Training (``loss_fn``) waits for the training
-slice.
+``forward`` is the prefill and the training forward (every global GQA
+layer's attention through the flash wrapper when ``cfg.attn_impl ==
+"kernel"``, differentiable through the flash backward) and returns
+(logits, aux), the aux summed over the MoE layers; ``loss_fn`` the
+training loss on it. ``init_cache``/``serve_step`` are the serving
+lowering, one token per step against per-layer caches (``serve_step``
+under ``torch.no_grad()``), with ``encode_memory`` run once per request
+for the encoder-decoder. ``forward`` and ``encode_memory`` build a graph
+only where a leaf requires a gradient: serving's frozen parameters
+build none, and serving callers run them under ``torch.no_grad()``.
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ import torch
 from repro_torch.core.types import resolve_device
 
 from .config import ModelConfig
-from .layers import embed, embed_defs, rmsnorm, rmsnorm_defs, unembed
+from .layers import (embed, embed_defs, rmsnorm, rmsnorm_defs, softmax_xent,
+                     unembed)
 from .params import ParamTree, init_tree
 from .transformer import (LayerParams, build_plan, layer_defs, stack_apply,
                           stack_cache, stack_decode)
@@ -87,7 +91,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     return LMParams(top, draw(dec), None if enc is None else draw(enc))
 
 
-@torch.no_grad()
 def encode_memory(cfg: ModelConfig, params: LMParams, frame_emb):
     """Encoder-decoder: the encoder over frame embeddings ``[B, Se, D]``
     (causal, as the JAX encoder's ``gqa_train``), normed: the memory the
@@ -98,7 +101,6 @@ def encode_memory(cfg: ModelConfig, params: LMParams, frame_emb):
     return rmsnorm(params["enc_norm"], mem, cfg.norm_eps)
 
 
-@torch.no_grad()
 def forward(cfg: ModelConfig, params: LMParams, batch):
     """batch: {tokens [B, S], (prefix_emb [B, P, D] | frame_emb [B, Se,
     D])}. Returns (logits [B, S, V] at the token positions, aux)."""
@@ -118,6 +120,17 @@ def forward(cfg: ModelConfig, params: LMParams, batch):
     if n_prefix:
         x = x[:, n_prefix:]
     return unembed(params["embed"], x, cfg), aux
+
+
+def loss_fn(cfg: ModelConfig, params: LMParams, batch):
+    """The training loss on ``forward``: token-mean cross entropy against
+    ``batch["labels"]`` (masked by ``batch["mask"]`` where given), plus
+    0.01 lb_loss + 1e-3 z_loss for a MoE config. Returns (loss, aux)."""
+    logits, aux = forward(cfg, params, batch)
+    loss = softmax_xent(logits, batch["labels"], batch.get("mask"))
+    if cfg.n_experts:
+        loss = loss + 0.01 * aux["lb_loss"] + 1e-3 * aux["z_loss"]
+    return loss, aux
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int, device=None) -> list:

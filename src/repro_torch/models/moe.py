@@ -88,7 +88,7 @@ def moe(params, x, cfg: ModelConfig, token_ids=None,
     g = torch.bmm(xe, params["w_gate"])  # [E, cap, F]
     u = torch.bmm(xe, params["w_up"])
     del xe
-    g = F.silu(g).mul_(u)
+    g = F.silu(g) * u
     del u
     ye = torch.bmm(g, params["w_down"]).to(xf.dtype).view(E * cap, D)
     del g

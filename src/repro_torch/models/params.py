@@ -5,8 +5,10 @@ Every module declares its parameters as a nested dict of
 ``ParamDef(shape, init, scale)``; ``init_tree`` draws them from a
 ``torch.Generator`` directly on the target device, in the dict's order.
 ``ParamTree`` holds a drawn (or carried-over) tree as an ``nn.Module``
-whose leaves are frozen ``nn.Parameter``s, read by name as the JAX
-package reads its dicts (``params["attn"]["wq"]``). Weights are stored
+whose leaves are ``nn.Parameter``s, read by name as the JAX package
+reads its dicts (``params["attn"]["wq"]``). They are frozen, as serving
+wants them; ``tree.requires_grad_(True)`` (what
+``launch.step_fns.init_train_state`` does) makes them trainable. Weights are stored
 ``[in, out]`` and applied as ``x @ w``, the JAX layout. The logical
 sharding axes of the JAX ``ParamDef`` wait for the sharding slice.
 """
@@ -50,8 +52,8 @@ def init_tree(defs: dict, generator: torch.Generator, dtype, device) -> dict:
 
 class ParamTree(nn.Module):
     """A nested dict of tensors as a module: dicts become child
-    ``ParamTree``s, tensors frozen parameters; ``tree[name]`` reads
-    either."""
+    ``ParamTree``s, tensors frozen parameters (``requires_grad_(True)``
+    thaws them); ``tree[name]`` reads either."""
 
     def __init__(self, tree: dict):
         super().__init__()

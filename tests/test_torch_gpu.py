@@ -18,6 +18,7 @@ from repro_torch.core import hashing as th
 from repro_torch.core.lsketch import edge_probes, precompute
 from repro_torch.core.types import EdgeBatch, LSketchConfig, init_leaves
 from repro_torch.kernels.flash_attention.kernel import (
+    HEAD_DIMS, flash_attention_backward_kernel, flash_attention_backward_plain,
     flash_attention_kernel, flash_attention_plain)
 from repro_torch.kernels.heavy_hitters.kernel import (
     cell_decode_kernel_sharded, cell_decode_plain)
@@ -25,6 +26,7 @@ from repro_torch.kernels.sketch_insert.kernel import (
     pool_pass_kernel_sharded, pool_pass_plain, pool_stats_buffer,
     pool_stats_split, sketch_insert_kernel_sharded, sketch_insert_plain)
 from repro_torch.kernels.sketch_insert.ops import _bin_plan
+from repro_torch.configs import ARCHS
 from repro_torch.core.queries import MultiPlanes
 from repro_torch.kernels.sketch_query.kernel import (
     edge_query_kernel, edge_query_plain, sketch_query_kernel_sharded,
@@ -596,6 +598,228 @@ def test_cuda_flash_attention_raises_on_what_it_does_not_take():
     q = torch.zeros(4 * 64 * 32 + 1, device="cuda")[1:].view(1, 4, 64, 32)
     with pytest.raises(ValueError, match="16-byte aligned"):
         flash_attention_kernel(q, q, q)
+
+
+# the backward: every head dim in both types, causal and not, GQA (g = 2)
+# at a ragged length (129: past the 64-row tiles and the 32-row ones);
+# then (B, Hq, Hkv, L, dh) edges: one key, lengths short of a tile and
+# just past one, a single KV head for all query heads (Hkv = 1), MHA
+# (Hkv = Hq), dh 256 and 96 at ragged lengths
+FLASH_BWD_EDGES = [(1, 4, 2, 1, 256), (2, 4, 2, 15, 256), (1, 4, 1, 130, 256),
+                   (2, 4, 4, 130, 96), (1, 6, 2, 65, 96), (2, 4, 2, 129, 16),
+                   (1, 8, 2, 300, 128), (2, 6, 2, 77, 64), (1, 6, 2, 130, 32),
+                   (1, 9, 3, 256, 64), (1, 4, 1, 1, 64), (2, 8, 1, 65, 128)]
+
+
+def _bwd_id(shape, dt, causal):
+    B, Hq, Hkv, L, dh = shape
+    head = f"dh{dh}" if shape == (2, 4, 2, 129, dh) else \
+        f"B{B}-Hq{Hq}-Hkv{Hkv}-L{L}-dh{dh}"
+    return f"{head}-{str(dt)[6:]}-{'causal' if causal else 'full'}"
+
+
+FLASH_BWD_CASES = [pytest.param(shape, dt, causal,
+                                id=_bwd_id(shape, dt, causal))
+                   for shape in [(2, 4, 2, 129, dh) for dh in HEAD_DIMS]
+                   + FLASH_BWD_EDGES
+                   for dt in (torch.float32, torch.bfloat16)
+                   for causal in (True, False)]
+
+
+def flash_bwd_errors(got, want):
+    """max |d| of dq, dk and dv, each over the largest |plain| of the
+    three."""
+    scale = max(float(w.float().abs().max()) for w in want)
+    return [float((a.float() - b.float()).abs().max()) / scale
+            for a, b in zip(got, want)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype,causal", FLASH_BWD_CASES)
+def test_cuda_flash_backward_matches_plain(no_tf32, shape, dtype, causal):
+    """The forward's lse against the plain version's (|d| < 1e-5), and the
+    two backward launches against ``flash_attention_backward_plain`` on the
+    same q, k, v, out, lse and dout: 1e-5 in f32 (the same f32 sums in
+    another order), 1e-2 in bf16 (grads rounded to bf16). The quick check
+    after a change to ``csrc/flash_attention_bwd.cu``:
+    ``pytest --noconftest -m gpu -k flash_backward tests/test_torch_gpu.py``."""
+    _need_card()
+    B, Hq, Hkv, L, dh = shape
+    g = torch.Generator(device="cuda").manual_seed(1000 * L + dh)
+    q, k, v, do = [torch.randn(s, generator=g, device="cuda").to(dtype)
+                   for s in ((B, Hq, L, dh), (B, Hkv, L, dh),
+                             (B, Hkv, L, dh), (B, Hq, L, dh))]
+    out, lse = flash_attention_kernel(q, k, v, causal, lse=True)
+    _, lse_plain = flash_attention_plain(q, k, v, causal, lse=True)
+    before = flash_attention_backward_kernel.launches
+    got = flash_attention_backward_kernel(q, k, v, out, lse, do, causal)
+    want = flash_attention_backward_plain(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    assert flash_attention_backward_kernel.launches == before + 1
+    assert float((lse - lse_plain).abs().max()) < 1e-5
+    for a, t in zip(got, (q, k, v)):
+        assert a.dtype == dtype and a.shape == t.shape
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    assert max(flash_bwd_errors(got, want)) < tol
+
+
+@pytest.mark.gpu
+def test_cuda_attention_autograd_launches_each_kernel_once(no_tf32,
+                                                           monkeypatch):
+    """``attention()`` under autograd on the card: one forward launch (with
+    lse), one launch of the backward pair, the grads those of the plain
+    backward; a failing backward launch raises and does not fall back."""
+    _need_card()
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention.ops import attention
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = [torch.randn(s, generator=g, device="cuda").requires_grad_()
+               for s in ((2, 6, 100, 64), (2, 2, 100, 64), (2, 2, 100, 64))]
+    f0 = flash_attention_kernel.launches
+    b0 = flash_attention_backward_kernel.launches
+    out = attention(q, k, v)
+    assert flash_attention_kernel.launches == f0 + 1
+    do = torch.randn(out.shape, generator=g, device="cuda")
+    got = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert flash_attention_kernel.launches == f0 + 1
+    assert flash_attention_backward_kernel.launches == b0 + 1
+    o, lse = flash_attention_plain(q.detach(), k.detach(), v.detach(),
+                                   True, lse=True)
+    want = flash_attention_backward_plain(q.detach(), k.detach(), v.detach(),
+                                          o, lse, do)
+    assert max(flash_bwd_errors(got, want)) < 1e-5
+    with torch.no_grad():  # serving: no lse, no graph
+        attention(q, k, v)
+    assert flash_attention_kernel.launches == f0 + 2
+
+    real = build.call
+
+    def failing(name, *args):
+        if name == "lsk_flash_bwd_dq":
+            raise RuntimeError(f"{name}: CUDA error 1")
+        return real(name, *args)
+
+    monkeypatch.setattr(build, "call", failing)
+    out = attention(q, k, v)
+    with pytest.raises(RuntimeError, match="lsk_flash_bwd_dq"):
+        torch.autograd.grad(out, (q, k, v), do)
+    assert flash_attention_backward_kernel.launches == b0 + 1
+
+
+# the archs whose recurrent mixers carry f32 sums through every step of
+# their scans. Their second step is ill-conditioned: noise of 2**-23 of
+# each weight moves xLSTM's gradient norm there by up to ~2e-4 on the CPU
+# alone, so no fixed tolerance near the others' can hold any two f32
+# orders of summation to each other. The test measures that noise floor
+# (a CPU twin stepped from the weights so perturbed) and holds the card
+# to 4x it, and never to less than 5x the others' tolerances
+TRAIN_RECURRENT = ("jamba_15_large_398b", "xlstm_13b")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ARCHS)
+def test_cuda_train_steps_match_the_cpu(no_tf32, arch):
+    """Two train steps of every arch's reduced config from one state and
+    batch (with a vision prefix or encoder frames where the arch takes
+    them) on the card (the flash forward and backward on every global GQA
+    layer of the decoder and the encoder) and on the CPU: loss and
+    gradient norm within 1e-5 relative, every parameter within 1e-6
+    (eps = 1e-3, as ``tests/test_torch_train.py`` holds the steps to the
+    JAX package; for the recurrent archs, see TRAIN_RECURRENT), the
+    telemetry exactly."""
+    _need_card()
+    from repro_torch import configs
+    from repro_torch.launch import step_fns
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig
+
+    cfg = configs.get(arch, reduced=True)
+    opt = AdamWConfig(lr_peak=1e-3, warmup_steps=2, decay_steps=10, eps=1e-3)
+
+    def cpu_state():
+        return step_fns.init_train_state(
+            cfg, opt, torch.Generator().manual_seed(0), "cpu")
+
+    cpu = cpu_state()
+    card = step_fns.init_train_state(
+        cfg, opt, torch.Generator(device="cuda").manual_seed(1), "cuda")
+    step_fns.load_state_leaves(card, [t.detach().numpy() for t in
+                                      step_fns.state_leaves(cpu).values()])
+    recurrent = arch in TRAIN_RECURRENT
+    if recurrent:
+        noisy = cpu_state()
+        g = torch.Generator().manual_seed(1)
+        with torch.no_grad():
+            for p in noisy.params.parameters():
+                p.mul_(1 + 2.0 ** -23 * torch.randn(p.shape, generator=g))
+    n_global = 0 if cfg.attention != "gqa" else sum(
+        p.kind == "attn" and not p.window
+        for plan in lm.plans(cfg) if plan is not None for p in plan.layers)
+    step = step_fns.make_train_step(cfg, opt)
+    rng = np.random.default_rng(4)
+    for _ in range(2):
+        toks = rng.integers(0, cfg.vocab_size, (2, 65)).astype(np.int32)
+        batch = {"tokens": torch.from_numpy(toks[:, :-1].copy()),
+                 "labels": torch.from_numpy(toks[:, 1:].copy())}
+        if cfg.frontend == "vision":
+            batch["prefix_emb"] = torch.from_numpy(rng.standard_normal(
+                (2, cfg.frontend_len, cfg.d_model)).astype(np.float32))
+        if cfg.is_encdec:
+            batch["frame_emb"] = torch.from_numpy(rng.standard_normal(
+                (2, 24, cfg.d_model)).astype(np.float32))
+        f0 = flash_attention_kernel.launches
+        b0 = flash_attention_backward_kernel.launches
+        card, mc = step(card, {k: v.cuda() for k, v in batch.items()})
+        torch.cuda.synchronize()
+        assert flash_attention_kernel.launches == f0 + n_global
+        assert flash_attention_backward_kernel.launches == b0 + n_global
+        cpu, m = step(cpu, batch)
+        if recurrent:
+            noisy, mn = step(noisy, batch)
+        for key in ("loss", "grad_norm"):
+            want = float(m[key])
+            tol = 1e-5 if not recurrent else max(
+                5e-5, 4 * abs(float(mn[key]) - want) / abs(want))
+            d = abs(float(mc[key]) - want) / abs(want)
+            assert d <= tol, (key, d, tol)
+    want = dict(cpu.params.named_parameters())
+    tol = 1e-6 if not recurrent else max(5e-6, 4 * max(
+        float((p.detach() - want[n].detach()).abs().max())
+        for n, p in noisy.params.named_parameters()))
+    for name, p in card.params.named_parameters():
+        d = float((p.detach().cpu() - want[name].detach()).abs().max())
+        assert d < tol, (name, d, tol)
+    assert torch.equal(card.telemetry.cpu(), cpu.telemetry)
+
+
+@pytest.mark.gpu
+def test_cuda_compressed_psum_on_one_nccl_rank(tmp_path):
+    """``compressed_psum`` over a one-rank NCCL group on the card: the
+    mean of one rank is its own dequantised gradient, and the error
+    feedback carries the residual, each step as on the CPU."""
+    _need_card()
+    import torch_train_ranks
+    from repro_torch.distributed.ranks import spawn_ranks
+    from repro_torch.optim import compress_int8, decompress_int8
+
+    rng = np.random.default_rng(9)
+    grads = [[{"w": rng.standard_normal(700).astype(np.float32),
+               "b": rng.standard_normal((3, 90)).astype(np.float32)}
+              for _ in range(3)]]
+    got = spawn_ranks(torch_train_ranks.compressed_psum_steps, 1,
+                      device="cuda", args=(grads, "cuda"),
+                      init_file=tmp_path / "rdv")
+    err = {k: np.zeros_like(v) for k, v in grads[0][0].items()}
+    for step, (mean, e) in zip(grads[0], got):
+        for k, g in step.items():
+            fb = torch.from_numpy(g + err[k])
+            q, sc, n = compress_int8(fb)
+            local = decompress_int8(q, sc, n, fb.shape).numpy()
+            np.testing.assert_allclose(mean[k], local, rtol=1e-6, atol=1e-7)
+            err[k] = fb.numpy() - local
+            np.testing.assert_allclose(e[k], err[k], rtol=1e-6, atol=1e-7)
 
 
 @pytest.mark.gpu

@@ -43,6 +43,36 @@ def test_port_and_chip_smoke_import_neither_jax_nor_repro():
 SPEC = dict(d=16, n_blocks=2, F=256, r=4, s=4, c=4, k=4, window_size=100,
             pool_capacity=8, pool_probes=2)
 
+# the training slice's modules (the probe above imports them among all)
+TRAINING_MODULES = ("repro_torch.optim", "repro_torch.optim.adamw",
+                    "repro_torch.optim.compression",
+                    "repro_torch.configs.shapes", "repro_torch.launch.inputs",
+                    "repro_torch.launch.step_fns", "repro_torch.launch.train")
+
+
+def test_training_modules_import_and_default_to_the_card():
+    import importlib
+
+    for m in TRAINING_MODULES:
+        importlib.import_module(m)
+    from repro_torch import configs
+    from repro_torch.launch.step_fns import init_train_state
+    from repro_torch.launch.train import train
+    from repro_torch.optim import AdamWConfig
+
+    cfg = configs.get("smollm-135m", reduced=True)
+    if torch.cuda.is_available():
+        state = init_train_state(cfg, AdamWConfig())
+        assert state.params.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            init_train_state(cfg, AdamWConfig())
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train(steps=1)
+    state = init_train_state(cfg, AdamWConfig(), device="cpu")
+    assert state.params.device.type == "cpu"
+    assert all(p.requires_grad for p in state.params.parameters())
+
 
 def test_every_c_entry_has_its_ctypes_signature():
     """Each ``extern "C"`` entry of ``csrc/*.cu`` is in ``build.SIGNATURES``
@@ -309,11 +339,19 @@ def test_chip_smoke_rehearses_on_the_cpu(monkeypatch, capsys):
     assert lm_out["decode_logit_rel_err"] <= chip_smoke.LOGIT_TOL
     assert "3 of 3 requests done" in capsys.readouterr().out
 
+    # L7 at tiny shapes: the plain backward on both sides on the CPU
+    bwd_cases = (("small", 1, 4, 2, 40, 16, torch.float32, True),
+                 ("full", 1, 4, 2, 32, 64, torch.float32, False))
+    monkeypatch.setattr(chip_smoke, "FLASH_BWD_CASES", bwd_cases)
+    monkeypatch.setattr(chip_smoke, "FLASH_BWD_REPS", 2)
+    results.update(chip_smoke.check_flash_backward(dev, tag, 1.0))
+    assert capsys.readouterr().out.count("L7 flash backward") == 2
+
     kernels = chip_smoke.kernel_entries(
         results, {n: 0 for n in chip_smoke.KERNELS})
     json.dumps({"kernels": kernels, "stream": s_out, "object": obj_out,
                 **lm_out})
-    assert [k["mismatches"] for k in kernels] == [0] * 11
+    assert [k["mismatches"] for k in kernels] == [0] * 12
     assert {k["name"] for k in kernels} == set(chip_smoke.WRAPPERS) | set(
         chip_smoke.OBJECT_KERNELS) | set(chip_smoke.GROUPED_KERNELS) == set(
         chip_smoke.KERNELS)
@@ -367,9 +405,23 @@ def test_chip_smoke_rehearses_on_the_cpu(monkeypatch, capsys):
         G * Lq * 5 * 4 + 2 * St * Lq * 4
     most["vertex_scan_kernel_sharded (grouped)"] = plane_t + \
         G * Lq * (cfg.r + 2) * 4 + 2 * St * Lq * 4
+    # the backward's first case (f32): 2.5 x the forward's 4 dh a kept
+    # pair at the card's f32 tensor-core rate (split-TF32: three TF32 MMAs
+    # a product), against q, k, v, out, dout, lse, dq, dk, dv
+    bwd = next(k for k in kernels
+               if k["name"] == "flash_attention_backward_kernel")
+    assert bwd["library_ms"] is not None
+    assert bwd["replaces"].startswith("none")
+    assert "split-TF32" in bwd["ops_rate"]
+    ops_ms = 1e3 * 3 * 2.5 * 4 * 16 * 4 * 40 * 41 / 2 / \
+        chip_smoke.TF32_FLOPS_PER_S
+    bytes_ms = 1e3 * (4 * 40 * 16 * (5 * 4 + 4 * 2) + 4 * 4 * 40) / \
+        chip_smoke.HBM_BYTES_PER_S
+    assert bwd["bound_ms"] == pytest.approx(max(ops_ms, bytes_ms))
     for k in kernels:
-        if k["name"] == "flash_attention_kernel":
-            continue  # operations bound, checked above
+        if k["name"] in ("flash_attention_kernel",
+                         "flash_attention_backward_kernel"):
+            continue  # operations bounds, checked above
         for bound in ("bound_ms", "bound_ms_in"):
             if bound in k:
                 nbytes = k[bound] * chip_smoke.HBM_BYTES_PER_S / 1e3

@@ -16,8 +16,8 @@ Phases (any failure raises, so the exit code is non-zero):
   1. card name and power limit;
   2. build every CUDA kernel from ``src/repro_torch/csrc`` (one nvcc per
      source, in parallel) and print each ``-Xptxas -v`` report; the flash
-     kernel's instances must each hold tensor-core MMAs (``cuobjdump
-     -sass``), their registers and spills are logged;
+     forward's and backward's instances must each hold tensor-core MMAs
+     (``cuobjdump -sass``), their registers and spills are logged;
   3. after a tiny warm-up launch of the insert and pool kernels (the
      first launch in a process loads the module), the insert kernel
      against its plain version, exactly, on the stream's first flush into
@@ -209,7 +209,8 @@ Phases (any failure raises, so the exit code is non-zero):
      ``flash_attention_backward_plain`` from the forward's own out and lse
      on SmolLM-135M's training launch, Qwen3-8B's, Gemma-3's dh=256,
      phi-3-vision's dh=96, dh=16, a ragged length, non-causal and bf16:
-     dq, dk and dv each within FLASH_BWD_TOL of the largest |plain|;
+     dq, dk and dv each within FLASH_BWD_TOL of the largest |plain|, and
+     a second launch on the same inputs bit-identical (no atomics);
      CUDA-event medians beside the plain backward, SDPA's backward and the
      bound (2.5 x the forward's operations at the card's tensor-core rate
      for the type: bf16 over 989 TFLOP/s, f32 as split-TF32); the
@@ -1584,16 +1585,16 @@ def flash_flops(B, Hq, L, dh) -> int:
     return 4 * dh * B * Hq * L * (L + 1) // 2
 
 
-def flash_ptxas(log: str) -> dict:
+def flash_ptxas(log: str, kernel: str = "lsk_flash_attention_kernel"
+                ) -> dict:
     """{(type, dh): (registers, spill store bytes, spill load bytes)} of
-    the flash kernel's template instances, from its ``-Xptxas -v``
-    report."""
+    the template instances of flash kernel ``kernel``, from its source's
+    ``-Xptxas -v`` report."""
     out, inst, spills = {}, None, (0, 0)
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"lsk_flash_attention_kernelI(\w+?)Li(\d+)E",
-                          m.group(1))
+            k = re.search(kernel + r"I(\w+?)Li(\d+)E", m.group(1))
             inst = (("bf16" if "bfloat16" in k.group(1) else "f32"),
                     int(k.group(2))) if k else None
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -1624,20 +1625,36 @@ def flash_sass_hmma(obj: Path) -> dict:
     return counts
 
 
-def flash_build_report() -> dict:
-    """Phase 2's check that the flash kernel is built for the tensor cores:
-    each instance's registers and spills, and its HMMA count."""
-    regs = flash_ptxas(build.PTXAS_LOG["flash_attention.cu"])
-    hmma = flash_sass_hmma(build.BUILD_DIR / "flash_attention.o")
-    _log(f"flash kernel instances (type, dh): registers, spill store / "
-         f"load bytes {regs}; HMMA instructions by cuobjdump -sass "
-         f"{hmma}")
+def flash_build_report() -> tuple:
+    """Phase 2's check that the flash kernels are built for the tensor
+    cores: each instance's registers and spills, and its HMMA count; the
+    forward's (``csrc/flash_attention.cu``) and the backward's
+    (``csrc/flash_attention_bwd.cu``: the dq and dkdv kernels) rows."""
     n = 2 * len(FLASH_HEAD_DIMS)
-    if len(regs) != n or len(hmma) != n or min(hmma.values()) == 0:
-        raise AssertionError(f"the flash kernel's {n} instances are not "
-                             f"all built with tensor-core MMAs")
-    return dict(registers={f"{t} dh{d}": r for (t, d), r in regs.items()},
-                hmma=sum(hmma.values()))
+    rows = []
+    for src, kernels in (
+            ("flash_attention", ("lsk_flash_attention_kernel",)),
+            ("flash_attention_bwd", ("lsk_flash_bwd_dq_kernel",
+                                     "lsk_flash_bwd_dkdv_kernel"))):
+        hmma = {fn: c for fn, c in flash_sass_hmma(
+            build.BUILD_DIR / f"{src}.o").items() if "lsk_flash" in fn}
+        regs = {}
+        for kern in kernels:
+            got = flash_ptxas(build.PTXAS_LOG[f"{src}.cu"], kern)
+            _log(f"{kern} instances (type, dh): registers, spill store / "
+                 f"load bytes {got}")
+            if len(got) != n:
+                raise AssertionError(f"{kern}: {len(got)} of {n} instances "
+                                     f"in the ptxas report")
+            regs.update({f"{kern} {t} dh{d}": r for (t, d), r in got.items()})
+        _log(f"{src}.cu: HMMA instructions by cuobjdump -sass {hmma} "
+             f"(sum {sum(hmma.values())})")
+        if len(hmma) != n * len(kernels) or min(hmma.values()) == 0:
+            raise AssertionError(f"{src}.cu: its {n * len(kernels)} "
+                                 f"instances are not all built with "
+                                 f"tensor-core MMAs")
+        rows.append(dict(registers=regs, hmma=sum(hmma.values())))
+    return tuple(rows)
 
 
 def flash_ops_ms(flops: int, dtype) -> tuple:
@@ -2300,12 +2317,16 @@ def check_flash_backward(dev, tag, l1_ms=None) -> dict:
                               ).to(dev, dtype)
         out, lse = flash_attention_kernel(q, k, v, causal, lse=True)
         got = flash_attention_backward_kernel(q, k, v, out, lse, do, causal)
+        again = flash_attention_backward_kernel(q, k, v, out, lse, do,
+                                                causal)
         want = flash_attention_backward_plain(q, k, v, out, lse, do, causal)
         _sync()
         errs = flash_bwd_errors(got, want)
         abs_err = max(float((a.float() - b.float()).abs().max())
                       for a, b in zip(got, want))
-        del got, want
+        # no atomics: a second launch gives the same bits
+        repeatable = all(torch.equal(a, b) for a, b in zip(got, again))
+        del got, again, want
         ms = float(np.median(event_times(
             lambda: flash_attention_backward_kernel(q, k, v, out, lse, do,
                                                     causal), FLASH_BWD_REPS)))
@@ -2331,14 +2352,16 @@ def check_flash_backward(dev, tag, l1_ms=None) -> dict:
             label=label, shape=f"q {list(q.shape)} k {list(k.shape)} "
             f"{str(dtype)[6:]} {'causal' if causal else 'non-causal'}",
             rel_err_dq_dk_dv=errs, max_abs_err=abs_err, tolerance=tol,
-            out_of_tolerance=int(max(errs) >= tol), ms=ms, plain_ms=plain_ms,
+            out_of_tolerance=int(max(errs) >= tol), repeatable=repeatable,
+            ms=ms, plain_ms=plain_ms,
             library_ms=library_ms, nbytes=nbytes, ops_ms=ops_ms,
             ops_rate=rate, bound_ms=bound, bound_share=bound / ms,
             forward_ms=fwd_ms, forward_lse_ms=fwd_lse_ms))
         _log(f"L7 flash backward {label} {cases[-1]['shape']}: dq, dk, dv "
              f"max|d| / max|plain| {[f'{e:.3g}' for e in errs]} (tolerance "
-             f"{tol}); pair {ms:.3f} ms ({2.5 * flops / ms / 1e9:.2f} TFLOP/s"
-             f" as 2.5 x the forward's), plain {plain_ms:.3f} ms, SDPA's "
+             f"{tol}), a second launch bit-identical: {repeatable}; pair "
+             f"{ms:.3f} ms ({2.5 * flops / ms / 1e9:.2f} TFLOP/s as 2.5 x "
+             f"the forward's), plain {plain_ms:.3f} ms, SDPA's "
              f"backward {library_ms:.3f} ms, kernel/SDPA "
              f"{ms / library_ms:.3f}; bound {bound:.4f} ms (2.5 x {flops} "
              f"flops as {rate} against {nbytes} bytes over "
@@ -2361,10 +2384,14 @@ def check_flash_backward(dev, tag, l1_ms=None) -> dict:
     if any(c["out_of_tolerance"] for c in cases):
         raise AssertionError("L7: the flash backward disagrees with its "
                              "plain version")
+    if not all(c["repeatable"] for c in cases):
+        raise AssertionError("L7: two launches of the flash backward on "
+                             "the same inputs differ")
     main = cases[0]
     return {"flash_attention_backward_kernel": dict(
         mismatches=0, max_abs_err=main["max_abs_err"],
-        rel_err_dq_dk_dv=main["rel_err_dq_dk_dv"], ms=main["ms"],
+        rel_err_dq_dk_dv=main["rel_err_dq_dk_dv"],
+        repeatable=main["repeatable"], ms=main["ms"],
         plain_ms=main["plain_ms"], library_ms=main["library_ms"],
         nbytes=main["nbytes"], ops_ms=main["ops_ms"],
         ops_rate=f"2.5 x forward {main['ops_rate']}", shape=main["shape"],
@@ -4998,7 +5025,7 @@ def main() -> int:
          f"linked in {time.perf_counter() - t0:.1f} s")
     for src, log in build.PTXAS_LOG.items():
         _log(f"--- nvcc -Xptxas -v {src}\n{log.strip()}")
-    flash_build = flash_build_report()
+    flash_build, flash_bwd_build = flash_build_report()
 
     cfg = CFG
     spec, stream, flushes, span_i = deployment()
@@ -5099,6 +5126,7 @@ def main() -> int:
 
     results.update(check_flash_backward(  # L7
         dev, tag, results["flash_attention_kernel"]["ms"]))
+    results["flash_attention_backward_kernel"]["build"] = flash_bwd_build
     train_out = train_phase(dev, tag)  # L8
     check_train_on_the_card(configs.get(TRAIN_ARCH, reduced=LM_REDUCED),
                             train_out)

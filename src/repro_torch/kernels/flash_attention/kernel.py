@@ -30,10 +30,21 @@ the softmax weights.
 The backward (``flash_attention_backward_kernel``, source
 ``csrc/flash_attention_bwd.cu``) replaces no TPU kernel: the JAX kernel
 has no VJP, and the JAX trainer differentiates its masked XLA attention.
-It is the gradient of the same function, in two launches without atomics
-(dq and D, then dk and dv a KV head's group at a time);
-``flash_attention_backward_plain`` is its plain version, with the
-explicit formulas.
+It is the gradient of the same function, in two launches without atomics,
+so a step is bitwise repeatable: dq and D (a block of 64 query rows walks
+the key tiles), then dk and dv (a block of 64 keys walks its KV head's
+query heads and their query tiles, computing the transposed score tile
+so that P^T and dS^T feed its products as they stand). Every product runs
+on the tensor cores through ``mma.sync``, with ``cp.async`` rings for the
+streamed tiles: split-TF32 for f32 (hi and lo terms, each tile's sum
+started from zero), bf16 MMAs for bf16 with P and dS rounded to bf16
+(``tests/test_torch_flash_bwd_numerics.py`` emulates both). Its bound is
+operations: 2.5 times the forward's flops, f32 as split-TF32's three
+MMAs a product over 495 TFLOP/s, bf16 over 989; it does 14 dh flops a
+kept pair against that bound's 10 (S and dP in both kernels), and what
+it reaches and what remains (the FA3 shape, one S a tile pair) is in
+``PERF.md``. ``flash_attention_backward_plain`` is its plain version,
+with the explicit formulas.
 """
 
 from __future__ import annotations

@@ -664,6 +664,27 @@ def test_cuda_flash_backward_matches_plain(no_tf32, shape, dtype, causal):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16),
+                         ids=("float32", "bfloat16"))
+@pytest.mark.parametrize("dh", (64, 128))
+def test_cuda_flash_backward_is_repeatable(no_tf32, dh, dtype):
+    """Two launches of the pair on the same inputs give the same bits of
+    dq, dk and dv: no atomics, every gradient a fixed sum in a fixed order
+    (GQA g = 3, causal, a ragged length)."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(dh)
+    q, k, v, do = [torch.randn(s, generator=g, device="cuda").to(dtype)
+                   for s in ((2, 9, 1000, dh), (2, 3, 1000, dh),
+                             (2, 3, 1000, dh), (2, 9, 1000, dh))]
+    out, lse = flash_attention_kernel(q, k, v, True, lse=True)
+    first = flash_attention_backward_kernel(q, k, v, out, lse, do, True)
+    second = flash_attention_backward_kernel(q, k, v, out, lse, do, True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
 def test_cuda_attention_autograd_launches_each_kernel_once(no_tf32,
                                                            monkeypatch):
     """``attention()`` under autograd on the card: one forward launch (with

@@ -457,6 +457,23 @@ def test_chip_smoke_reads_the_flash_kernels_ptxas_report(monkeypatch):
         for t, d, r, s in (("f", 128, 168, 0), ("13__nv_bfloat16", 64, 96, 8)))
     assert chip_smoke.flash_ptxas(log) == {("f32", 128): (168, 0, 0),
                                            ("bf16", 64): (96, 8, 8)}
+    # the backward's two kernels, told apart by name in one report
+    bwd = "_ZN55_GLOBAL__N__67799fe8_22_flash_attention_bwd_cu_cf26f808" \
+        "{}I{}Li{}EEEvPKT_S3_"
+    log = "\n".join(
+        f"ptxas info    : Compiling entry function "
+        f"'{bwd.format(k, t, d)}' for 'sm_90a'\n    8 bytes stack frame, "
+        f"{s} bytes spill stores, {s} bytes spill loads\nptxas info    : "
+        f"Used {r} registers, used 1 barriers"
+        for k, t, d, r, s in (
+            ("25lsk_flash_bwd_dkdv_kernel", "f", 64, 168, 4),
+            ("23lsk_flash_bwd_dq_kernel", "f", 64, 167, 0),
+            ("23lsk_flash_bwd_dq_kernel", "13__nv_bfloat16", 256, 166, 0)))
+    assert chip_smoke.flash_ptxas(log, "lsk_flash_bwd_dq_kernel") == {
+        ("f32", 64): (167, 0, 0), ("bf16", 256): (166, 0, 0)}
+    assert chip_smoke.flash_ptxas(log, "lsk_flash_bwd_dkdv_kernel") == {
+        ("f32", 64): (168, 4, 4)}
+    assert chip_smoke.flash_ptxas(log) == {}
     flops = chip_smoke.flash_flops(2, 32, 2048, 128)
     assert flops == 68_753_031_168
     ms, rate = chip_smoke.flash_ops_ms(flops, torch.bfloat16)

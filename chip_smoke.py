@@ -235,6 +235,19 @@ Phases (any failure raises, so the exit code is non-zero):
      from one seed: losses within LOGIT_TOL, the telemetry matrices equal
      as int32, ``RouterTelemetry.load_vector`` and the capacity factors
      equal; the insert, pool and scan launches of the card's run;
+  L10. the sharded trainer over a one-rank NCCL group (``launch.mesh``,
+     ``launch.shardings``, ``step_fns.shard_state``/
+     ``make_sharded_train_step``): ``train(mesh=)`` on SmolLM-135M as L8
+     runs it (seed, batches, microbatches and schedule) for
+     SHARDED_STEPS steps, its losses within TRAIN_REL of L8's first and
+     its ms a step beside L8's, one forward and one backward flash launch
+     a layer a microbatch; one step at L8's check shape, sharded against
+     unsharded from one state and batch (TRAIN_REL, TRAIN_PARAM_TOL);
+     SHARDED_MOE_STEPS steps of reduced Kimi-K2 through the MoE's
+     expert-parallel branch (its expert slice and all-gather over the
+     one-rank model group, counted) against the unsharded steps; the CLI
+     ``launch.train --mesh 1`` for SHARDED_CLI_STEPS steps at L8's
+     shapes, its first loss L8's;
   8. one JSON line of the kernels and the end-to-end numbers, the card
      line, and the result line.
 
@@ -250,8 +263,8 @@ the routed ingest (phase R, with its queries), the pool path (phase
 T1-T3; the grouped rows' launches), the object path (phase O, before its
 comparisons; the single-sketch rows' launches) and the prefill (L2, the
 kernel forward); the trainer (L8, the flash forward and backward) and
-the MoE trainer (L9, the telemetry's kernels) each count from 0 too, in
-every row's ``launches_train``. Each kernel's
+the MoE trainer (L9, the telemetry's kernels) and the sharded trainer
+(L10) each count from 0 too, in every row's ``launches_train``. Each kernel's
 ``launches`` in the JSON line is from the path it was ported for (the
 flash backward's from L8).
 TF32 is off throughout (the models are f32), except in the one forward
@@ -330,6 +343,7 @@ from repro_torch.distributed.ranks import backend_for, init_group  # noqa
 from repro_torch.telemetry import (CapacityController,  # noqa: E402
                                    RouterTelemetry)
 from repro_torch.launch import step_fns  # noqa: E402
+from repro_torch.launch.mesh import make_smoke_mesh  # noqa: E402
 from repro_torch.launch.serve import DecodeServer, Request  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.launch.serve_sketch import SketchServer  # noqa: E402
@@ -532,6 +546,13 @@ TRAIN_REL, TRAIN_PARAM_TOL = 1e-5, 1e-6
 # tests/test_system.py::test_train_moe_with_telemetry runs it
 MOE_TRAIN = dict(arch="kimi_k2_1t_a32b", steps=12, batch_size=2, seq_len=32,
                  controller_every=4)
+# L10: the sharded trainer at world 1 (a one-rank NCCL group; NCCL takes
+# one card a rank): SHARDED_STEPS steps as L8's first, SHARDED_MOE_STEPS
+# of reduced Kimi-K2 through the expert-parallel branch, the CLI's
+# --mesh 1 for SHARDED_CLI_STEPS
+SHARDED_STEPS = 5
+SHARDED_MOE_STEPS = 2
+SHARDED_CLI_STEPS = 2
 TRAIN_PATH = ("flash_attention_kernel", "flash_attention_backward_kernel")
 MOE_TRAIN_PATH = ("sketch_insert_kernel_sharded", "pool_pass_kernel_sharded",
                   "vertex_scan_kernel_sharded")
@@ -2418,18 +2439,21 @@ TRAIN_PROFILE_GROUPS = (
 )
 
 
-def profile_train_step(cfg, state, dev, tag) -> dict:
-    """L8: one more train step of the trained state (TRAIN_BATCH x
-    TRAIN_SEQ in TRAIN_MICROBATCHES microbatches, the run's optimizer)
-    under the profiler: device kernel time by TRAIN_PROFILE_GROUPS (the
-    rest under "other"), each group's share of it, the top kernels, and
-    the kernel time's share of the profiled step's wall time (the card's
-    busy share; the profiler's host overhead lengthens that wall)."""
+def profile_train_step(cfg, state, dev, tag, mesh=None) -> dict:
+    """L8 (L10 with ``mesh``: the sharded step): one more train step of the
+    trained state (TRAIN_BATCH x TRAIN_SEQ in TRAIN_MICROBATCHES
+    microbatches, the run's optimizer) under the profiler: device kernel
+    time by TRAIN_PROFILE_GROUPS (the rest under "other"), each group's
+    share of it, the top kernels, and the kernel time's share of the
+    profiled step's wall time (the card's busy share; the profiler's host
+    overhead lengthens that wall)."""
     from torch.profiler import ProfilerActivity, profile
 
     opt = AdamWConfig(lr_peak=TRAIN_LR, warmup_steps=max(2, TRAIN_STEPS // 20),
                       decay_steps=TRAIN_STEPS)
-    step = step_fns.make_train_step(cfg, opt, TRAIN_MICROBATCHES)
+    step = step_fns.make_train_step(cfg, opt, TRAIN_MICROBATCHES) \
+        if mesh is None else step_fns.make_sharded_train_step(
+            cfg, opt, mesh, TRAIN_MICROBATCHES)
     batch = _train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, dev)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2455,7 +2479,8 @@ def profile_train_step(cfg, state, dev, tag) -> dict:
                profile_share_by_group={g: v / max(dev_ms, 1e-12)
                                        for g, v in by_group.items()},
                profile_launches=sum(e.count for e in kernels))
-    _log(f"L8 profile of one train step ({TRAIN_BATCH} x {TRAIN_SEQ} in "
+    _log(f"{'L8' if mesh is None else 'L10'} profile of one train step "
+         f"({TRAIN_BATCH} x {TRAIN_SEQ} in "
          f"{TRAIN_MICROBATCHES} microbatches): wall {1e3 * wall:.1f} ms, "
          f"device kernels {dev_ms:.1f} ms (busy share "
          f"{out['profile_busy_share']:.4f}), {out['profile_launches']} "
@@ -2634,6 +2659,185 @@ def moe_train_phase(dev, tag) -> dict:
         raise AssertionError("L9: the card's MoE trainer differs from the "
                              "CPU's")
     return out
+
+
+def _step_errors(got, want) -> tuple:
+    """(loss rel, grad_norm rel, every parameter's max|d|) of two
+    (metrics, {name: parameter}) results."""
+    (mg, pg), (mw, pw) = got, want
+    rel = [abs(float(mg[k]) - float(mw[k])) / abs(float(mw[k]))
+           for k in ("loss", "grad_norm")]
+    err = max(float((pg[k].detach() - pw[k].detach()).abs().max())
+              for k in pw)
+    return rel[0], rel[1], err
+
+
+def _sharded_vs_unsharded(cfg, mesh, batches, dev) -> tuple:
+    """The same steps, sharded over ``mesh`` and unsharded, from one
+    seeded state (eps = 1e-3, as L8's check): the errors after each step
+    (``_step_errors``) and the telemetry matrices equal."""
+    opt = AdamWConfig(lr_peak=1e-3, warmup_steps=2, decay_steps=10, eps=1e-3)
+    plain = step_fns.init_train_state(
+        cfg, opt, torch.Generator().manual_seed(SEED), dev)
+    sharded = step_fns.shard_state(cfg, opt, plain, mesh)
+    s_step = step_fns.make_sharded_train_step(cfg, opt, mesh)
+    p_step = step_fns.make_train_step(cfg, opt)
+    errs = []
+    for b in batches:
+        sharded, ms = s_step(sharded, b)
+        plain, mp = p_step(plain, b)
+        full = step_fns.full_state_leaves(sharded)
+        pg = {k[len("params."):]: v for k, v in full.items()
+              if k.startswith("params.")}
+        errs.append(_step_errors((ms, pg), (mp, dict(
+            plain.params.named_parameters()))))
+        del full, pg
+    tele = torch.equal(sharded.telemetry, plain.telemetry)
+    del sharded, plain
+    _free_card()
+    return errs, tele
+
+
+def sharded_cli(dev, tmp) -> dict:
+    """L10: ``launch.train --mesh 1`` as a process, at L8's shapes (its
+    own spawned one-rank group); its exit, seconds and first loss."""
+    root = Path(__file__).resolve().parent
+    argv = ["--arch", TRAIN_ARCH, "--mesh", "1", "--steps",
+            str(SHARDED_CLI_STEPS), "--batch-size", str(TRAIN_BATCH),
+            "--seq-len", str(TRAIN_SEQ), "--microbatches",
+            str(TRAIN_MICROBATCHES), "--ckpt-dir", os.path.join(tmp, "cli")]
+    argv += ["--device", "cpu"] if dev.type == "cpu" else []
+    argv += [] if LM_REDUCED else ["--full"]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    t0 = time.perf_counter()
+    p = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.train",
+                          *argv], cwd=root, env=env, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+    try:
+        text = p.communicate(timeout=600)[0]
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    sec = time.perf_counter() - t0
+    m = re.search(r"final loss (\S+) \(first (\S+)\)", text)
+    if p.returncode != 0 or m is None:
+        raise AssertionError(f"L10: launch.train {' '.join(argv)} exited "
+                             f"{p.returncode}:\n{text[-2000:]}")
+    return dict(argv=argv, exit=p.returncode, seconds=sec,
+                first_loss=float(m.group(2)), final_loss=float(m.group(1)))
+
+
+def sharded_train_phase(dev, tag, l8: dict) -> dict:
+    """L10 (see the module docstring): a one-rank group on this card
+    (NCCL; gloo on the CPU), destroyed at the end. ``l8``: L8's numbers
+    (its losses and ms a step)."""
+    cfg = configs.get(TRAIN_ARCH, reduced=LM_REDUCED)
+    tmp = tempfile.mkdtemp(prefix="phase-l10-")
+    init_group(0, 1, os.path.join(tmp, "rendezvous"), backend_for(dev))
+    try:
+        mesh = make_smoke_mesh(1, 1, dev.type)
+        stats = {}
+        _free_card()
+        torch.cuda.reset_peak_memory_stats()
+        (losses, sec), launches = count_launches((), lambda: _timed(
+            lambda: train(TRAIN_ARCH, steps=SHARDED_STEPS, smoke=LM_REDUCED,
+                          batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                          ckpt_dir=os.path.join(tmp, "ckpt"), ckpt_every=0,
+                          microbatches=TRAIN_MICROBATCHES, log_every=5,
+                          seed=SEED, lr_peak=TRAIN_LR,
+                          schedule_steps=TRAIN_STEPS, device=dev,
+                          stats=stats, mesh=mesh)))
+        peak = torch.cuda.max_memory_allocated()
+        profiled = profile_train_step(cfg, stats.pop("state"), dev, tag,
+                                      mesh)
+        _free_card()
+        step_ms = 1e3 * float(np.median(stats["step_s"][1:]))
+        loss_rel = max(abs(a - b) / abs(b) for a, b in
+                       zip(losses, l8["losses"][:SHARDED_STEPS]))
+        out = dict(mesh=[1, 1], steps=SHARDED_STEPS, losses=losses,
+                   loss_rel_to_l8=loss_rel, seconds=sec,
+                   first_step_ms=1e3 * stats["step_s"][0], step_ms=step_ms,
+                   l8_step_ms=l8["step_ms"],
+                   step_ms_over_l8=step_ms / l8["step_ms"],
+                   peak_memory_bytes=peak,
+                   flash_forward_launches=launches["flash_attention_kernel"],
+                   flash_backward_launches=launches[
+                       "flash_attention_backward_kernel"],
+                   launches=launches, **profiled)
+        _log(f"L10 sharded train {cfg.name} on a 1 x 1 mesh (one-rank "
+             f"{backend_for(dev)} group): {SHARDED_STEPS} steps of "
+             f"{TRAIN_BATCH} x {TRAIN_SEQ} in {TRAIN_MICROBATCHES} "
+             f"microbatches in {sec:.1f} s; first step "
+             f"{out['first_step_ms']:.1f} ms, median of the rest "
+             f"{step_ms:.1f} ms beside L8's {l8['step_ms']:.1f} ms "
+             f"({out['step_ms_over_l8']:.4f}x); losses within "
+             f"{loss_rel:.3g} of L8's first {SHARDED_STEPS} (tolerance "
+             f"{TRAIN_REL}); peak device memory {peak} bytes; flash "
+             f"launches forward {out['flash_forward_launches']}, backward "
+             f"{out['flash_backward_launches']} {tag}")
+
+        batch = _train_batch(cfg, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ, dev)
+        errs, _ = _sharded_vs_unsharded(cfg, mesh, [batch], dev)
+        out.update(check_loss_rel=errs[0][0], check_grad_norm_rel=errs[0][1],
+                   check_param_max_abs=errs[0][2])
+        _log(f"L10 one step at {TRAIN_CHECK_BATCH} x {TRAIN_CHECK_SEQ}, "
+             f"sharded vs unsharded from one state and batch: loss rel "
+             f"{errs[0][0]:.3g}, grad_norm rel {errs[0][1]:.3g} (tolerance "
+             f"{TRAIN_REL}), every leaf max|d| {errs[0][2]:.3g} (tolerance "
+             f"{TRAIN_PARAM_TOL}) {tag}")
+
+        kcfg = configs.get(MOE_TRAIN["arch"], reduced=True)
+        rng = np.random.default_rng(SEED + 10)
+        kb = [{k: torch.from_numpy(rng.integers(
+            0, kcfg.vocab_size, (MOE_TRAIN["batch_size"],
+                                 MOE_TRAIN["seq_len"]), dtype=np.int32)).to(
+            dev) for k in ("tokens", "labels")}
+            for _ in range(SHARDED_MOE_STEPS)]
+        with CollectiveLog() as clog:
+            kerrs, ktele = _sharded_vs_unsharded(kcfg, mesh, kb, dev)
+        calls = clog.summary()
+        n_moe = sum(p.mlp == "moe" for p in lm.plans(kcfg)[0].layers)
+        out["moe"] = dict(arch=kcfg.name, steps=SHARDED_MOE_STEPS,
+                          errors=kerrs, telemetry_equal=ktele,
+                          collectives=calls, moe_layers=n_moe)
+        _log(f"L10 {kcfg.name} through the expert-parallel branch on the "
+             f"1 x 1 mesh, {SHARDED_MOE_STEPS} steps against the unsharded "
+             f"branch: (loss rel, grad_norm rel, max|d|) {kerrs}, telemetry "
+             f"{'equal' if ktele else 'differs'}; collectives "
+             f"{json.dumps(calls)} ({n_moe} MoE layers) {tag}")
+
+        out["cli"] = sharded_cli(dev, tmp)
+        cli_rel = abs(out["cli"]["first_loss"] - l8["losses"][0]) / \
+            abs(l8["losses"][0])
+        out["cli"]["first_loss_rel_to_l8"] = cli_rel
+        _log(f"L10 launch.train {' '.join(out['cli']['argv'])}: exit "
+             f"{out['cli']['exit']} in {out['cli']['seconds']:.1f} s, first "
+             f"loss {out['cli']['first_loss']:.6f} (L8's "
+             f"{l8['losses'][0]:.6f}, rel {cli_rel:.3g}) {tag}")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    bad = [loss_rel, cli_rel] + list(errs[0][:2]) + \
+        [e for k in kerrs for e in k[:2]]
+    if max(bad) > TRAIN_REL or max([errs[0][2]] + [k[2] for k in kerrs]) \
+            > TRAIN_PARAM_TOL or not ktele or \
+            calls["all_gather"]["calls"] < 2 * n_moe * SHARDED_MOE_STEPS:
+        raise AssertionError("L10: the sharded trainer differs from the "
+                             "unsharded one, or the MoE's expert-parallel "
+                             "branch did not run")
+    return out
+
+
+def check_sharded_train_on_the_card(cfg, out) -> None:
+    """L10's launch check, which only the card can make: one forward and
+    one backward flash launch a global layer a microbatch a step."""
+    want = n_flash_layers(cfg) * TRAIN_MICROBATCHES * SHARDED_STEPS
+    if out["flash_forward_launches"] != want or \
+            out["flash_backward_launches"] != want:
+        raise AssertionError(f"L10: flash launches {out['launches']}; want "
+                             f"{want} each")
 
 
 # --------------------------------------------------------------------------
@@ -5134,7 +5338,11 @@ def main() -> int:
         train_out["flash_backward_launches"]
     moe_out = moe_train_phase(dev, tag)  # L9
     check_moe_train_on_the_card(moe_out)
-    train_paths = {"L8": train_out["launches"], "L9": moe_out["launches"]}
+    sharded_out = sharded_train_phase(dev, tag, train_out)  # L10
+    check_sharded_train_on_the_card(
+        configs.get(TRAIN_ARCH, reduced=LM_REDUCED), sharded_out)
+    train_paths = {"L8": train_out["launches"], "L9": moe_out["launches"],
+                   "L10": sharded_out["launches"]}
 
     seconds = time.perf_counter() - t_start
     _log(f"total {seconds:.1f} s")
@@ -5150,6 +5358,7 @@ def main() -> int:
                       "collective": collective_out,
                       **profile, **lm_out, "archs": arch_out,
                       "train": train_out, "moe_train": moe_out,
+                      "sharded_train": sharded_out,
                       "seconds": seconds}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

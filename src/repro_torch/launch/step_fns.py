@@ -1,13 +1,28 @@
 """train_step / prefill_step / serve_step factories (counterpart of
-``repro.launch.step_fns``), on one device.
+``repro.launch.step_fns``), on one device and over a mesh.
 
 ``make_train_step`` returns f(train_state, batch) -> (train_state,
 metrics): forward, backward (autograd; every global GQA layer's
 attention through the flash kernel's backward on the card) and AdamW,
 with optional microbatch gradient accumulation in f32. The reference's
 int8 compressed all-reduce (``optim.compressed_psum``) is not called by
-the step, as in the reference; its expert-parallel MoE waits for the
-sharding work.
+the step, as in the reference.
+
+Over a ``("data", "model")`` ``DeviceMesh`` (``shard_state``,
+``make_sharded_train_step``) the train state rests on each rank as the
+shards its placements name (``train_state_specs`` through
+``launch.shardings``: FSDP over "data", TP over "model"): parameters and
+AdamW's moments as ``DTensor``s, the step counters and the telemetry
+replicated. The step gathers every parameter (``full_tensor``, no
+gradient), runs the forward and backward on plain tensors under the
+mesh's sharding context (this rank's rows of the batch; the loss and the
+MoE's global quantities through ``dp_sum``, so every rank computes the
+global loss and its gradient share), sums the gradients over the data
+ranks, keeps each leaf's slice of its placements and updates the shards.
+A model row's ranks compute the same step; TP-split compute over "model"
+is a later item. The global gradient norm counts each element once.
+``fully_shard`` (FSDP2) is not used: it gathers in hooks on a module's
+``forward``, and a ``ParamTree`` is never called.
 
 A train state's trees are flat dicts keyed by the parameters' dotted
 names (``dict(params.named_parameters())``, e.g. ``layers.3.attn.wq``);
@@ -23,12 +38,18 @@ from typing import Any, Dict, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.types import resolve_device
+from repro_torch.distributed.sharding_ctx import (local_slice,
+                                                  use_sharding_ctx)
+from repro_torch.launch import shardings
+from repro_torch.launch.mesh import mesh_axes
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.moe import TELEMETRY_BUCKETS
-from repro_torch.optim import AdamWConfig, apply_updates, init_opt_state
+from repro_torch.optim import (AdamWConfig, apply_updates, init_opt_state,
+                               opt_state_specs)
 
 
 class TrainState(NamedTuple):
@@ -60,6 +81,15 @@ def init_train_state(cfg: ModelConfig, opt_cfg: AdamWConfig,
     params = lm.init_params(cfg, generator, dev if generator is None
                             else generator.device)
     return _zero_state(cfg, opt_cfg, params.to(dev))
+
+
+def train_state_specs(cfg: ModelConfig, opt_cfg: AdamWConfig,
+                      fsdp_axes=("data",), tp_axis="model") -> TrainState:
+    """The train state's specs: parameters and AdamW's moments by
+    ``lm.param_specs``, the step counters and telemetry replicated."""
+    pspecs = lm.param_specs(cfg, fsdp_axes, tp_axis)
+    return TrainState(params=pspecs, opt=opt_state_specs(pspecs),
+                      telemetry=(), step=())
 
 
 def state_leaves(state: TrainState) -> Dict[str, torch.Tensor]:
@@ -138,50 +168,193 @@ def _grads(cfg: ModelConfig, params, batch):
     return loss.detach(), aux, grads
 
 
+def _accumulate(cfg: ModelConfig, params, batch, microbatches: int):
+    """(loss, aux, grads) of the batch: the mean over ``microbatches`` row
+    blocks (gradients summed in f32, the loss their mean and aux the last
+    block's, as the reference's scan)."""
+    if microbatches == 1:
+        return _grads(cfg, params, batch)
+    B = next(iter(batch.values())).shape[0]
+    if B % microbatches:
+        raise ValueError(f"batch {B} does not split into {microbatches} "
+                         f"microbatches")
+    mb = B // microbatches
+    gsum, lsum = None, None
+    for i in range(microbatches):
+        part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+        loss_i, aux, g = _grads(cfg, params, part)
+        if gsum is None:
+            gsum = {k: v.float() for k, v in g.items()}
+            lsum = torch.zeros((), dtype=torch.float32, device=loss_i.device)
+        else:
+            for k, v in g.items():
+                gsum[k] += v
+        lsum = lsum + loss_i
+        del g
+    return lsum / microbatches, aux, \
+        {k: v / microbatches for k, v in gsum.items()}
+
+
+def _finish(cfg: ModelConfig, state: TrainState, opt, loss, aux, stats):
+    """The next state (telemetry summed) and the step's metrics."""
+    tele = state.telemetry
+    metrics = {"loss": loss, **stats}
+    if cfg.n_experts:
+        tele = tele + aux["telemetry"]
+        metrics["lb_loss"] = aux["lb_loss"]
+        metrics["dropped"] = aux["dropped"]
+    return TrainState(params=state.params, opt=opt, telemetry=tele,
+                      step=state.step + 1), metrics
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                     microbatches: int = 1):
     """f(state, batch) -> (state, metrics): the loss's gradient (the mean
-    over ``microbatches`` row blocks of the batch, summed in f32, with the
-    loss their mean and aux the last block's, as the reference's scan),
-    one AdamW step (parameters and moments updated in place), the MoE
-    telemetry summed into ``state.telemetry``. Metrics: loss, lr,
-    grad_norm (and lb_loss, dropped for a MoE config), 0-d tensors."""
+    over ``microbatches`` row blocks of the batch), one AdamW step
+    (parameters and moments updated in place), the MoE telemetry summed
+    into ``state.telemetry``. Metrics: loss, lr, grad_norm (and lb_loss,
+    dropped for a MoE config), 0-d tensors."""
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        if microbatches > 1:
-            B = next(iter(batch.values())).shape[0]
-            if B % microbatches:
-                raise ValueError(f"batch {B} does not split into "
-                                 f"{microbatches} microbatches")
-            mb = B // microbatches
-            gsum, lsum = None, torch.zeros((), dtype=torch.float32,
-                                           device=state.step.device)
-            for i in range(microbatches):
-                part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-                loss_i, aux, g = _grads(cfg, state.params, part)
-                if gsum is None:
-                    gsum = {k: v.float() for k, v in g.items()}
-                else:
-                    for k, v in g.items():
-                        gsum[k] += v
-                lsum = lsum + loss_i
-                del g
-            grads = {k: v / microbatches for k, v in gsum.items()}
-            loss = lsum / microbatches
-        else:
-            loss, aux, grads = _grads(cfg, state.params, batch)
+        loss, aux, grads = _accumulate(cfg, state.params, batch,
+                                       microbatches)
         _, opt, stats = apply_updates(
             opt_cfg, dict(state.params.named_parameters()), grads, state.opt)
         del grads
-        tele = state.telemetry
-        if cfg.n_experts:
-            tele = tele + aux["telemetry"]
-        metrics = {"loss": loss, **stats}
-        if cfg.n_experts:
-            metrics["lb_loss"] = aux["lb_loss"]
-            metrics["dropped"] = aux["dropped"]
-        return TrainState(params=state.params, opt=opt, telemetry=tele,
-                          step=state.step + 1), metrics
+        return _finish(cfg, state, opt, loss, aux, stats)
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# over a mesh
+# ---------------------------------------------------------------------------
+
+def state_placements(cfg: ModelConfig, opt_cfg: AdamWConfig,
+                     mesh) -> TrainState:
+    """The train state's placements on ``mesh``: ``train_state_specs``
+    through ``sanitize_specs`` and ``to_named``."""
+    ax = mesh_axes(mesh)
+    shapes = lm.param_shapes(cfg)
+    scalar = ((), torch.int32)
+    shape_tree = TrainState(
+        params=shapes, opt={"mu": shapes, "nu": shapes, "step": scalar},
+        telemetry=((TELEMETRY_BUCKETS, max(cfg.n_experts, 1)), torch.int32),
+        step=scalar)
+    specs = shardings.sanitize_specs(
+        train_state_specs(cfg, opt_cfg, ax["fsdp"], ax["tp"]), shape_tree,
+        mesh)
+    return shardings.to_named(specs, mesh)
+
+
+@torch.no_grad()
+def shard_state(cfg: ModelConfig, opt_cfg: AdamWConfig, state: TrainState,
+                mesh) -> TrainState:
+    """A full train state (the same on every rank, e.g. drawn from one
+    seed) resting on ``mesh``: each parameter and moment as a ``DTensor``
+    holding this rank's slice of its placements (a copy: the full tensors
+    can go); the step counters and telemetry as they are."""
+    from torch.distributed.tensor import DTensor
+
+    pl = state_placements(cfg, opt_cfg, mesh)
+
+    def shard(tree, placements):
+        return {k: DTensor.from_local(
+            local_slice(t.detach(), placements[k], mesh).clone(), mesh,
+            placements[k], shape=t.shape, stride=t.stride())
+            for k, t in tree.items()}
+
+    params = lm.params_from_leaves(
+        cfg, shard(dict(state.params.named_parameters()), pl.params))
+    opt = {"mu": shard(state.opt["mu"], pl.opt["mu"]),
+           "nu": shard(state.opt["nu"], pl.opt["nu"]),
+           "step": state.opt["step"]}
+    return TrainState(params=params, opt=opt, telemetry=state.telemetry,
+                      step=state.step)
+
+
+def full_state_leaves(state: TrainState) -> Dict[str, torch.Tensor]:
+    """``state_leaves`` with every ``DTensor`` gathered to its full value
+    (a collective: every rank of the mesh calls it)."""
+    from torch.distributed.tensor import DTensor
+
+    return {k: v.full_tensor() if isinstance(v, DTensor) else v
+            for k, v in state_leaves(state).items()}
+
+
+def local_rows(batch: Dict[str, torch.Tensor], microbatches: int,
+               n_data: int, index: int) -> Dict[str, torch.Tensor]:
+    """Data rank ``index``'s rows of a global batch: its block of each
+    microbatch, in microbatch order, so that the step's microbatch i on
+    every rank is the global microbatch i (as the reference splits a
+    dp-sharded batch)."""
+    B = next(iter(batch.values())).shape[0]
+    if B % (microbatches * n_data):
+        raise ValueError(f"batch {B} does not split into {microbatches} "
+                         f"microbatches over {n_data} data ranks")
+    mb, r = B // microbatches, B // (microbatches * n_data)
+    return {k: torch.cat([v[i * mb + index * r:i * mb + (index + 1) * r]
+                          for i in range(microbatches)])
+            for k, v in batch.items()}
+
+
+def _norm_of_shards(grads: dict, placements: dict, mesh) -> torch.Tensor:
+    """The global gradient norm from this rank's gradient shards: a leaf's
+    square sum counts only on the ranks at coordinate 0 of each mesh
+    dimension that replicates it, then the sum over every rank."""
+    from torch.distributed.tensor import Replicate
+
+    coord = mesh.get_coordinate()
+    total = None
+    for k, g in grads.items():
+        if any(isinstance(p, Replicate) and c
+               for p, c in zip(placements[k], coord)):
+            continue
+        sq = torch.sum(torch.square(g.float()))
+        total = sq if total is None else total + sq
+    if total is None:
+        total = torch.zeros((), dtype=torch.float32,
+                            device=next(iter(grads.values())).device)
+    if dist.get_world_size() > 1:
+        dist.all_reduce(total)
+    return torch.sqrt(total)
+
+
+def make_sharded_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh,
+                            microbatches: int = 1):
+    """f(state, batch) -> (state, metrics) over ``mesh`` (a ``DeviceMesh``
+    over every rank of the group): ``state`` from ``shard_state``,
+    ``batch`` this rank's rows (``local_rows``). The metrics are the
+    global ones, the same on every rank."""
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        with use_sharding_ctx(mesh) as ctx:
+            shards = dict(state.params.named_parameters())
+            with torch.no_grad():
+                full = {k: p.full_tensor() for k, p in shards.items()}
+            params = lm.params_from_leaves(cfg, full).requires_grad_(True)
+            del full
+            loss, aux, grads = _accumulate(cfg, params, batch, microbatches)
+            del params
+            placements = {k: p.placements for k, p in shards.items()}
+            local = {}
+            for k in shards:  # the data ranks' shares, then this shard
+                g = grads.pop(k)
+                if ctx.dp_size > 1:
+                    dist.all_reduce(g, group=ctx.dp_group())
+                local[k] = local_slice(g, placements[k], mesh)
+            gnorm = _norm_of_shards(local, placements, mesh)
+            with torch.no_grad():
+                _, opt, stats = apply_updates(
+                    opt_cfg, {k: p.to_local() for k, p in shards.items()},
+                    local, {"mu": {k: v.to_local()
+                                   for k, v in state.opt["mu"].items()},
+                            "nu": {k: v.to_local()
+                                   for k, v in state.opt["nu"].items()},
+                            "step": state.opt["step"]}, grad_norm=gnorm)
+            del local
+            opt = dict(state.opt, step=opt["step"])
+            return _finish(cfg, state, opt, loss, aux, stats)
 
     return train_step
 

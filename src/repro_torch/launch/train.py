@@ -1,5 +1,6 @@
 """The trainer: train loop + LSketch router telemetry + checkpoints
-(counterpart of ``repro.launch.train``), on one device.
+(counterpart of ``repro.launch.train``), on one device or over a
+``("data", "model")`` mesh of ranks.
 
 Wiring per step, with the reference's cadence:
   1. a ``TokenPipeline`` batch (host, prefetched);
@@ -17,7 +18,19 @@ Wiring per step, with the reference's cadence:
 Runs on the card unless the caller passes ``device="cpu"`` (CLI
 ``--device cpu``); the telemetry sketch lives on the same device.
 
+With ``mesh=`` (a ``DeviceMesh`` over every rank of this process's group;
+CLI ``--mesh DATA[xMODEL]`` spawns the ranks through
+``distributed.ranks.spawn_ranks``: NCCL, one card a rank, or gloo on the
+CPU) the state rests sharded and the step is ``make_sharded_train_step``
+under the mesh's sharding context. Every rank draws the same state from
+the seed and reads the same pipeline; each data rank takes its rows of
+the global batch (``local_rows``). Rank 0 alone logs, keeps the router
+telemetry and writes the checkpoints (full leaves, gathered by every
+rank); a resume under the same mesh reads them on every rank and
+re-shards them.
+
 Usage: python -m repro_torch.launch.train --arch smollm-135m --steps 200
+       python -m repro_torch.launch.train --mesh 2x2 --device cpu
 """
 
 from __future__ import annotations
@@ -29,13 +42,19 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import repro_torch.configs as configs
 from repro_torch.core.types import resolve_device
 from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
 from repro_torch.distributed.checkpoint import CheckpointManager
-from repro_torch.launch.step_fns import (init_train_state, load_state_leaves,
-                                         make_train_step, state_leaves)
+from repro_torch.distributed.ranks import spawn_ranks
+from repro_torch.launch.mesh import make_smoke_mesh, mesh_size
+from repro_torch.launch.step_fns import (full_state_leaves, init_train_state,
+                                         load_state_leaves, local_rows,
+                                         make_sharded_train_step,
+                                         make_train_step, shard_state,
+                                         state_leaves)
 from repro_torch.optim import AdamWConfig
 from repro_torch.telemetry import CapacityController, RouterTelemetry
 
@@ -45,14 +64,21 @@ def train(arch: str = "smollm-135m", steps: int = 100, smoke: bool = True,
           ckpt_every: int = 50, controller_every: int = 10,
           microbatches: int = 1, resume: bool = False, log_every: int = 10,
           seed: int = 0, cfg=None, lr_peak: float = 3e-4,
-          schedule_steps: int | None = None, device=None, stats=None):
+          schedule_steps: int | None = None, device=None, stats=None,
+          mesh=None):
     """Train ``steps`` steps (from a checkpoint's step with ``resume``);
     returns the per-step losses. ``stats``, a dict when given, receives
     the capacity factors after each controller update (``"cf"``), each
     step's metrics as floats (``"metrics"``) and seconds (``"step_s"``:
     batch to loss, synchronised by reading the loss), the telemetry
-    handle (``"telemetry"``) and the final train state (``"state"``)."""
+    handle (``"telemetry"``) and the final train state (``"state"``).
+    ``mesh``: a ``DeviceMesh`` over every rank of the group (the module
+    docstring)."""
     dev = resolve_device(device)
+    if mesh is not None and mesh_size(mesh) != dist.get_world_size():
+        raise ValueError(f"the mesh has {mesh_size(mesh)} ranks, the group "
+                         f"{dist.get_world_size()}")
+    lead = mesh is None or dist.get_rank() == 0
     cfg = cfg if cfg is not None else configs.get(arch, reduced=smoke)
     arch = cfg.name
     horizon = schedule_steps or steps  # fixed horizon => exact resume
@@ -66,7 +92,7 @@ def train(arch: str = "smollm-135m", steps: int = 100, smoke: bool = True,
         tempfile.gettempdir(), f"repro_torch_ckpt_{arch}"), keep=2)
 
     tele = RouterTelemetry(n_experts=max(cfg.n_experts, 1), device=dev) \
-        if cfg.n_experts else None
+        if cfg.n_experts and lead else None
     controller = CapacityController(tele) if tele else None
     capacity_factor = cfg.capacity_factor
     if stats is not None:
@@ -75,7 +101,14 @@ def train(arch: str = "smollm-135m", steps: int = 100, smoke: bool = True,
     # drawn on the CPU: one seed gives the same weights on every device
     state = init_train_state(cfg, opt_cfg,
                              torch.Generator().manual_seed(seed), dev)
-    step_fn = make_train_step(cfg, opt_cfg, microbatches)
+    if mesh is None:
+        step_fn = make_train_step(cfg, opt_cfg, microbatches)
+        leaves_of = state_leaves
+    else:
+        step_fn = make_sharded_train_step(cfg, opt_cfg, mesh, microbatches)
+        leaves_of = full_state_leaves
+        n_data = mesh.size(0)
+        row = mesh.get_coordinate()[0]
 
     start = 0
     cursor = 0
@@ -84,7 +117,17 @@ def train(arch: str = "smollm-135m", steps: int = 100, smoke: bool = True,
         state = load_state_leaves(state, arrays)
         start = extra["step"]
         cursor = extra["cursor"]
-        print(f"[train] resumed at step {start}")
+        if lead:
+            print(f"[train] resumed at step {start}")
+    if mesh is not None:  # the full leaves go once the shards are cut
+        state = shard_state(cfg, opt_cfg, state, mesh)
+
+    def save(step, blocking):
+        leaves = leaves_of(state)
+        if lead:
+            ckpt.save(step, leaves, extra={"step": step,
+                                           "cursor": pipe.cursor},
+                      blocking=blocking)
     # the pipeline worker captures its cursor at thread start — it must
     # be constructed *after* restore for exact resume
     pipe = TokenPipeline(pipe_cfg, cursor=cursor)
@@ -97,6 +140,8 @@ def train(arch: str = "smollm-135m", steps: int = 100, smoke: bool = True,
             batch = next(pipe)
             tbatch = {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(
                 dev) for k in ("tokens", "labels")}
+            if mesh is not None:
+                tbatch = local_rows(tbatch, microbatches, n_data, row)
             state, metrics = step_fn(state, tbatch)
             loss = float(metrics["loss"])
             losses.append(loss)
@@ -114,10 +159,8 @@ def train(arch: str = "smollm-135m", steps: int = 100, smoke: bool = True,
                     stats["cf"].append(capacity_factor)
 
             if ckpt_every and step and step % ckpt_every == 0:
-                ckpt.save(step, state_leaves(state),
-                          extra={"step": step, "cursor": pipe.cursor},
-                          blocking=False)
-            if step % log_every == 0:
+                save(step, blocking=False)
+            if step % log_every == 0 and lead:
                 dt = time.time() - t0
                 extra = ""
                 if tele is not None:
@@ -125,14 +168,29 @@ def train(arch: str = "smollm-135m", steps: int = 100, smoke: bool = True,
                              f" cf={capacity_factor:.2f}")
                 print(f"[train] step={step} loss={loss:.4f} "
                       f"dt={dt*1e3:.0f}ms{extra}")
-        ckpt.save(steps, state_leaves(state),
-                  extra={"step": steps, "cursor": pipe.cursor},
-                  blocking=True)
+        save(steps, blocking=True)
+        if mesh is not None:  # no rank resumes before the commit
+            dist.barrier()
         if stats is not None:
             stats["state"] = state
     finally:
         pipe.close()
     return losses
+
+
+def parse_mesh(text: str) -> tuple:
+    """``"DATA[xMODEL]"`` as ``(data, model)``."""
+    parts = text.lower().split("x")
+    if len(parts) > 2 or not all(p.isdigit() and int(p) > 0 for p in parts):
+        raise ValueError(f"--mesh {text!r}: expected DATA or DATAxMODEL")
+    return int(parts[0]), int(parts[1]) if len(parts) == 2 else 1
+
+
+def _train_rank(data: int, model: int, device_type: str, kw: dict):
+    """One rank of ``--mesh``: its mesh over the whole group, then
+    ``train``; returns the losses."""
+    mesh = make_smoke_mesh(data, model, device_type)
+    return train(**kw, mesh=mesh)
 
 
 def main(argv=None):
@@ -148,11 +206,25 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
+    ap.add_argument("--mesh", default=None, metavar="DATA[xMODEL]",
+                    help="train over DATA x MODEL ranks (spawned; NCCL "
+                    "one card a rank, or gloo with --device cpu)")
     args = ap.parse_args(argv)
-    losses = train(arch=args.arch, steps=args.steps, smoke=args.smoke,
-                   batch_size=args.batch_size, seq_len=args.seq_len,
-                   microbatches=args.microbatches, resume=args.resume,
-                   ckpt_dir=args.ckpt_dir, device=args.device)
+    kw = dict(arch=args.arch, steps=args.steps, smoke=args.smoke,
+              batch_size=args.batch_size, seq_len=args.seq_len,
+              microbatches=args.microbatches, resume=args.resume,
+              ckpt_dir=args.ckpt_dir)
+    dev = resolve_device(args.device)
+    if args.mesh is None:
+        losses = train(**kw, device=dev)
+    else:
+        data, model = parse_mesh(args.mesh)
+        world = data * model
+        if dev.type == "cuda" and world > torch.cuda.device_count():
+            raise SystemExit(f"--mesh {args.mesh}: only "
+                             f"{torch.cuda.device_count()} devices available")
+        losses = spawn_ranks(_train_rank, world, device=dev, args=(
+            data, model, dev.type, dict(kw, device=dev.type)))
     print(f"final loss {losses[-1]:.4f} (first {losses[0]:.4f})")
 
 

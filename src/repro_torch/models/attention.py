@@ -29,7 +29,7 @@ from repro_torch.kernels.flash_attention.ops import \
 
 from .config import ModelConfig
 from .layers import apply_rope, rmsnorm, rmsnorm_defs
-from .params import ParamDef
+from .params import FSDP, TP, ParamDef
 
 NEG_INF = -1e30
 
@@ -37,15 +37,15 @@ NEG_INF = -1e30
 def gqa_defs(cfg: ModelConfig):
     D, H, KV, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     defs = {
-        "wq": ParamDef((D, H * dh), init="scaled"),
-        "wk": ParamDef((D, KV * dh), init="scaled"),
-        "wv": ParamDef((D, KV * dh), init="scaled"),
-        "wo": ParamDef((H * dh, D), init="scaled"),
+        "wq": ParamDef((D, H * dh), (FSDP, TP), init="scaled"),
+        "wk": ParamDef((D, KV * dh), (FSDP, TP), init="scaled"),
+        "wv": ParamDef((D, KV * dh), (FSDP, TP), init="scaled"),
+        "wo": ParamDef((H * dh, D), (TP, FSDP), init="scaled"),
     }
     if cfg.qkv_bias:
-        defs["bq"] = ParamDef((H * dh,), init="zeros")
-        defs["bk"] = ParamDef((KV * dh,), init="zeros")
-        defs["bv"] = ParamDef((KV * dh,), init="zeros")
+        defs["bq"] = ParamDef((H * dh,), (TP,), init="zeros")
+        defs["bk"] = ParamDef((KV * dh,), (TP,), init="zeros")
+        defs["bv"] = ParamDef((KV * dh,), (TP,), init="zeros")
     if cfg.qk_norm:
         defs["q_norm"] = rmsnorm_defs(dh)
         defs["k_norm"] = rmsnorm_defs(dh)
@@ -196,19 +196,21 @@ def mla_defs(cfg: ModelConfig):
     r, rd = cfg.kv_lora_rank, cfg.rope_dim
     qr = cfg.q_lora_rank
     defs = {
-        "w_dkv": ParamDef((D, r), init="scaled"),
-        "w_krope": ParamDef((D, rd), init="scaled"),
-        "w_uk": ParamDef((r, H, dh), init="scaled"),
-        "w_uv": ParamDef((r, H, dh), init="scaled"),
-        "wo": ParamDef((H * dh, D), init="scaled"),
+        "w_dkv": ParamDef((D, r), (FSDP, TP), init="scaled"),
+        "w_krope": ParamDef((D, rd), (FSDP, None), init="scaled"),
+        "w_uk": ParamDef((r, H, dh), (None, TP, None), init="scaled"),
+        "w_uv": ParamDef((r, H, dh), (None, TP, None), init="scaled"),
+        "wo": ParamDef((H * dh, D), (TP, FSDP), init="scaled"),
         "kv_norm": rmsnorm_defs(r),
     }
     if qr:
-        defs["w_dq"] = ParamDef((D, qr), init="scaled")
-        defs["w_uq"] = ParamDef((qr, H, dh + rd), init="scaled")
+        defs["w_dq"] = ParamDef((D, qr), (FSDP, TP), init="scaled")
+        defs["w_uq"] = ParamDef((qr, H, dh + rd), (None, TP, None),
+                                init="scaled")
         defs["q_norm"] = rmsnorm_defs(qr)
     else:
-        defs["wq"] = ParamDef((D, H, dh + rd), init="scaled")
+        defs["wq"] = ParamDef((D, H, dh + rd), (FSDP, TP, None),
+                              init="scaled")
     return defs
 
 
@@ -304,10 +306,10 @@ def mla_cache_spec(cfg: ModelConfig, batch: int, seq: int):
 def cross_defs(cfg: ModelConfig):
     D, H, KV, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     return {
-        "wq": ParamDef((D, H * dh), init="scaled"),
-        "wk": ParamDef((D, KV * dh), init="scaled"),
-        "wv": ParamDef((D, KV * dh), init="scaled"),
-        "wo": ParamDef((H * dh, D), init="scaled"),
+        "wq": ParamDef((D, H * dh), (FSDP, TP), init="scaled"),
+        "wk": ParamDef((D, KV * dh), (FSDP, TP), init="scaled"),
+        "wv": ParamDef((D, KV * dh), (FSDP, TP), init="scaled"),
+        "wo": ParamDef((H * dh, D), (TP, FSDP), init="scaled"),
     }
 
 

@@ -6,14 +6,16 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding_ctx import current, dp_sum
+
 from .config import ModelConfig
-from .params import ParamDef
+from .params import FSDP, TP, ParamDef
 
 
 # ---- RMSNorm --------------------------------------------------------------
 
 def rmsnorm_defs(dim: int):
-    return {"scale": ParamDef((dim,), init="ones")}
+    return {"scale": ParamDef((dim,), (None,), init="ones")}
 
 
 def rmsnorm(params, x, eps: float = 1e-6):
@@ -49,9 +51,9 @@ def mlp_defs(cfg: ModelConfig, d_ff: int | None = None):
     D = cfg.d_model
     Fd = d_ff if d_ff is not None else cfg.d_ff
     return {
-        "w_gate": ParamDef((D, Fd), init="scaled"),
-        "w_up": ParamDef((D, Fd), init="scaled"),
-        "w_down": ParamDef((Fd, D), init="scaled"),
+        "w_gate": ParamDef((D, Fd), (FSDP, TP), init="scaled"),
+        "w_up": ParamDef((D, Fd), (FSDP, TP), init="scaled"),
+        "w_down": ParamDef((Fd, D), (TP, FSDP), init="scaled"),
     }
 
 
@@ -64,9 +66,9 @@ def mlp(params, x):
 # ---- embeddings / unembedding ---------------------------------------------
 
 def embed_defs(cfg: ModelConfig):
-    defs = {"tok": ParamDef((cfg.vocab_size, cfg.d_model))}
+    defs = {"tok": ParamDef((cfg.vocab_size, cfg.d_model), (TP, FSDP))}
     if not cfg.tie_embeddings:
-        defs["unembed"] = ParamDef((cfg.d_model, cfg.vocab_size),
+        defs["unembed"] = ParamDef((cfg.d_model, cfg.vocab_size), (FSDP, TP),
                                    init="scaled")
     return defs
 
@@ -85,11 +87,17 @@ def unembed(params, x, cfg: ModelConfig):
 def softmax_xent(logits, labels, mask=None):
     """Token-mean cross entropy in f32: logsumexp minus the gold logit;
     labels int, mask optional bool (a masked mean over max(sum(mask),
-    1))."""
+    1)). Under a sharding context with several data ranks, the mean over
+    the global batch: the ranks' sums over their counts (``dp_sum``)."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = logz - gold
+    ctx = current()
+    if ctx is not None and ctx.dp_size > 1:
+        m = torch.ones_like(nll) if mask is None else mask.float()
+        return dp_sum(torch.sum(nll * m)) / torch.clamp_min(
+            dp_sum(torch.sum(m)), 1.0)
     if mask is not None:
         m = mask.float()
         return torch.sum(nll * m) / torch.clamp_min(torch.sum(m), 1.0)

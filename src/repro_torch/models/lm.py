@@ -33,9 +33,9 @@ from repro_torch.core.types import resolve_device
 from .config import ModelConfig
 from .layers import (embed, embed_defs, rmsnorm, rmsnorm_defs, softmax_xent,
                      unembed)
-from .params import ParamTree, init_tree
+from .params import ParamTree, init_tree, spec_tree
 from .transformer import (LayerParams, build_plan, layer_defs, stack_apply,
-                          stack_cache, stack_decode)
+                          stack_cache, stack_decode, stack_specs)
 
 
 def plans(cfg: ModelConfig):
@@ -89,6 +89,60 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
                 for p in plan.layers]
 
     return LMParams(top, draw(dec), None if enc is None else draw(enc))
+
+
+def _flat(tree: dict, prefix: str = ""):
+    """A nested dict's leaves by dotted name, in ``ParamTree``'s
+    ``named_parameters`` order: a level's own leaves, then its subtrees."""
+    for k, v in tree.items():
+        if not isinstance(v, dict):
+            yield f"{prefix}{k}", v
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, f"{prefix}{k}.")
+
+
+def param_specs(cfg: ModelConfig, fsdp_axes=("data",),
+                tp_axis="model") -> dict:
+    """Every parameter's spec, keyed and ordered as
+    ``params.named_parameters()`` (``embed.tok``, ``layers.3.attn.wq``)."""
+    dec, enc = plans(cfg)
+    out = dict(_flat(spec_tree(_top_defs(cfg), fsdp_axes, tp_axis)))
+    for stack, plan in (("layers", dec), ("encoder", enc)):
+        if plan is not None:
+            for i, t in enumerate(stack_specs(cfg, plan, fsdp_axes,
+                                              tp_axis)):
+                out.update(_flat(t, f"{stack}.{i}."))
+    return out
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """Every parameter's ``(shape, dtype)``, keyed as ``param_specs``
+    (no allocation)."""
+    dec, enc = plans(cfg)
+    defs = dict(_flat(_top_defs(cfg)))
+    for stack, plan in (("layers", dec), ("encoder", enc)):
+        if plan is not None:
+            for i, p in enumerate(plan.layers):
+                defs.update(_flat(layer_defs(cfg, p), f"{stack}.{i}."))
+    return {k: (d.shape, cfg.param_dtype) for k, d in defs.items()}
+
+
+def params_from_leaves(cfg: ModelConfig, leaves: dict) -> LMParams:
+    """``LMParams`` over the tensors of ``leaves`` (``{dotted name:
+    tensor}``, the names of ``named_parameters``), which it shares."""
+    def nest(defs, prefix):
+        return {k: nest(d, f"{prefix}{k}.") if isinstance(d, dict)
+                else leaves[f"{prefix}{k}"] for k, d in defs.items()}
+
+    dec, enc = plans(cfg)
+
+    def stack(plan, name):
+        return [LayerParams(p, nest(layer_defs(cfg, p), f"{name}.{i}."))
+                for i, p in enumerate(plan.layers)]
+
+    return LMParams(nest(_top_defs(cfg), ""), stack(dec, "layers"),
+                    None if enc is None else stack(enc, "encoder"))
 
 
 def encode_memory(cfg: ModelConfig, params: LMParams, frame_emb):
@@ -184,6 +238,16 @@ def _take(cfg: ModelConfig, defs: dict, tree, path: str, periods=None,
     return out
 
 
+def stack_index(plan) -> list:
+    """Where each layer of ``plan.layers`` sits in a JAX ``{head, body,
+    tail}`` stack: ``(part, i, period)``, ``period`` the index along the
+    scanned body's leading axis (None for head and tail)."""
+    return ([("head", i, None) for i in range(len(plan.head))]
+            + [("body", i, period) for period in range(plan.n_periods)
+               for i in range(len(plan.pattern))]
+            + [("tail", i, None) for i in range(len(plan.tail))])
+
+
 def _unstack(cfg: ModelConfig, plan, stack, path: str) -> list:
     """A JAX ``{head, body, tail}`` stack as ``LayerParams`` in
     ``plan.layers`` order, ``body``'s period axis unstacked."""
@@ -193,19 +257,10 @@ def _unstack(cfg: ModelConfig, plan, stack, path: str) -> list:
             len(stack[k]) != n for k, n in parts.items()):
         raise ValueError(f"{path}: expected head/body/tail lists of "
                          f"{parts}")
-    layers = [LayerParams(p, _take(cfg, layer_defs(cfg, p), stack["head"][i],
-                                   f"{path}.head[{i}]"))
-              for i, p in enumerate(plan.head)]
-    for period in range(plan.n_periods):
-        layers += [LayerParams(p, _take(cfg, layer_defs(cfg, p),
-                                        stack["body"][i],
-                                        f"{path}.body[{i}]", plan.n_periods,
-                                        period))
-                   for i, p in enumerate(plan.pattern)]
-    layers += [LayerParams(p, _take(cfg, layer_defs(cfg, p), stack["tail"][i],
-                                    f"{path}.tail[{i}]"))
-               for i, p in enumerate(plan.tail)]
-    return layers
+    return [LayerParams(p, _take(cfg, layer_defs(cfg, p), stack[part][i],
+                                 f"{path}.{part}[{i}]", plan.n_periods,
+                                 period))
+            for p, (part, i, period) in zip(plan.layers, stack_index(plan))]
 
 
 def from_jax_params(cfg: ModelConfig, params_np: Dict[str, Any]) -> LMParams:

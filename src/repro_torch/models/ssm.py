@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
-from .params import ParamDef
+from .params import FSDP, TP, ParamDef
 
 
 # ---------------------------------------------------------------------------
@@ -36,13 +36,13 @@ def mamba_defs(cfg: ModelConfig):
     ds = cfg.ssm_state_dim
     kc = cfg.ssm_conv_dim
     return {
-        "w_in": ParamDef((D, 2 * di), init="scaled"),
-        "conv_w": ParamDef((kc, di), init="scaled", scale=0.5),
-        "w_bcdt": ParamDef((di, 2 * ds + 1), init="scaled"),
-        "dt_bias": ParamDef((di,), init="zeros"),
-        "a_log": ParamDef((di, ds), init="zeros"),
-        "d_skip": ParamDef((di,), init="ones"),
-        "w_out": ParamDef((di, D), init="scaled"),
+        "w_in": ParamDef((D, 2 * di), (FSDP, TP), init="scaled"),
+        "conv_w": ParamDef((kc, di), (None, TP), init="scaled", scale=0.5),
+        "w_bcdt": ParamDef((di, 2 * ds + 1), (TP, None), init="scaled"),
+        "dt_bias": ParamDef((di,), (TP,), init="zeros"),
+        "a_log": ParamDef((di, ds), (TP, None), init="zeros"),
+        "d_skip": ParamDef((di,), (TP,), init="ones"),
+        "w_out": ParamDef((di, D), (TP, FSDP), init="scaled"),
     }
 
 
@@ -149,13 +149,13 @@ def mlstm_defs(cfg: ModelConfig):
     D, H = cfg.d_model, cfg.n_heads
     di = cfg.ssm_expand * D
     return {
-        "w_in": ParamDef((D, 2 * di), init="scaled"),
-        "w_q": ParamDef((di, di), init="scaled"),
-        "w_k": ParamDef((di, di), init="scaled"),
-        "w_v": ParamDef((di, di), init="scaled"),
-        "w_if": ParamDef((di, 2 * H), init="scaled"),
-        "b_if": ParamDef((2 * H,), init="zeros"),
-        "w_out": ParamDef((di, D), init="scaled"),
+        "w_in": ParamDef((D, 2 * di), (FSDP, TP), init="scaled"),
+        "w_q": ParamDef((di, di), (TP, None), init="scaled"),
+        "w_k": ParamDef((di, di), (TP, None), init="scaled"),
+        "w_v": ParamDef((di, di), (TP, None), init="scaled"),
+        "w_if": ParamDef((di, 2 * H), (TP, None), init="scaled"),
+        "b_if": ParamDef((2 * H,), (None,), init="zeros"),
+        "w_out": ParamDef((di, D), (TP, FSDP), init="scaled"),
     }
 
 
@@ -258,10 +258,10 @@ def slstm_defs(cfg: ModelConfig):
     D = cfg.d_model
     di = cfg.ssm_expand * D
     return {
-        "w_in": ParamDef((D, di), init="scaled"),
-        "w_gates": ParamDef((di, 4 * di), init="scaled"),
-        "b_gates": ParamDef((4 * di,), init="zeros"),
-        "w_out": ParamDef((di, D), init="scaled"),
+        "w_in": ParamDef((D, di), (FSDP, TP), init="scaled"),
+        "w_gates": ParamDef((di, 4 * di), (TP, None), init="scaled"),
+        "b_gates": ParamDef((4 * di,), (None,), init="zeros"),
+        "w_out": ParamDef((di, D), (TP, FSDP), init="scaled"),
     }
 
 

@@ -27,7 +27,7 @@ from . import ssm
 from .config import ModelConfig
 from .layers import mlp, mlp_defs, rmsnorm, rmsnorm_defs
 from .moe import moe, moe_defs, zero_aux
-from .params import ParamTree
+from .params import ParamTree, spec_tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,6 +132,15 @@ def layer_defs(cfg: ModelConfig, plan: LayerPlan):
         defs["norm2"] = rmsnorm_defs(D)
         defs["moe"] = moe_defs(cfg)
     return defs
+
+
+def stack_specs(cfg: ModelConfig, plan: StackPlan, fsdp_axes=("data",),
+                tp_axis="model") -> list:
+    """Each layer's spec tree, in ``plan.layers`` order: the reference's
+    stacked specs without the scanned body's leading layer axis (always
+    None)."""
+    return [spec_tree(layer_defs(cfg, p), fsdp_axes, tp_axis)
+            for p in plan.layers]
 
 
 def layer_apply(cfg: ModelConfig, plan: LayerPlan, params, x,

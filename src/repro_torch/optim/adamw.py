@@ -71,6 +71,11 @@ def init_opt_state(cfg: AdamWConfig, params: dict) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+def opt_state_specs(param_spec_tree: dict) -> dict:
+    """Optimizer-state specs mirror the param specs (ZeRO)."""
+    return {"mu": param_spec_tree, "nu": param_spec_tree, "step": ()}
+
+
 def global_norm(tree: dict) -> torch.Tensor:
     """sqrt of the sum over leaves (in order) of each leaf's f32 sum of
     squares."""
@@ -82,13 +87,16 @@ def global_norm(tree: dict) -> torch.Tensor:
 
 
 @torch.no_grad()
-def apply_updates(cfg: AdamWConfig, params: dict, grads: dict, state: dict):
+def apply_updates(cfg: AdamWConfig, params: dict, grads: dict, state: dict,
+                  grad_norm: torch.Tensor | None = None):
     """One AdamW step with global-norm clipping; returns (params, state,
     {"lr", "grad_norm"}). ``params`` and the moments are updated in place
     (their tensors are the ones returned); ``state["step"]`` is a new
-    tensor."""
+    tensor. ``grad_norm``: the whole gradient's norm, where ``grads``
+    holds only this rank's shards of it (``global_norm(grads)`` when
+    None)."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9),
                             1.0)
     lr = lr_at(cfg, step).to(gnorm.device)

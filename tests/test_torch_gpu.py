@@ -1584,3 +1584,62 @@ def test_cuda_router_telemetry_mesh_matches_cpu_twin(nccl_world1):
                                           twin.load_vector(last))
     assert card.routing_affinity(5, 3) == twin.routing_affinity(5, 3)
     assert card.expert_load(2, last=1) == twin.expert_load(2, last=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ("smollm_135m", "kimi_k2_1t_a32b"))
+def test_cuda_sharded_train_steps_match_unsharded(no_tf32, nccl_world1,
+                                                  monkeypatch, arch):
+    """Two train steps of the reduced config over a 1 x 1 mesh on the
+    one-rank NCCL group (``shard_state``/``make_sharded_train_step``;
+    Kimi-K2 through the MoE's expert-parallel branch, its all-gathers
+    counted) against the unsharded steps from one state and batch: loss
+    and gradient norm within 1e-5 relative, every parameter within 1e-6
+    (eps = 1e-3), the telemetry and the flash launches equal."""
+    _need_card()
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.launch import step_fns
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.optim import AdamWConfig
+
+    cfg = configs.get(arch, reduced=True)
+    opt = AdamWConfig(lr_peak=1e-3, warmup_steps=2, decay_steps=10, eps=1e-3)
+    mesh = make_smoke_mesh(1, 1, "cuda")
+    plain = step_fns.init_train_state(
+        cfg, opt, torch.Generator().manual_seed(0), "cuda")
+    sharded = step_fns.shard_state(cfg, opt, plain, mesh)
+    gathers = []
+    real = dist.all_gather
+    monkeypatch.setattr(dist, "all_gather",
+                        lambda *a, **k: gathers.append(1) or real(*a, **k))
+    rng = np.random.default_rng(4)
+    for _ in range(2):
+        toks = rng.integers(0, cfg.vocab_size, (2, 65)).astype(np.int32)
+        batch = {"tokens": torch.from_numpy(toks[:, :-1].copy()).cuda(),
+                 "labels": torch.from_numpy(toks[:, 1:].copy()).cuda()}
+        f0 = flash_attention_kernel.launches
+        b0 = flash_attention_backward_kernel.launches
+        sharded, ms = step_fns.make_sharded_train_step(cfg, opt, mesh)(
+            sharded, batch)
+        torch.cuda.synchronize()
+        launched = (flash_attention_kernel.launches - f0,
+                    flash_attention_backward_kernel.launches - b0)
+        f0 = flash_attention_kernel.launches
+        b0 = flash_attention_backward_kernel.launches
+        plain, mp = step_fns.make_train_step(cfg, opt)(plain, batch)
+        assert launched == (flash_attention_kernel.launches - f0,
+                            flash_attention_backward_kernel.launches - b0)
+        assert launched[0] > 0
+        for key in ("loss", "grad_norm"):
+            d = abs(float(ms[key]) - float(mp[key])) / abs(float(mp[key]))
+            assert d <= 1e-5, (key, d)
+    full = step_fns.full_state_leaves(sharded)
+    for name, p in plain.params.named_parameters():
+        d = float((full[f"params.{name}"] - p.detach()).abs().max())
+        assert d <= 1e-6, (name, d)
+    assert torch.equal(sharded.telemetry, plain.telemetry)
+    if cfg.n_experts:  # each MoE layer's expert gather, forward and back
+        n_moe = sum(p.mlp == "moe" for p in
+                    step_fns.lm.plans(cfg)[0].layers)
+        assert len(gathers) >= 2 * 2 * n_moe

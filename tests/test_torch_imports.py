@@ -40,6 +40,22 @@ def test_port_and_chip_smoke_import_neither_jax_nor_repro():
     assert n_mods >= 50
 
 
+# the sharding slice's modules, each held alone in a fresh interpreter
+SHARDING_MODULES = ("repro_torch.launch.mesh", "repro_torch.launch.shardings",
+                    "repro_torch.distributed.sharding_ctx")
+
+
+@pytest.mark.parametrize("module", SHARDING_MODULES)
+def test_sharding_modules_import_neither_jax_nor_repro(module):
+    code = (f"import importlib, sys; importlib.import_module({module!r}); "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'repro')); print(bad); assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 SPEC = dict(d=16, n_blocks=2, F=256, r=4, s=4, c=4, k=4, window_size=100,
             pool_capacity=8, pool_probes=2)
 

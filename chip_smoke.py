@@ -181,8 +181,9 @@ Phases (any failure raises, so the exit code is non-zero):
      through the plain attention; logits agree to LOGIT_TOL of the largest
      logit, and with TF32 on they do not;
   L3. ``DecodeServer`` (4 slots, 256 positions) answers 8 requests of 128
-     prompt tokens and 32 greedy new tokens; a profiler trace of 8 decode
-     steps at that batch (where a step's time goes); then the prompt's
+     prompt tokens and 32 greedy new tokens; the peak memory of one
+     decode step at that batch and a profiler trace of 8 (where a step's
+     time goes); then the prompt's
      first 128 tokens through ``serve_step`` on a 1-slot cache agree with
      L2's forward logits at those positions;
   L4. Gemma-3 4B at its published widths and depth (34 layers: 29 local
@@ -248,6 +249,20 @@ Phases (any failure raises, so the exit code is non-zero):
      one-rank model group, counted) against the unsharded steps; the CLI
      ``launch.train --mesh 1`` for SHARDED_CLI_STEPS steps at L8's
      shapes, its first loss L8's;
+  L11. a crash and a restore: L8's trainer for RESTART_STEPS steps
+     unbroken, then under ``distributed.fault_tolerance.RestartLoop``
+     with a checkpoint every RESTART_CKPT_EVERY steps and a fault
+     injected once after step RESTART_FAULT_AFTER; one restart, the last
+     step RESTART_STEPS, the losses the unbroken run's bit for bit, the
+     restart's seconds; ``StragglerPolicy`` fed the runs' step seconds
+     and ``HeartbeatMonitor`` the restarted run's step starts report no
+     straggler and no dead host; one forward and one backward flash
+     launch a layer a microbatch for each step run;
+  E1. the cell estimator (``launch.dryrun.estimate``, on the host's meta
+     tensors) at L8's cell, L2's prefill and L3's decode step against
+     their measurements in this run: the peak memory within
+     ESTIMATE_MEMORY_MARGIN and its split, the FLOPs against the run's
+     own counts, L8's ms a step against the roofline's bound;
   8. one JSON line of the kernels and the end-to-end numbers, the card
      line, and the result line.
 
@@ -263,8 +278,9 @@ the routed ingest (phase R, with its queries), the pool path (phase
 T1-T3; the grouped rows' launches), the object path (phase O, before its
 comparisons; the single-sketch rows' launches) and the prefill (L2, the
 kernel forward); the trainer (L8, the flash forward and backward) and
-the MoE trainer (L9, the telemetry's kernels) and the sharded trainer
-(L10) each count from 0 too, in every row's ``launches_train``. Each kernel's
+the MoE trainer (L9, the telemetry's kernels), the sharded trainer
+(L10) and the restarted trainer (L11, with its unbroken twin) each count
+from 0 too, in every row's ``launches_train``. Each kernel's
 ``launches`` in the JSON line is from the path it was ported for (the
 flash backward's from L8).
 TF32 is off throughout (the models are f32), except in the one forward
@@ -342,7 +358,14 @@ from repro_torch.data.tokens import (DEFAULT_BAND_VOCAB,  # noqa: E402
 from repro_torch.distributed.ranks import backend_for, init_group  # noqa
 from repro_torch.telemetry import (CapacityController,  # noqa: E402
                                    RouterTelemetry)
-from repro_torch.launch import step_fns  # noqa: E402
+from repro_torch.configs.shapes import ShapeCell  # noqa: E402
+from repro_torch.distributed.checkpoint import \
+    CheckpointManager  # noqa: E402
+from repro_torch.distributed.fault_tolerance import (  # noqa: E402
+    HeartbeatMonitor, HostClock, RestartLoop, StragglerPolicy)
+from repro_torch.launch import dryrun, step_fns  # noqa: E402
+from repro_torch.launch import train as train_mod  # noqa: E402
+from repro_torch.launch.mesh import AbstractMesh  # noqa: E402
 from repro_torch.launch.mesh import make_smoke_mesh  # noqa: E402
 from repro_torch.launch.serve import DecodeServer, Request  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
@@ -381,13 +404,15 @@ SPAN_FLUSH = 512
 N_QUERIES = 1024
 N_SCAN_SAMPLE = 64
 HORIZONS = (None, 1, 8)
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, published peak
-# H100 SXM dense tensor-core rates, published peaks: bf16, and TF32, which
+# H100 SXM published peaks, kept in one place of the port
+# (``launch/dryrun.py``): HBM3; dense tensor-core bf16, and TF32, which
 # the f32 flash kernel runs three times a product (split-TF32, the
-# cheapest way the card has to f32 accuracy)
-BF16_FLOPS_PER_S = 989e12
-TF32_FLOPS_PER_S = 495e12
-F32_FLOPS_PER_S = 67e12  # f32 outside the tensor cores (SIMT FMAs)
+# cheapest way the card has to f32 accuracy); f32 outside the tensor
+# cores (SIMT FMAs)
+HBM_BYTES_PER_S = dryrun.HBM_BYTES_PER_S
+BF16_FLOPS_PER_S = dryrun.BF16_FLOPS_PER_S
+TF32_FLOPS_PER_S = dryrun.TF32_FLOPS_PER_S
+F32_FLOPS_PER_S = dryrun.F32_FLOPS_PER_S
 SEED = 0
 INSERT_REPS = 5
 POOL_REPS = 7
@@ -553,6 +578,18 @@ MOE_TRAIN = dict(arch="kimi_k2_1t_a32b", steps=12, batch_size=2, seq_len=32,
 SHARDED_STEPS = 5
 SHARDED_MOE_STEPS = 2
 SHARDED_CLI_STEPS = 2
+# L11: L8's trainer (its arch, shapes and optimizer) under RestartLoop,
+# RESTART_STEPS steps with a checkpoint every RESTART_CKPT_EVERY and a
+# fault injected once after step RESTART_FAULT_AFTER, against an unbroken
+# run in the same process; the health policies read the run's step times
+# (StragglerPolicy's and HeartbeatMonitor's defaults)
+RESTART_STEPS = 6
+RESTART_CKPT_EVERY = 3
+RESTART_FAULT_AFTER = 4
+# E1: the cell estimator against L8's, L2's and L3's measurements; the memory
+# estimate must fall within this share of the measured peak (fixed in
+# PERF.md before the first card run)
+ESTIMATE_MEMORY_MARGIN = 0.15
 TRAIN_PATH = ("flash_attention_kernel", "flash_attention_backward_kernel")
 MOE_TRAIN_PATH = ("sketch_insert_kernel_sharded", "pool_pass_kernel_sharded",
                   "vertex_scan_kernel_sharded")
@@ -1927,8 +1964,9 @@ def check_prefill_on_the_card(cfg, out) -> None:
 
 def profile_decode(cfg, params, dev, tag, steps: int = 8, serve=None,
                    phase="L3") -> dict:
-    """L3: a profiler trace of ``steps`` decode steps at the server's
-    batch, each ending in the logits' copy to the host as the server's
+    """L3: the peak memory of one decode step at the server's batch (E1
+    holds the estimator to it), then a profiler trace of ``steps`` decode
+    steps, each ending in the logits' copy to the host as the server's
     does: wall and device-kernel time per step (where a step's time
     goes)."""
     from torch.profiler import ProfilerActivity, profile
@@ -1938,6 +1976,9 @@ def profile_decode(cfg, params, dev, tag, steps: int = 8, serve=None,
     caches = lm.init_cache(cfg, B, serve["max_seq"], dev)
     tok = torch.zeros((B, 1), dtype=torch.int32, device=dev)
     lm.serve_step(cfg, params, caches, tok)[0].cpu()  # warm
+    torch.cuda.reset_peak_memory_stats()
+    lm.serve_step(cfg, params, caches, tok)[0].cpu()
+    peak = torch.cuda.max_memory_allocated()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _sync()
@@ -1956,11 +1997,13 @@ def profile_decode(cfg, params, dev, tag, steps: int = 8, serve=None,
     _log(f"{phase} profile of {steps} decode steps at batch {B}: wall "
          f"{1e3 * wall / steps:.3f} ms/step, device kernels {dev_ms / steps:.3f}"
          f" ms/step (busy share {dev_ms / 1e3 / wall:.4f}), "
-         f"{launches / steps:.0f} kernels/step; top by device time "
+         f"{launches / steps:.0f} kernels/step, peak device memory of a "
+         f"step {peak} bytes; top by device time "
          f"(ms/step): " + json.dumps(
              {e.key[:60]: round(e.self_device_time_total / 1e3 / steps, 3)
               for e in top}) + f" {tag}")
-    return dict(decode_profile_wall_ms_per_step=1e3 * wall / steps,
+    return dict(decode_peak_memory_bytes=peak,
+                decode_profile_wall_ms_per_step=1e3 * wall / steps,
                 decode_profile_device_ms_per_step=dev_ms / steps,
                 decode_profile_busy_share=dev_ms / 1e3 / wall)
 
@@ -2538,7 +2581,8 @@ def train_phase(dev, tag) -> dict:
                flash_backward_launches=launches[
                    "flash_attention_backward_kernel"],
                launches=launches,
-               grad_norm_last=stats["metrics"][-1]["grad_norm"], **profiled)
+               grad_norm_last=stats["metrics"][-1]["grad_norm"],
+               step_s=stats["step_s"], **profiled)
     _log(f"L8 train {cfg.name} ({cfg.n_layers} layers, {n_params} "
          f"parameters): {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
          f"tokens in {TRAIN_MICROBATCHES} microbatches in {sec:.1f} s; "
@@ -2838,6 +2882,302 @@ def check_sharded_train_on_the_card(cfg, out) -> None:
             out["flash_backward_launches"] != want:
         raise AssertionError(f"L10: flash launches {out['launches']}; want "
                              f"{want} each")
+
+
+class InjectedFault(RuntimeError):
+    """The fault L11 injects into the trainer."""
+
+
+@contextlib.contextmanager
+def inject_fault(after: int):
+    """While entered, ``launch.train``'s step raises ``InjectedFault`` once,
+    when it is called for the step after step ``after`` (the state has
+    ``after + 1`` steps done). Yields a log: the fault's time and the
+    start time of every step call, the first after the fault's
+    included."""
+    inner = train_mod.make_train_step
+    log = {"fault_t": None, "first_after": None, "calls": []}
+
+    def make(cfg, opt_cfg, microbatches=1):
+        fn = inner(cfg, opt_cfg, microbatches)
+
+        def step(state, batch):
+            t = time.perf_counter()
+            if log["fault_t"] is None and int(state.step) == after + 1:
+                log["fault_t"] = t
+                raise InjectedFault(f"fault injected after step {after}")
+            if log["fault_t"] is not None and log["first_after"] is None:
+                log["first_after"] = t
+            log["calls"].append(t)
+            return fn(state, batch)
+        return step
+
+    train_mod.make_train_step = make
+    try:
+        yield log
+    finally:
+        train_mod.make_train_step = inner
+
+
+class _ReplayClock(HostClock):
+    """A host clock that reads back recorded times."""
+
+    t = 0.0
+
+    def now(self) -> float:
+        return self.t
+
+
+def restart_run(kw: dict, ckpt_dir: str, fault_after: int = None,
+                ckpt_every: int = None) -> dict:
+    """``train(resume=True, **kw)`` under ``RestartLoop`` with a checkpoint
+    every ``ckpt_every`` steps into ``ckpt_dir`` and a fault injected once
+    after step ``fault_after``: the final step, the restarts, each
+    segment's start and step seconds, the losses stitched from the
+    segments (the first segment's up to its restored checkpoint), the
+    seconds of the restart (from the fault to the end of the first step
+    after it) and the step-call times."""
+    fault_after = RESTART_FAULT_AFTER if fault_after is None else fault_after
+    ckpt_every = RESTART_CKPT_EVERY if ckpt_every is None else ckpt_every
+    steps = kw["steps"]
+    segments = []
+    manager = CheckpointManager(ckpt_dir, keep=2)
+
+    def run_fn(start: int) -> int:
+        stats = {}
+        segments.append(dict(start=start, stats=stats))
+        train(**kw, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, resume=True,
+              stats=stats)
+        return steps
+
+    loop = RestartLoop(run_fn, lambda: manager.latest_step() or 0,
+                       max_restarts=1)
+    with inject_fault(fault_after) as log:
+        final = loop.run()
+    losses, step_s = [], []
+    for seg, nxt in zip(segments, segments[1:] + [None]):
+        upto = None if nxt is None else nxt["start"] - seg["start"]
+        losses += [m["loss"] for m in seg["stats"]["metrics"]][:upto]
+        step_s += seg["stats"]["step_s"][:upto]
+    restart_s = None if log["first_after"] is None else \
+        log["first_after"] - log["fault_t"] + \
+        segments[1]["stats"]["step_s"][0]
+    return dict(final_step=final, restarts=loop.restarts,
+                starts=[seg["start"] for seg in segments],
+                segment_losses=[[m["loss"] for m in seg["stats"]["metrics"]]
+                                for seg in segments],
+                losses=losses, step_s=step_s, restart_s=restart_s,
+                call_times=log["calls"], fault_t=log["fault_t"])
+
+
+def health_checks(hosts: dict, beats: list) -> dict:
+    """``StragglerPolicy`` fed each host's step seconds, step by step (the
+    stragglers it names after each), and a one-host ``HeartbeatMonitor``
+    fed ``beats`` (times, on a replay of the run's clock; a sweep after
+    each): what each reported."""
+    pol = StragglerPolicy()
+    flagged = []
+    for i in range(min(len(v) for v in hosts.values())):
+        for h, v in hosts.items():
+            pol.record(h, v[i])
+        flagged.append(pol.stragglers())
+    clock = _ReplayClock()
+    clock.t = beats[0]
+    mon = HeartbeatMonitor(["card0"], clock=clock)
+    sweeps = []
+    for t in beats:
+        clock.t = t
+        mon.beat("card0")
+        sweeps.append(mon.sweep())
+    return dict(stragglers=sorted({h for f in flagged for h in f}),
+                ewma=dict(pol.ewma), suspect=sorted(
+                    {h for sw in sweeps for h in sw["suspect"]}),
+                dead=sorted({h for sw in sweeps for h in sw["dead"]}),
+                beats=len(beats))
+
+
+def restart_phase(dev, tag, l8: dict) -> dict:
+    """L11 (see RESTART_*): an unbroken run, then the crashed one under
+    ``RestartLoop``; its stitched losses must be the unbroken run's bit
+    for bit, its restarted first step the crashed segment's last step
+    bit for bit, one restart, the last step RESTART_STEPS; the health
+    policies fed its step times (beside the unbroken run's and L8's
+    steady ones) report no straggler and no dead host. ``l8``: L8's
+    numbers (its step seconds)."""
+    cfg = configs.get(TRAIN_ARCH, reduced=LM_REDUCED)
+    kw = dict(arch=TRAIN_ARCH, steps=RESTART_STEPS, smoke=LM_REDUCED,
+              batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+              microbatches=TRAIN_MICROBATCHES, log_every=100, seed=SEED,
+              lr_peak=TRAIN_LR, device=dev)
+    _free_card()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-restart-") as tmp:
+        stats = {}
+        (unbroken, u_sec), u_launches = count_launches((), lambda: _timed(
+            lambda: train(**kw, ckpt_dir=os.path.join(tmp, "unbroken"),
+                          ckpt_every=0, stats=stats)))
+        u_step_s = stats["step_s"]
+        del stats
+        _free_card()
+        (run, sec), launches = count_launches((), lambda: _timed(
+            lambda: restart_run(kw, os.path.join(tmp, "crash"))))
+    _free_card()
+    seg = run["segment_losses"]
+    same_step = len(seg) > 1 and seg[0][RESTART_FAULT_AFTER] == seg[1][0]
+    beats = [t - run["call_times"][0] for t in run["call_times"]]
+    health = health_checks({"unbroken": u_step_s, "restarted": run["step_s"],
+                            "L8": l8["step_s"][1:]}, beats)
+    out = dict(steps=RESTART_STEPS, ckpt_every=RESTART_CKPT_EVERY,
+               fault_after=RESTART_FAULT_AFTER, unbroken_losses=unbroken,
+               unbroken_seconds=u_sec, seconds=sec,
+               losses_equal=run["losses"] == unbroken,
+               restarted_step_equal=same_step, health=health,
+               **{k: run[k] for k in ("final_step", "restarts", "starts",
+                                      "losses", "segment_losses",
+                                      "restart_s", "step_s")},
+               unbroken_step_s=u_step_s,
+               flash_forward_launches=launches["flash_attention_kernel"] +
+               u_launches["flash_attention_kernel"],
+               flash_backward_launches=launches[
+                   "flash_attention_backward_kernel"] +
+               u_launches["flash_attention_backward_kernel"],
+               launches={k: launches[k] + u_launches[k] for k in launches})
+    _log(f"L11 crash and restore of {cfg.name} ({TRAIN_BATCH} x {TRAIN_SEQ} "
+         f"in {TRAIN_MICROBATCHES} microbatches): unbroken {RESTART_STEPS} "
+         f"steps in {u_sec:.1f} s; under RestartLoop a checkpoint every "
+         f"{RESTART_CKPT_EVERY} steps, a fault after step "
+         f"{RESTART_FAULT_AFTER}: {run['restarts']} restart, segments from "
+         f"steps {run['starts']}, final step {run['final_step']} in "
+         f"{sec:.1f} s; restart (restore and the first step after it) "
+         f"{run['restart_s']:.3f} s; stitched losses "
+         f"{'equal' if out['losses_equal'] else 'differ from'} the "
+         f"unbroken run's bit for bit ({run['losses']} vs {unbroken}); the "
+         f"restored step {RESTART_FAULT_AFTER} "
+         f"{'repeats' if same_step else 'differs from'} the crashed one's "
+         f"loss bit for bit; StragglerPolicy stragglers {health['stragglers']}"
+         f" (EWMA s {json.dumps(health['ewma'])}), HeartbeatMonitor over "
+         f"{health['beats']} beats suspect {health['suspect']} dead "
+         f"{health['dead']}; flash launches forward "
+         f"{out['flash_forward_launches']}, backward "
+         f"{out['flash_backward_launches']} {tag}")
+    if not (out["losses_equal"] and same_step and run["restarts"] == 1
+            and run["final_step"] == RESTART_STEPS
+            and run["starts"] == [0, RESTART_FAULT_AFTER]
+            and not health["stragglers"] and not health["dead"]):
+        raise AssertionError("L11: the restarted run differs from the "
+                             "unbroken one, or the health policies flagged "
+                             "a host")
+    return out
+
+
+def check_restart_on_the_card(cfg, out) -> None:
+    """L11's launch check, which only the card can make: one forward and
+    one backward flash launch a global layer a microbatch for every step
+    run (the unbroken run's, the crashed segment's and the restarted
+    one's)."""
+    steps = 2 * RESTART_STEPS + 1  # the crashed segment ran one step twice
+    want = n_flash_layers(cfg) * TRAIN_MICROBATCHES * steps
+    if out["flash_forward_launches"] != want or \
+            out["flash_backward_launches"] != want:
+        raise AssertionError(f"L11: flash launches {out['launches']}; want "
+                             f"{want} each")
+
+
+def estimate_phase(l8: dict, l2: dict, tag) -> dict:
+    """E1: the cell estimator (``launch.dryrun.estimate``, on the host's
+    meta tensors) at L8's cell (a 1 x 1 mesh), L2's prefill and L3's
+    decode step (``l2`` holds L2's and L3's measurements), beside their
+    measurements in this run: the peak memory against the estimate's (it
+    must fall within ESTIMATE_MEMORY_MARGIN) and its split, the FLOPs
+    against the run's own counts, L8's ms a step against the roofline's
+    lower bound."""
+    mesh = AbstractMesh((1, 1), ("data", "model"))
+    cfg = configs.get(TRAIN_ARCH, reduced=LM_REDUCED)
+    opt = AdamWConfig(lr_peak=TRAIN_LR, warmup_steps=max(2, TRAIN_STEPS // 20),
+                      decay_steps=TRAIN_STEPS)
+    tr = dryrun.estimate(cfg, ShapeCell("l8", TRAIN_SEQ, TRAIN_BATCH,
+                                        "train"), mesh, TRAIN_MICROBATCHES,
+                         opt)
+    qcfg = configs.get(LM_ARCH, reduced=LM_REDUCED)
+    pf = dryrun.estimate(qcfg, ShapeCell("l2", PREFILL_LEN, 1, "prefill"),
+                         mesh)
+    B = SERVE["batch_slots"]
+    dc = dryrun.estimate(qcfg, ShapeCell("l3", SERVE["max_seq"], B,
+                                         "decode"), mesh)
+    # a decode step's weight products: every weight but the input table
+    # once a row (the attention over the cache comes on top)
+    weight_flops = 2 * B * (qcfg.param_count() -
+                            qcfg.vocab_size * qcfg.d_model)
+    rl = tr["roofline"]
+    bound_ms = 1e3 * max(rl["compute_s"], rl["memory_s"],
+                         rl["collective_s"])
+    tf = tr["flops_per_device"]
+    useful = tf["matmul"] + 3 * tf["flash_forward"]
+    out = dict(
+        train=dict(
+            measured_peak_bytes=l8["peak_memory_bytes"],
+            estimate_peak_bytes=tr["memory"]["peak_bytes"],
+            peak_rel_err=tr["memory"]["peak_bytes"] /
+            l8["peak_memory_bytes"] - 1,
+            split=tr["memory_split"], flops=tf,
+            useful_flops=useful, l8_model_flops=l8["model_flops_per_step"],
+            flops_rel_err=useful / l8["model_flops_per_step"] - 1,
+            step_ms=l8["step_ms"], bound_ms=bound_ms,
+            bound_share=bound_ms / l8["step_ms"], roofline=rl,
+            estimate_s=tr["estimate_s"]),
+        prefill=dict(
+            measured_peak_bytes=l2["lm_peak_memory_bytes"],
+            estimate_peak_bytes=pf["memory"]["peak_bytes"],
+            peak_rel_err=pf["memory"]["peak_bytes"] /
+            l2["lm_peak_memory_bytes"] - 1,
+            split=pf["memory_split"], flops=pf["flops_per_device"],
+            matmul_rel_err=pf["flops_per_device"]["matmul"] /
+            l2["prefill_matmul_flops"] - 1,
+            attention_rel_err=pf["flops_per_device"]["flash_forward"] /
+            l2["prefill_attention_flops"] - 1,
+            estimate_s=pf["estimate_s"]),
+        decode=dict(
+            measured_peak_bytes=l2["decode_peak_memory_bytes"],
+            estimate_peak_bytes=dc["memory"]["peak_bytes"],
+            peak_rel_err=dc["memory"]["peak_bytes"] /
+            l2["decode_peak_memory_bytes"] - 1,
+            split=dc["memory_split"], flops=dc["flops_per_device"],
+            weight_flops=weight_flops,
+            matmul_over_weight_flops=dc["flops_per_device"]["matmul"] /
+            weight_flops,
+            estimate_s=dc["estimate_s"]),
+        margin=ESTIMATE_MEMORY_MARGIN)
+    t, p, d = out["train"], out["prefill"], out["decode"]
+    _log(f"E1 estimator at L8's cell ({cfg.name}, {TRAIN_BATCH} x "
+         f"{TRAIN_SEQ}, {TRAIN_MICROBATCHES} microbatches, 1 x 1): peak "
+         f"{t['estimate_peak_bytes']} bytes against the measured "
+         f"{t['measured_peak_bytes']} ({t['peak_rel_err']:+.4%}; margin "
+         f"{ESTIMATE_MEMORY_MARGIN:.0%}), split {json.dumps(t['split'])}; "
+         f"FLOPs a step {tf['matmul']} matmul + 3 x {tf['flash_forward']} "
+         f"flash forward = {useful} against L8's {t['l8_model_flops']} "
+         f"({t['flops_rel_err']:+.4%}); roofline bound {bound_ms:.1f} ms "
+         f"({rl['dominant']}) against the measured {t['step_ms']:.1f} ms a "
+         f"step ({t['bound_share']:.3f}); estimated in "
+         f"{t['estimate_s']:.1f} s {tag}")
+    _log(f"E1 estimator at L2's prefill ({qcfg.name}, {PREFILL_LEN} "
+         f"tokens): peak {p['estimate_peak_bytes']} bytes against the "
+         f"measured {p['measured_peak_bytes']} ({p['peak_rel_err']:+.4%}), "
+         f"split {json.dumps(p['split'])}; FLOPs matmul "
+         f"{p['flops']['matmul']} ({p['matmul_rel_err']:+.4%} of L2's), "
+         f"flash {p['flops']['flash_forward']} "
+         f"({p['attention_rel_err']:+.4%}) {tag}")
+    _log(f"E1 estimator at L3's decode step ({qcfg.name}, {B} slots x "
+         f"{SERVE['max_seq']} positions): peak {d['estimate_peak_bytes']} "
+         f"bytes against the measured {d['measured_peak_bytes']} "
+         f"({d['peak_rel_err']:+.4%}), split {json.dumps(d['split'])}; "
+         f"FLOPs matmul {d['flops']['matmul']}, "
+         f"{d['matmul_over_weight_flops']:.4f} of the weights' "
+         f"{weight_flops} {tag}")
+    if not all(abs(x["peak_rel_err"]) <= ESTIMATE_MEMORY_MARGIN
+               for x in (t, p, d)):
+        raise AssertionError(f"E1: a memory estimate falls outside "
+                             f"{ESTIMATE_MEMORY_MARGIN:.0%} of the "
+                             f"measured peak")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -5341,8 +5681,13 @@ def main() -> int:
     sharded_out = sharded_train_phase(dev, tag, train_out)  # L10
     check_sharded_train_on_the_card(
         configs.get(TRAIN_ARCH, reduced=LM_REDUCED), sharded_out)
+    restart_out = restart_phase(dev, tag, train_out)  # L11
+    check_restart_on_the_card(configs.get(TRAIN_ARCH, reduced=LM_REDUCED),
+                              restart_out)
+    estimate_out = estimate_phase(train_out, lm_out, tag)  # E1
     train_paths = {"L8": train_out["launches"], "L9": moe_out["launches"],
-                   "L10": sharded_out["launches"]}
+                   "L10": sharded_out["launches"],
+                   "L11": restart_out["launches"]}
 
     seconds = time.perf_counter() - t_start
     _log(f"total {seconds:.1f} s")
@@ -5359,6 +5704,7 @@ def main() -> int:
                       **profile, **lm_out, "archs": arch_out,
                       "train": train_out, "moe_train": moe_out,
                       "sharded_train": sharded_out,
+                      "restart": restart_out, "estimate": estimate_out,
                       "seconds": seconds}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

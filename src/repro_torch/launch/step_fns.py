@@ -320,23 +320,43 @@ def _norm_of_shards(grads: dict, placements: dict, mesh) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+class _DTensorLeaves:
+    """How the sharded step reads a leaf of its state: a ``DTensor``'s
+    gather to the full value, its local shard and its placements."""
+
+    @staticmethod
+    def full(name: str, leaf):
+        return leaf.full_tensor()
+
+    @staticmethod
+    def local(leaf):
+        return leaf.to_local()
+
+    @staticmethod
+    def placements(name: str, leaf):
+        return leaf.placements
+
+
 def make_sharded_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh,
-                            microbatches: int = 1):
+                            microbatches: int = 1, _leaves=_DTensorLeaves):
     """f(state, batch) -> (state, metrics) over ``mesh`` (a ``DeviceMesh``
     over every rank of the group): ``state`` from ``shard_state``,
     ``batch`` this rank's rows (``local_rows``). The metrics are the
-    global ones, the same on every rank."""
+    global ones, the same on every rank. ``_leaves`` is a seam for the
+    cell estimator alone (``launch.dryrun`` passes meta shards whose
+    gathers it records); every other caller leaves it as it is."""
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         with use_sharding_ctx(mesh) as ctx:
             shards = dict(state.params.named_parameters())
             with torch.no_grad():
-                full = {k: p.full_tensor() for k, p in shards.items()}
+                full = {k: _leaves.full(k, p) for k, p in shards.items()}
             params = lm.params_from_leaves(cfg, full).requires_grad_(True)
             del full
             loss, aux, grads = _accumulate(cfg, params, batch, microbatches)
             del params
-            placements = {k: p.placements for k, p in shards.items()}
+            placements = {k: _leaves.placements(k, p)
+                          for k, p in shards.items()}
             local = {}
             for k in shards:  # the data ranks' shares, then this shard
                 g = grads.pop(k)
@@ -346,10 +366,10 @@ def make_sharded_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh,
             gnorm = _norm_of_shards(local, placements, mesh)
             with torch.no_grad():
                 _, opt, stats = apply_updates(
-                    opt_cfg, {k: p.to_local() for k, p in shards.items()},
-                    local, {"mu": {k: v.to_local()
+                    opt_cfg, {k: _leaves.local(p) for k, p in shards.items()},
+                    local, {"mu": {k: _leaves.local(v)
                                    for k, v in state.opt["mu"].items()},
-                            "nu": {k: v.to_local()
+                            "nu": {k: _leaves.local(v)
                                    for k, v in state.opt["nu"].items()},
                             "step": state.opt["step"]}, grad_norm=gnorm)
             del local

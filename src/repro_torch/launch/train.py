@@ -12,8 +12,16 @@ Wiring per step, with the reference's cadence:
   4. ``CheckpointManager.save`` (async) every ``ckpt_every`` steps and a
      blocking save at the end: the train state under its dotted leaf
      names (``step_fns.state_leaves``) and the pipeline cursor, so
-     ``resume`` continues exactly. The pipeline is built after the
-     restore, as its worker captures its cursor when it starts.
+     ``resume`` continues exactly. A checkpoint's step is the number of
+     steps done (the reference labels its periodic saves one lower, so
+     that a resume from one repeats a step), and a save still in flight
+     commits before ``train`` returns or raises. The pipeline is built
+     after the restore, as its worker captures its cursor when it
+     starts.
+
+Crash-only training wraps ``train(resume=True, ...)`` in
+``distributed.fault_tolerance.RestartLoop`` (its docstring); a resize of
+the mesh is ``distributed.elastic.remesh``.
 
 Runs on the card unless the caller passes ``device="cpu"`` (CLI
 ``--device cpu``); the telemetry sketch lives on the same device.
@@ -159,7 +167,9 @@ def train(arch: str = "smollm-135m", steps: int = 100, smoke: bool = True,
                     stats["cf"].append(capacity_factor)
 
             if ckpt_every and step and step % ckpt_every == 0:
-                save(step, blocking=False)
+                # labelled by the steps done, as the final save: a resume
+                # from it continues with the next step, not this one again
+                save(step + 1, blocking=False)
             if step % log_every == 0 and lead:
                 dt = time.time() - t0
                 extra = ""
@@ -173,6 +183,12 @@ def train(arch: str = "smollm-135m", steps: int = 100, smoke: bool = True,
             dist.barrier()
         if stats is not None:
             stats["state"] = state
+    except BaseException as fault:
+        try:  # drain: a save in flight commits before the fault leaves
+            ckpt.wait()
+        except BaseException as drain:  # the fault, not the drain's, leaves
+            fault.add_note(f"the checkpoint drain failed too: {drain!r}")
+        raise
     finally:
         pipe.close()
     return losses

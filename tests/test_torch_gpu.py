@@ -1643,3 +1643,40 @@ def test_cuda_sharded_train_steps_match_unsharded(no_tf32, nccl_world1,
         n_moe = sum(p.mlp == "moe" for p in
                     step_fns.lm.plans(cfg)[0].layers)
         assert len(gathers) >= 2 * 2 * n_moe
+
+
+@pytest.mark.gpu
+def test_cuda_trainer_restarts_from_its_checkpoint(no_tf32, monkeypatch,
+                                                   tmp_path):
+    """``chip_smoke``'s L11 at SmolLM-135M's reduced config on the card:
+    ``train(resume=True)`` under ``RestartLoop``, a checkpoint every 3
+    steps and a fault after step 4: one restart from step 4, the last
+    step 6, the losses an unbroken run's bit for bit, and one flash
+    forward and backward launch a layer and microbatch for each of the 7
+    steps the crashed run took."""
+    _need_card()
+    from pathlib import Path
+
+    from repro_torch import configs
+    from repro_torch.launch.train import train
+
+    monkeypatch.syspath_prepend(str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    kw = dict(arch="smollm_135m", steps=6, smoke=True, batch_size=2,
+              seq_len=64, microbatches=2, log_every=100, seed=0,
+              lr_peak=1e-3, device="cuda")
+    unbroken = train(**kw, ckpt_dir=str(tmp_path / "unbroken"),
+                     ckpt_every=0)
+    f0 = flash_attention_kernel.launches
+    b0 = flash_attention_backward_kernel.launches
+    run = chip_smoke.restart_run(kw, str(tmp_path / "crash"), fault_after=4,
+                                 ckpt_every=3)
+    assert run["final_step"] == 6 and run["restarts"] == 1
+    assert run["starts"] == [0, 4]
+    assert run["losses"] == unbroken
+    assert run["segment_losses"][0][4] == run["segment_losses"][1][0]
+    n = chip_smoke.n_flash_layers(configs.get("smollm_135m", reduced=True))
+    want = n * 2 * 7
+    assert (flash_attention_kernel.launches - f0,
+            flash_attention_backward_kernel.launches - b0) == (want, want)

@@ -40,12 +40,16 @@ def test_port_and_chip_smoke_import_neither_jax_nor_repro():
     assert n_mods >= 50
 
 
-# the sharding slice's modules, each held alone in a fresh interpreter
+# the sharding slice's modules, and the fault tolerance, elasticity and
+# cell estimator's, each held alone in a fresh interpreter
 SHARDING_MODULES = ("repro_torch.launch.mesh", "repro_torch.launch.shardings",
                     "repro_torch.distributed.sharding_ctx")
+ELASTIC_MODULES = ("repro_torch.distributed.fault_tolerance",
+                   "repro_torch.distributed.elastic",
+                   "repro_torch.launch.dryrun", "repro_torch.launch.perf_iter")
 
 
-@pytest.mark.parametrize("module", SHARDING_MODULES)
+@pytest.mark.parametrize("module", SHARDING_MODULES + ELASTIC_MODULES)
 def test_sharding_modules_import_neither_jax_nor_repro(module):
     code = (f"import importlib, sys; importlib.import_module({module!r}); "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -258,11 +258,30 @@ Phases (any failure raises, so the exit code is non-zero):
      and ``HeartbeatMonitor`` the restarted run's step starts report no
      straggler and no dead host; one forward and one backward flash
      launch a layer a microbatch for each step run;
+  L12. tensor parallelism over "model" on this one card
+     (``step_fns.make_sharded_train_step`` with several model ranks,
+     ``sharded_grads``): SmolLM-135M at full width and depth, TP_STEPS
+     steps of TP_BATCH x TP_SEQ on each mesh of TP_MESHES, the model
+     ranks as spawned processes sharing the card over a gloo group with
+     CUDA tensors (NCCL takes one card a rank; gloo stages them through
+     host memory): at 1 x 3 every rank runs 3 of the 9 heads, at 1 x 2
+     the "sp" fallback runs each rank's 1,024 query rows at its
+     ``q_offset``. Each mesh from L8's seed against the one-device
+     gradient of the same state and batch (loss, gradient norm and every
+     rank's gradient shards within TRAIN_REL of each leaf's largest
+     magnitude); each rank's flash calls on its local shapes, one
+     forward and one backward launch a layer a step; step ms, rank 0's
+     peak memory and its collectives' calls and bytes; then, in this
+     process, the flash forward (out and lse) and backward pair at every
+     call shape and ``q_offset`` L12's ranks launch, against the plain
+     versions on the same card tensors at L1's and L7's tolerances
+     (``check_flash_tp_rows``; rows "L12 ..." in the two kernels' cases);
   E1. the cell estimator (``launch.dryrun.estimate``, on the host's meta
-     tensors) at L8's cell, L2's prefill and L3's decode step against
-     their measurements in this run: the peak memory within
-     ESTIMATE_MEMORY_MARGIN and its split, the FLOPs against the run's
-     own counts, L8's ms a step against the roofline's bound;
+     tensors) at L8's cell, L2's prefill, L3's decode step and L12's
+     1 x 3 cell (rank 0) against their measurements in this run: the
+     peak memory within ESTIMATE_MEMORY_MARGIN and its split, the FLOPs
+     against the run's own counts, L8's ms a step against the roofline's
+     bound;
   8. one JSON line of the kernels and the end-to-end numbers, the card
      line, and the result line.
 
@@ -279,7 +298,8 @@ T1-T3; the grouped rows' launches), the object path (phase O, before its
 comparisons; the single-sketch rows' launches) and the prefill (L2, the
 kernel forward); the trainer (L8, the flash forward and backward) and
 the MoE trainer (L9, the telemetry's kernels), the sharded trainer
-(L10) and the restarted trainer (L11, with its unbroken twin) each count
+(L10), the restarted trainer (L11, with its unbroken twin) and the
+tensor-parallel trainer (L12, every rank's launches summed) each count
 from 0 too, in every row's ``launches_train``. Each kernel's
 ``launches`` in the JSON line is from the path it was ported for (the
 flash backward's from L8).
@@ -355,7 +375,9 @@ from repro_torch.kernels.vertex_scan.ops import (  # noqa: E402
     pool_lookup, scan_lines, vertex_query_pallas)
 from repro_torch.data.tokens import (DEFAULT_BAND_VOCAB,  # noqa: E402
                                      SyntheticCorpus, TokenPipelineConfig)
-from repro_torch.distributed.ranks import backend_for, init_group  # noqa
+from repro_torch.distributed.ranks import (backend_for,  # noqa: E402
+                                           init_group, spawn_ranks)
+from repro_torch.distributed.sharding_ctx import local_slice  # noqa: E402
 from repro_torch.telemetry import (CapacityController,  # noqa: E402
                                    RouterTelemetry)
 from repro_torch.configs.shapes import ShapeCell  # noqa: E402
@@ -586,6 +608,18 @@ SHARDED_CLI_STEPS = 2
 RESTART_STEPS = 6
 RESTART_CKPT_EVERY = 3
 RESTART_FAULT_AFTER = 4
+# L12: tensor parallelism over "model" on this one card: the model ranks as
+# processes sharing it over a gloo group with CUDA tensors (NCCL takes one
+# card a rank). SmolLM-135M at full width and depth (L8's arch and seed),
+# TP_STEPS steps of TP_BATCH x TP_SEQ on each mesh of TP_MESHES (9 heads on
+# 3 ranks: head-parallel; on 2: the "sp" fallback at q_offset 0 and 1024),
+# held to the one-device step from one state and batch (TRAIN_REL: loss,
+# gradient norm and every gradient leaf against its largest magnitude)
+TP_MESHES = ((1, 3), (1, 2))
+TP_BATCH, TP_SEQ, TP_STEPS = 2, 2048, 2
+# the flash forward's lse against the plain version's at L12's call shapes:
+# max |d| (f32 sums in another order move it ~1e-6)
+TP_LSE_TOL = 1e-5
 # E1: the cell estimator against L8's, L2's and L3's measurements; the memory
 # estimate must fall within this share of the measured peak (fixed in
 # PERF.md before the first card run)
@@ -3082,10 +3116,321 @@ def check_restart_on_the_card(cfg, out) -> None:
                              f"{want} each")
 
 
-def estimate_phase(l8: dict, l2: dict, tag) -> dict:
+class TpCommLog:
+    """While entered, counts every ``torch.distributed`` ``all_reduce`` and
+    ``all_gather`` call of this process, their result bytes and the host
+    seconds inside them (a gloo call returns when its result has landed
+    on the card)."""
+
+    NAMES = ("all_reduce", "all_gather")
+
+    def __enter__(self):
+        self.calls = {n: 0 for n in self.NAMES}
+        self.bytes = {n: 0 for n in self.NAMES}
+        self.seconds = {n: 0.0 for n in self.NAMES}
+        self.saved = {n: getattr(dist, n) for n in self.NAMES}
+        for n, fn in self.saved.items():
+            setattr(dist, n, self._wrap(n, fn))
+        return self
+
+    def _wrap(self, name, fn):
+        def call(out, *args, **kw):
+            self.calls[name] += 1
+            self.bytes[name] += sum(t.numel() * t.element_size() for t in (
+                out if isinstance(out, (list, tuple)) else [out]))
+            t0 = time.perf_counter()
+            try:
+                return fn(out, *args, **kw)
+            finally:
+                self.seconds[name] += time.perf_counter() - t0
+        return call
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(dist, n, fn)
+
+    def summary(self) -> dict:
+        return {n: dict(calls=self.calls[n], bytes=self.bytes[n],
+                        seconds=self.seconds[n]) for n in self.NAMES}
+
+
+def tp_rank_body(shape, dev_type: str, run: dict) -> dict:
+    """One model rank of L12 (``spawn_ranks``, a gloo group): the split
+    step's gradient from the seeded state (its flash calls noted), then
+    ``run["steps"]`` timed split steps with the flash launches counted and
+    the collectives logged, then the one-device gradient of the same state
+    and batch to hold this rank's shards to. ``run``: the arch, whether
+    reduced, batch, seq and steps (the module's settings: a spawned rank
+    imports this script afresh). Every rank's numbers, gathered."""
+    dev = torch.device(dev_type)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(0)
+        build.load_library()
+    cfg = configs.get(run["arch"], reduced=run["reduced"])
+    opt = AdamWConfig(lr_peak=TRAIN_LR, warmup_steps=2, decay_steps=10,
+                      eps=1e-3)
+    mesh = make_smoke_mesh(*shape, dev.type)
+    rank = dist.get_rank()
+    rng = np.random.default_rng(SEED + 12)
+    batches = [{k: torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (run["batch"], run["seq"]),
+        dtype=np.int32)).to(dev) for k in ("tokens", "labels")}
+        for _ in range(run["steps"])]
+
+    def initial():
+        return step_fns.init_train_state(
+            cfg, opt, torch.Generator().manual_seed(SEED), dev)
+
+    state = step_fns.shard_state(cfg, opt, initial(), mesh)
+    placements = {k: p.placements for k, p in state.params.named_parameters()}
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    calls = []
+    fwd = flash_ops.flash_attention_kernel
+
+    def noted(q, k, v, causal=True, lse=False, q_offset=0):
+        calls.append((tuple(q.shape), tuple(k.shape), int(q_offset)))
+        return fwd(q, k, v, causal, lse, q_offset)
+
+    flash_ops.flash_attention_kernel = noted
+    try:  # the check's gradient, and the warm-up
+        loss, _, grads = step_fns.sharded_grads(cfg, state, batches[0], mesh)
+    finally:
+        flash_ops.flash_attention_kernel = fwd
+    loss = float(loss)
+    held = sum(g.numel() * g.element_size() for g in grads.values())
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    step = step_fns.make_sharded_train_step(cfg, opt, mesh)
+    times, metrics = [], []
+
+    def steps():
+        nonlocal state
+        for b in batches:
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            metrics.append({k: float(v) for k, v in m.items()})
+            times.append(time.perf_counter() - t0)
+
+    with TpCommLog() as comm:
+        _, launches = count_launches((), steps)
+    peak = torch.cuda.max_memory_allocated() - held if cuda else 0
+    del state
+    gc.collect()
+
+    plain = initial()  # the one-device gradient of the same state and batch
+    loss_p, _, want = step_fns._grads(cfg, plain.params, batches[0])
+    del plain
+    gnorm = float(torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                 for g in want.values())))
+    err = max(float((grads[k] - local_slice(w, placements[k], mesh)).abs()
+                    .max()) / max(float(w.abs().max()), 1e-30)
+              for k, w in want.items())
+    mine = dict(rank=rank, flash_calls=calls, launches=launches,
+                step_s=times, peak_bytes=peak, grad_err=err,
+                collectives=comm.summary())
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    del grads, want
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return dict(ranks=every, loss=loss, loss_plain=float(loss_p),
+                metrics=metrics, grad_norm_plain=gnorm,
+                backend=dist.get_backend())
+
+
+def tp_expected_calls(cfg, shape, batch: int, seq: int) -> list:
+    """The flash calls each rank of ``shape`` makes in one forward: the
+    head-parallel layers on ``[B, H/tp, L, dh]`` (the KV heads its query
+    heads read), the "sp" fallback on ``[B, H, L/tp, dh]`` at
+    ``q_offset = r L/tp``; by rank."""
+    tp = shape[1]
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    n = n_flash_layers(cfg)
+    out = []
+    for r in range(shape[0] * tp):
+        if H % tp == 0:
+            # the KV heads the rank reads, whole per query head where its
+            # query heads do not group over them
+            _, kv, idx = tattn._kv_heads(cfg, tp, r % tp)
+            kv = kv if idx is None else H // tp
+            call = ((batch, H // tp, seq, dh), (batch, kv, seq, dh), 0)
+        else:
+            call = ((batch, H, seq // tp, dh), (batch, KV, seq, dh),
+                    (r % tp) * seq // tp)
+        out.append([call] * n)
+    return out
+
+
+def tp_phase(dev, tag, run: dict | None = None) -> dict:
+    """L12 (see TP_*): each mesh of TP_MESHES as gloo ranks on this card
+    (``tp_rank_body``), against the one-device step; step times, rank 0's
+    peak memory, the collectives' counts and bytes and every rank's flash
+    launches and shapes."""
+    run = run or dict(arch=TRAIN_ARCH, reduced=LM_REDUCED, batch=TP_BATCH,
+                      seq=TP_SEQ, steps=TP_STEPS)
+    cfg = configs.get(run["arch"], reduced=run["reduced"])
+    out, bad = {}, []
+    total = {n: 0 for n in WRAPPERS}
+    for shape in TP_MESHES:
+        world = shape[0] * shape[1]
+        tmp = tempfile.mkdtemp(prefix="phase-l12-")
+        t0 = time.perf_counter()
+        try:
+            res = spawn_ranks(tp_rank_body, world, device=dev,
+                              backend="gloo", init_file=os.path.join(
+                                  tmp, "rendezvous"),
+                              args=(shape, dev.type, run))
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        sec = time.perf_counter() - t0
+        want_calls = tp_expected_calls(cfg, shape, run["batch"], run["seq"])
+        got_calls = [r["flash_calls"] for r in res["ranks"]]
+        m0 = res["metrics"][0]
+        loss_rel = abs(res["loss"] - res["loss_plain"]) / abs(
+            res["loss_plain"])
+        step_loss_rel = abs(m0["loss"] - res["loss_plain"]) / abs(
+            res["loss_plain"])
+        gnorm_rel = abs(m0["grad_norm"] - res["grad_norm_plain"]) / abs(
+            res["grad_norm_plain"])
+        grad_err = max(r["grad_err"] for r in res["ranks"])
+        r0 = res["ranks"][0]
+        step_ms = [1e3 * t for t in r0["step_s"]]
+        launches = [{k: r["launches"][k] for k in TRAIN_PATH}
+                    for r in res["ranks"]]
+        for r in res["ranks"]:
+            for n, c in r["launches"].items():
+                total[n] += c
+        name = "x".join(map(str, shape))
+        out[name] = dict(
+            mesh=list(shape), seconds=sec, backend=res["backend"],
+            staging="gloo stages CUDA tensors through host memory",
+            loss=res["loss"], loss_plain=res["loss_plain"],
+            loss_rel=loss_rel, step_loss_rel=step_loss_rel,
+            grad_norm_rel=gnorm_rel, grad_rel_err=grad_err,
+            step_ms=step_ms, peak_memory_bytes=r0["peak_bytes"],
+            collectives=r0["collectives"], launches=launches,
+            flash_calls_match=got_calls == want_calls,
+            flash_call_shapes=sorted({c for r in got_calls for c in r}))
+        _log(f"L12 {cfg.name} tensor parallel on a {name} mesh ({world} "
+             f"ranks as processes on this card, {res['backend']} group, "
+             f"collectives staged through host memory by gloo): "
+             f"{run['steps']} steps of {run['batch']} x {run['seq']}, "
+             f"step ms {[round(t, 1) for t in step_ms]} (rank 0), spawned "
+             f"and run in {sec:.1f} s; loss {res['loss']:.6f} against the "
+             f"one-device {res['loss_plain']:.6f} (rel {loss_rel:.3g}, the "
+             f"step's {step_loss_rel:.3g}), grad_norm rel {gnorm_rel:.3g}, "
+             f"every gradient leaf within {grad_err:.3g} of its largest "
+             f"magnitude (tolerance {TRAIN_REL}); rank 0's peak device "
+             f"memory {r0['peak_bytes']} bytes; rank 0's collectives a run "
+             f"{json.dumps(r0['collectives'])} {tag}")
+        _log(f"L12 {name} flash launches by rank (forward, backward): "
+             f"{[(x['flash_attention_kernel'], x['flash_attention_backward_kernel']) for x in launches]}; "  # noqa: E501
+             f"call shapes (q, k, q_offset) {out[name]['flash_call_shapes']}"
+             f" ({'as' if out[name]['flash_calls_match'] else 'NOT as'} "
+             f"the split asks) {tag}")
+        if max(loss_rel, step_loss_rel, gnorm_rel, grad_err) > TRAIN_REL \
+                or not out[name]["flash_calls_match"]:
+            bad.append(name)
+    out["launches"] = total
+    if bad:
+        raise AssertionError(f"L12: the split step differs from the "
+                             f"one-device step, or its flash calls from "
+                             f"the split's shapes, on {bad}")
+    return out
+
+
+def check_tp_on_the_card(cfg, out, steps: int = TP_STEPS) -> None:
+    """L12's launch check, which only the card can make: every rank launched
+    one forward and one backward flash kernel a global layer a step."""
+    want = n_flash_layers(cfg) * steps
+    for shape in TP_MESHES:
+        got = out["x".join(map(str, shape))]["launches"]
+        if any(x[k] != want for x in got for k in TRAIN_PATH):
+            raise AssertionError(f"L12: flash launches {got}; want {want} "
+                                 f"each a rank")
+
+
+def check_flash_tp_rows(dev, tag) -> dict:
+    """L12's kernel rows: the flash forward (out and lse) and backward pair
+    at every distinct (q shape, k shape, q_offset) L12's ranks launch
+    (``tp_expected_calls`` over TP_MESHES), f32 as the trainer runs them,
+    against ``flash_attention_plain`` and ``flash_attention_backward_plain``
+    on the same card tensors (the backward from the forward's own out and
+    lse): out at L1's tolerance (``flash_check``), lse within TP_LSE_TOL,
+    dq, dk and dv at L7's (``FLASH_BWD_TOL``); CUDA-event medians of each.
+    Raises on any mismatch."""
+    cfg = configs.get(TRAIN_ARCH, reduced=LM_REDUCED)
+    calls = []
+    for shape in TP_MESHES:
+        for rank in tp_expected_calls(cfg, shape, TP_BATCH, TP_SEQ):
+            calls += [c for c in dict.fromkeys(rank) if c not in calls]
+    fwd, bwd = [], []
+    for qs, ks, off in calls:
+        rng = np.random.default_rng(SEED + qs[1] + qs[2] + off)
+        q, k, v, do = [torch.from_numpy(rng.standard_normal(
+            s, dtype=np.float32)).to(dev) for s in (qs, ks, ks, qs)]
+        out, lse = flash_attention_kernel(q, k, v, True, lse=True,
+                                          q_offset=off)
+        want, lse_p = flash_attention_plain(q, k, v, True, lse=True,
+                                            q_offset=off)
+        got = flash_attention_backward_kernel(q, k, v, out, lse, do, True,
+                                              off)
+        wgrad = flash_attention_backward_plain(q, k, v, out, lse, do, True,
+                                               off)
+        _sync()
+        err, n_bad, tol = flash_check(out, want)
+        lse_err = float((lse - lse_p).abs().max())
+        n_lse = int(((lse - lse_p).abs() >= TP_LSE_TOL).sum())
+        errs = flash_bwd_errors(got, wgrad)
+        b_err = max(float((a - b).abs().max()) for a, b in zip(got, wgrad))
+        del want, lse_p, got, wgrad
+        times = {name: float(np.median(event_times(fn, FLASH_BWD_REPS)))
+                 for name, fn in (
+                     ("ms", lambda: flash_attention_kernel(
+                         q, k, v, True, lse=True, q_offset=off)),
+                     ("plain_ms", lambda: flash_attention_plain(
+                         q, k, v, True, lse=True, q_offset=off)),
+                     ("bwd_ms", lambda: flash_attention_backward_kernel(
+                         q, k, v, out, lse, do, True, off)),
+                     ("bwd_plain_ms", lambda: flash_attention_backward_plain(
+                         q, k, v, out, lse, do, True, off)))}
+        label = (f"L12 q {list(qs)} k {list(ks)} q_offset {off} float32")
+        fwd.append(dict(label=label, max_abs_err=err, lse_max_abs_err=lse_err,
+                        out_of_tolerance=n_bad + n_lse,
+                        tolerance=f"{tol}; lse |d| < {TP_LSE_TOL}",
+                        ms=times["ms"], plain_ms=times["plain_ms"]))
+        bwd.append(dict(label=label, rel_err_dq_dk_dv=errs, max_abs_err=b_err,
+                        tolerance=FLASH_BWD_TOL[torch.float32],
+                        out_of_tolerance=int(max(errs) >= FLASH_BWD_TOL[
+                            torch.float32]),
+                        ms=times["bwd_ms"], plain_ms=times["bwd_plain_ms"]))
+        _log(f"L12 flash rows {label}: forward out max_abs_err={err:.3g} "
+             f"({tol}; {n_bad} out), lse {lse_err:.3g} (|d| < "
+             f"{TP_LSE_TOL}; {n_lse} out); backward dq, dk, dv max|d| / "
+             f"max|plain| {[f'{e:.3g}' for e in errs]} (tolerance "
+             f"{FLASH_BWD_TOL[torch.float32]}); forward {times['ms']:.3f} "
+             f"ms, plain {times['plain_ms']:.3f} ms; pair "
+             f"{times['bwd_ms']:.3f} ms, plain {times['bwd_plain_ms']:.3f} "
+             f"ms (medians of {FLASH_BWD_REPS}) {tag}")
+        del q, k, v, do, out, lse
+        torch.cuda.empty_cache()
+    bad = [r["label"] for r in fwd + bwd if r["out_of_tolerance"]]
+    if bad:
+        raise AssertionError(f"L12: the flash kernels disagree with their "
+                             f"plain versions at {bad}")
+    return dict(forward=fwd, backward=bwd)
+
+
+def estimate_phase(l8: dict, l2: dict, tag, l12: dict | None = None) -> dict:
     """E1: the cell estimator (``launch.dryrun.estimate``, on the host's
     meta tensors) at L8's cell (a 1 x 1 mesh), L2's prefill and L3's
-    decode step (``l2`` holds L2's and L3's measurements), beside their
+    decode step (``l2`` holds L2's and L3's measurements) and, with
+    ``l12``, L12's first mesh (a model row of three), beside their
     measurements in this run: the peak memory against the estimate's (it
     must fall within ESTIMATE_MEMORY_MARGIN) and its split, the FLOPs
     against the run's own counts, L8's ms a step against the roofline's
@@ -3146,6 +3491,35 @@ def estimate_phase(l8: dict, l2: dict, tag) -> dict:
             weight_flops,
             estimate_s=dc["estimate_s"]),
         margin=ESTIMATE_MEMORY_MARGIN)
+    checked = [out["train"], out["prefill"], out["decode"]]
+    if l12 is not None:
+        shape = TP_MESHES[0]
+        name = "x".join(map(str, shape))
+        tp = dryrun.estimate(
+            cfg, ShapeCell("l12", TP_SEQ, TP_BATCH, "train"),
+            AbstractMesh(shape, ("data", "model")), 1,
+            AdamWConfig(lr_peak=TRAIN_LR, warmup_steps=2, decay_steps=10,
+                        eps=1e-3))
+        measured = l12[name]["peak_memory_bytes"]
+        out["split_train"] = dict(
+            mesh=list(shape), measured_peak_bytes=measured,
+            estimate_peak_bytes=tp["memory"]["peak_bytes"],
+            peak_rel_err=tp["memory"]["peak_bytes"] / measured - 1,
+            split=tp["memory_split"], flops=tp["flops_per_device"],
+            useful_flops_ratio=tp["roofline"]["useful_flops_ratio"],
+            collective_bytes=tp["collective_bytes_per_device"],
+            estimate_s=tp["estimate_s"])
+        checked.append(out["split_train"])
+        x = out["split_train"]
+        _log(f"E1 estimator at L12's {name} cell ({cfg.name}, {TP_BATCH} x "
+             f"{TP_SEQ}, rank 0): peak {x['estimate_peak_bytes']} bytes "
+             f"against the measured {measured} ({x['peak_rel_err']:+.4%}; "
+             f"margin {ESTIMATE_MEMORY_MARGIN:.0%}), split "
+             f"{json.dumps(x['split'])}; useful FLOP ratio "
+             f"{x['useful_flops_ratio']:.4f}; collective bytes a step "
+             f"{json.dumps(x['collective_bytes'])} against rank 0's "
+             f"measured {json.dumps(l12[name]['collectives'])} (two "
+             f"steps) {tag}")
     t, p, d = out["train"], out["prefill"], out["decode"]
     _log(f"E1 estimator at L8's cell ({cfg.name}, {TRAIN_BATCH} x "
          f"{TRAIN_SEQ}, {TRAIN_MICROBATCHES} microbatches, 1 x 1): peak "
@@ -3173,7 +3547,7 @@ def estimate_phase(l8: dict, l2: dict, tag) -> dict:
          f"{d['matmul_over_weight_flops']:.4f} of the weights' "
          f"{weight_flops} {tag}")
     if not all(abs(x["peak_rel_err"]) <= ESTIMATE_MEMORY_MARGIN
-               for x in (t, p, d)):
+               for x in checked):
         raise AssertionError(f"E1: a memory estimate falls outside "
                              f"{ESTIMATE_MEMORY_MARGIN:.0%} of the "
                              f"measured peak")
@@ -5684,10 +6058,16 @@ def main() -> int:
     restart_out = restart_phase(dev, tag, train_out)  # L11
     check_restart_on_the_card(configs.get(TRAIN_ARCH, reduced=LM_REDUCED),
                               restart_out)
-    estimate_out = estimate_phase(train_out, lm_out, tag)  # E1
+    tp_out = tp_phase(dev, tag)  # L12
+    check_tp_on_the_card(configs.get(TRAIN_ARCH, reduced=LM_REDUCED), tp_out)
+    tp_rows = check_flash_tp_rows(dev, tag)  # L12's shapes against plain
+    results["flash_attention_kernel"]["cases"] += tp_rows["forward"]
+    results["flash_attention_backward_kernel"]["cases"] += tp_rows["backward"]
+    estimate_out = estimate_phase(train_out, lm_out, tag, tp_out)  # E1
     train_paths = {"L8": train_out["launches"], "L9": moe_out["launches"],
                    "L10": sharded_out["launches"],
-                   "L11": restart_out["launches"]}
+                   "L11": restart_out["launches"],
+                   "L12": tp_out["launches"]}
 
     seconds = time.perf_counter() - t_start
     _log(f"total {seconds:.1f} s")
@@ -5704,7 +6084,8 @@ def main() -> int:
                       **profile, **lm_out, "archs": arch_out,
                       "train": train_out, "moe_train": moe_out,
                       "sharded_train": sharded_out,
-                      "restart": restart_out, "estimate": estimate_out,
+                      "restart": restart_out, "tensor_parallel": tp_out,
+                      "estimate": estimate_out,
                       "seconds": seconds}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,15 @@
 // Causal GQA attention by online softmax (flash attention) for the LM
 // substrate: out[b,h,i] = sum_j softmax_j(scale q[b,h,i] . k[b,h/g,j])
-// v[b,h/g,j], g = Hq / Hkv, scale = 1/sqrt(dh).
+// v[b,h/g,j], g = Hq / Hkv, scale = 1/sqrt(dh). Query row i sits at
+// absolute position q_offset + i (a block of rows of a longer sequence:
+// the sequence-parallel split of a layer whose heads do not divide the
+// model ranks); keys sit at 0 .. Lk - 1.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention/kernel.py
 // flash_attention_kernel (body _flash_body) and computes what that body
 // computes: the causal mask on absolute positions with its top-left rule
-// i >= j (masked scores -1e30), a running max m, sum l and dh-wide
+// q_offset + i >= j (masked scores -1e30; the reference's _attn_block
+// with q_offset), a running max m, sum l and dh-wide
 // accumulator per row in f32, the result acc / max(l, 1e-30) cast to the
 // input type. Ragged lengths are masked here (keys j >= Lk score -1e30,
 // rows i >= Lq are not stored), so the wrapper pads nothing. With a
@@ -18,7 +22,8 @@
 //   - one block of 4 warps (8 above dh=128, below) per (query head of
 //     one batch row, 64-row query tile); each warp owns 16 query rows.
 //     The tiles of one head run heaviest-first, so the long causal rows
-//     start early. Query head h reads KV head h / g in place (no repeat
+//     start early (an offset adds the same keys to every tile, so the
+//     order stands). Query head h reads KV head h / g in place (no repeat
 //     copy).
 //   - K and V tiles of BK keys stream through a 2-stage ring in dynamic
 //     shared memory, filled by cp.async (16 B a thread, coalesced; rows
@@ -158,7 +163,8 @@ __global__ void __launch_bounds__(Tile<T, DH>::THREADS)
                                const T* __restrict__ k,
                                const T* __restrict__ v, T* __restrict__ out,
                                float* __restrict__ lse, int Hq, int Hkv,
-                               int Lq, int Lk, int causal, float scale) {
+                               int Lq, int Lk, int causal, int q_off,
+                               float scale) {
   using C = Tile<T, DH>;
   constexpr int BK = C::BK, NT = C::NT, ND = C::ND;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -181,7 +187,7 @@ __global__ void __launch_bounds__(Tile<T, DH>::THREADS)
 
   const int q_last = min(q0 + BQ, Lq) - 1;
   int n_tiles = (Lk + BK - 1) / BK;
-  if (causal) n_tiles = min(n_tiles, q_last / BK + 1);
+  if (causal) n_tiles = min(n_tiles, (q_off + q_last) / BK + 1);
 
   // stage Q (rows i >= Lq as zeros) and KV tile 0
   if constexpr (C::BF16) {
@@ -237,7 +243,7 @@ __global__ void __launch_bounds__(Tile<T, DH>::THREADS)
     const T* sV = sV0 + (t & 1) * C::V;
 
     // a tile wholly above this warp's rows changes nothing: skip it
-    if (!causal || k0 <= q0 + r0 + 15) {
+    if (!causal || k0 <= q_off + q0 + r0 + 15) {
       float s[NT][4];
 #pragma unroll
       for (int n = 0; n < NT; ++n)
@@ -317,7 +323,8 @@ __global__ void __launch_bounds__(Tile<T, DH>::THREADS)
       }
 
       // ---- online softmax, in registers
-      const bool masked = k0 + BK > Lk || (causal && k0 + BK - 1 > q0 + r0);
+      const bool masked =
+          k0 + BK > Lk || (causal && k0 + BK - 1 > q_off + q0 + r0);
 #pragma unroll
       for (int n = 0; n < NT; ++n)
 #pragma unroll
@@ -326,7 +333,7 @@ __global__ void __launch_bounds__(Tile<T, DH>::THREADS)
           if (masked) {
             const int i = q0 + r0 + g + (e >> 1) * 8;
             const int j = k0 + 8 * n + 2 * t4 + (e & 1);
-            if (j >= Lk || (causal && i < j)) x = NEG_INF;
+            if (j >= Lk || (causal && q_off + i < j)) x = NEG_INF;
           }
           s[n][e] = x;
         }
@@ -442,7 +449,7 @@ __global__ void __launch_bounds__(Tile<T, DH>::THREADS)
 
 template <int DH, typename T>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse,
-           int B, int Hq, int Hkv, int Lq, int Lk, int causal,
+           int B, int Hq, int Hkv, int Lq, int Lk, int causal, int q_off,
            cudaStream_t stream) {
   const size_t smem = Tile<T, DH>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
@@ -455,33 +462,33 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
   lsk_flash_attention_kernel<T, DH><<<grid, Tile<T, DH>::THREADS, smem,
                                       stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, Hq, Hkv, Lq, Lk,
-      causal, scale);
+      causal, q_off, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* out,
              float* lse, int B, int Hq, int Hkv, int Lq, int Lk, int dh,
-             int causal, cudaStream_t stream) {
+             int causal, int q_off, cudaStream_t stream) {
   switch (dh) {
     case 16:
       return launch<16, T>(q, k, v, out, lse, B, Hq, Hkv, Lq, Lk, causal,
-                             stream);
+                             q_off, stream);
     case 32:
       return launch<32, T>(q, k, v, out, lse, B, Hq, Hkv, Lq, Lk, causal,
-                             stream);
+                             q_off, stream);
     case 64:
       return launch<64, T>(q, k, v, out, lse, B, Hq, Hkv, Lq, Lk, causal,
-                             stream);
+                             q_off, stream);
     case 96:
       return launch<96, T>(q, k, v, out, lse, B, Hq, Hkv, Lq, Lk, causal,
-                             stream);
+                             q_off, stream);
     case 128:
       return launch<128, T>(q, k, v, out, lse, B, Hq, Hkv, Lq, Lk, causal,
-                             stream);
+                             q_off, stream);
     case 256:
       return launch<256, T>(q, k, v, out, lse, B, Hq, Hkv, Lq, Lk, causal,
-                             stream);
+                             q_off, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -492,9 +499,11 @@ int dispatch(const void* q, const void* k, const void* v, void* out,
 extern "C" int lsk_flash_attention(const void* q, const void* k, const void* v,
                                    void* out, void* lse, int B, int Hq,
                                    int Hkv, int Lq, int Lk, int dh,
-                                   int causal, int is_bf16, void* stream) {
+                                   int causal, int is_bf16, int q_offset,
+                                   void* stream) {
   if (B == 0 || Hq == 0 || Lq == 0) return 0;
-  if (Hkv <= 0 || Hq % Hkv != 0 || (Lq + BQ - 1) / BQ > 65535)
+  if (Hkv <= 0 || Hq % Hkv != 0 || (Lq + BQ - 1) / BQ > 65535 ||
+      q_offset < 0)
     return (int)cudaErrorInvalidValue;
   // cp.async and the vector loads and stores move 16, 8 or 4 B at a time
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16 ||
@@ -503,7 +512,7 @@ extern "C" int lsk_flash_attention(const void* q, const void* k, const void* v,
   cudaStream_t s = (cudaStream_t)stream;
   float* l = (float*)lse;
   return is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, out, l, B, Hq, Hkv, Lq,
-                                           Lk, dh, causal, s)
+                                           Lk, dh, causal, q_offset, s)
                  : dispatch<float>(q, k, v, out, l, B, Hq, Hkv, Lq, Lk, dh,
-                                   causal, s);
+                                   causal, q_offset, s);
 }

@@ -9,7 +9,8 @@
 // gradient step through them needs this backward. The formulas, those of
 // flash_attention_backward_plain in kernels/flash_attention/kernel.py:
 //   S = q k^T scale, P = exp(S - lse) (0 where the top-left causal rule
-//   i >= j masks, or j >= Lk), D = rowsum(dout o out),
+//   q_offset + i >= j masks, or j >= Lk; query row i sits at absolute
+//   position q_offset + i, as in the forward), D = rowsum(dout o out),
 //   dV = P^T dout, dS = P o (dout v^T - D),
 //   dq = dS k scale, dk = dS^T q scale,
 // dk and dv summed over the g = Hq / Hkv query heads of each KV head.
@@ -26,10 +27,11 @@
 //   - lsk_flash_bwd_dkdv: one block per (b Hkv, 64 keys), heaviest key
 //     tiles first; each warp owns 16 keys, whose dK and dV stay in f32
 //     registers. It walks the g query heads and, for each, the query tiles
-//     from its keys' diagonal on (Q, dout, lse and D through the ring). It
-//     computes the transposed tile, S^T = K Q^T and dP^T = V dout^T, so
-//     that P^T and dS^T come out in the accumulator layout and feed
-//     dV += P^T dout and dK += dS^T q as A operands.
+//     from its keys' diagonal on (query rows i >= n0 - q_offset; Q, dout,
+//     lse and D through the ring). It computes the transposed tile,
+//     S^T = K Q^T and dP^T = V dout^T, so that P^T and dS^T come out in
+//     the accumulator layout and feed dV += P^T dout and dK += dS^T q as
+//     A operands.
 //   So both kernels run one tile shape: 16 own rows against a streamed
 //   tile (two score products whose B operand is a tile's rows, as the
 //   forward's K), then products whose A operand is a score accumulator
@@ -349,7 +351,7 @@ __global__ void __launch_bounds__(Bwd<T, DH, false>::THREADS)
                             const float* __restrict__ lse,
                             float* __restrict__ delta, T* __restrict__ dq,
                             int Hq, int Hkv, int Lq, int Lk, int causal,
-                            float scale) {
+                            int q_off, float scale) {
   using C = Bwd<T, DH, false>;
   constexpr int BT = C::BT, NT = C::NT, ND = C::ND, S = C::S;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -372,7 +374,8 @@ __global__ void __launch_bounds__(Bwd<T, DH, false>::THREADS)
   const int64_t kv_base = ((int64_t)b * Hkv + h / (Hq / Hkv)) * Lk * DH;
 
   int n_tiles = (Lk + BT - 1) / BT;
-  if (causal) n_tiles = min(n_tiles, (min(q0 + ROWS, Lq) - 1) / BT + 1);
+  if (causal)
+    n_tiles = min(n_tiles, (q_off + min(q0 + ROWS, Lq) - 1) / BT + 1);
 
   load_rows<T, DH, ROWS, C::THREADS>(sQ, sdO, q, dout, q_base, q0, Lq, tid);
   if (n_tiles > 0)
@@ -415,14 +418,14 @@ __global__ void __launch_bounds__(Bwd<T, DH, false>::THREADS)
     const T* sK = sK0 + (t & 1) * C::TILE;
     const T* sV = sV0 + (t & 1) * C::TILE;
     // a tile wholly above this warp's rows adds nothing: skip it
-    if (!causal || k0 <= q0 + r0 + 15) {
+    if (!causal || k0 <= q_off + q0 + r0 + 15) {
       float s[NT][4], dp[NT][4];
       scores<C::DW, NT, S>(sQ + r0 * S + c0, sK + c0, lane, s);
       scores<C::DW, NT, S>(sdO + r0 * S + c0, sV + c0, lane, dp);
       if constexpr (C::SPLIT > 1)
         pair_add<NT, C::XS>(s, dp, sX, half, r0, lane, pair);
       const bool masked = k0 + BT > Lk || q0 + r0 + 16 > Lq ||
-                          (causal && k0 + BT - 1 > q0 + r0);
+                          (causal && k0 + BT - 1 > q_off + q0 + r0);
 #pragma unroll
       for (int n = 0; n < NT; ++n)
 #pragma unroll
@@ -431,7 +434,7 @@ __global__ void __launch_bounds__(Bwd<T, DH, false>::THREADS)
           if (masked) {
             const int i = q0 + r0 + g + (e >> 1) * 8;
             const int j = k0 + 8 * n + 2 * t4 + (e & 1);
-            if (j >= Lk || i >= Lq || (causal && i < j)) p = 0.f;
+            if (j >= Lk || i >= Lq || (causal && q_off + i < j)) p = 0.f;
           }
           dp[n][e] = p * (dp[n][e] - dd[e >> 1]);  // dS
         }
@@ -460,7 +463,7 @@ __global__ void __launch_bounds__(Bwd<T, DH, true>::THREADS)
                               const float* __restrict__ lse,
                               const float* __restrict__ delta,
                               T* __restrict__ dk, T* __restrict__ dv, int Hq,
-                              int Hkv, int Lq, int Lk, int causal,
+                              int Hkv, int Lq, int Lk, int causal, int q_off,
                               float scale) {
   using C = Bwd<T, DH, true>;
   constexpr int BT = C::BT, NT = C::NT, ND = C::ND, S = C::S;
@@ -482,9 +485,9 @@ __global__ void __launch_bounds__(Bwd<T, DH, true>::THREADS)
   const int b = bkv / Hkv, hk = bkv % Hkv, grp = Hq / Hkv;
   const int64_t kv_base = (int64_t)bkv * Lk * DH;
 
-  // query rows i >= n0 are the only ones a causal key n0.. can reach; the
-  // walk is grp heads of n_m query tiles each
-  const int m_first = causal ? n0 : 0;
+  // query rows i >= n0 - q_off are the only ones a causal key n0.. can
+  // reach; the walk is grp heads of n_m query tiles each
+  const int m_first = causal ? max(n0 - q_off, 0) : 0;
   const int n_m = Lq > m_first ? (Lq - m_first + BT - 1) / BT : 0;
   const int n_tiles = grp * n_m;
   auto load_tile = [&](int t) {
@@ -521,14 +524,14 @@ __global__ void __launch_bounds__(Bwd<T, DH, true>::THREADS)
     const float* sL = sL0 + (t & 1) * BT;
     const float* sD = sD0 + (t & 1) * BT;
     // a query tile wholly before this warp's keys adds nothing: skip it
-    if (!causal || m0 + BT - 1 >= n0 + r0) {
+    if (!causal || q_off + m0 + BT - 1 >= n0 + r0) {
       float s[NT][4], dp[NT][4];  // S^T and dP^T: keys by queries
       scores<C::DW, NT, S>(sK + r0 * S + c0, sQ + c0, lane, s);
       scores<C::DW, NT, S>(sV + r0 * S + c0, sdO + c0, lane, dp);
       if constexpr (C::SPLIT > 1)
         pair_add<NT, C::XS>(s, dp, sX, half, r0, lane, pair);
       const bool masked = m0 + BT > Lq || n0 + r0 + 16 > Lk ||
-                          (causal && m0 < n0 + r0 + 15);
+                          (causal && q_off + m0 < n0 + r0 + 15);
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
         const float2 lv = *reinterpret_cast<const float2*>(sL + 8 * n + 2 * t4);
@@ -541,7 +544,7 @@ __global__ void __launch_bounds__(Bwd<T, DH, true>::THREADS)
           if (masked) {
             const int j = n0 + r0 + g + (e >> 1) * 8;
             const int i = m0 + 8 * n + 2 * t4 + (e & 1);
-            if (i >= Lq || j >= Lk || (causal && i < j)) p = 0.f;
+            if (i >= Lq || j >= Lk || (causal && q_off + i < j)) p = 0.f;
           }
           s[n][e] = p;                     // P^T
           dp[n][e] = p * (dp[n][e] - d);   // dS^T
@@ -576,7 +579,7 @@ float scale_of() {
 template <int DH, typename T>
 int launch_dq(const void* q, const void* k, const void* v, const void* out,
               const void* dout, const float* lse, float* delta, void* dq,
-              int B, int Hq, int Hkv, int Lq, int Lk, int causal,
+              int B, int Hq, int Hkv, int Lq, int Lk, int causal, int q_off,
               cudaStream_t stream) {
   using C = Bwd<T, DH, false>;
   const size_t smem = C::bytes;
@@ -587,7 +590,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* out,
   const dim3 grid((unsigned)(B * Hq), (unsigned)((Lq + ROWS - 1) / ROWS));
   lsk_flash_bwd_dq_kernel<T, DH><<<grid, C::THREADS, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)out, (const T*)dout,
-      lse, delta, (T*)dq, Hq, Hkv, Lq, Lk, causal, scale_of<DH>());
+      lse, delta, (T*)dq, Hq, Hkv, Lq, Lk, causal, q_off, scale_of<DH>());
   return (int)cudaGetLastError();
 }
 
@@ -595,7 +598,7 @@ template <int DH, typename T>
 int launch_dkdv(const void* q, const void* k, const void* v,
                 const void* dout, const float* lse, const float* delta,
                 void* dk, void* dv, int B, int Hq, int Hkv, int Lq, int Lk,
-                int causal, cudaStream_t stream) {
+                int causal, int q_off, cudaStream_t stream) {
   using C = Bwd<T, DH, true>;
   const size_t smem = C::bytes;
   cudaError_t err = cudaFuncSetAttribute(
@@ -605,7 +608,7 @@ int launch_dkdv(const void* q, const void* k, const void* v,
   const dim3 grid((unsigned)(B * Hkv), (unsigned)((Lk + ROWS - 1) / ROWS));
   lsk_flash_bwd_dkdv_kernel<T, DH><<<grid, C::THREADS, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-      (T*)dk, (T*)dv, Hq, Hkv, Lq, Lk, causal, scale_of<DH>());
+      (T*)dk, (T*)dv, Hq, Hkv, Lq, Lk, causal, q_off, scale_of<DH>());
   return (int)cudaGetLastError();
 }
 
@@ -615,12 +618,12 @@ template <typename T>
 int dispatch_dq(const void* q, const void* k, const void* v, const void* out,
                 const void* dout, const float* lse, float* delta, void* dq,
                 int B, int Hq, int Hkv, int Lq, int Lk, int dh, int causal,
-                cudaStream_t s) {
+                int q_off, cudaStream_t s) {
   switch (dh) {
 #define LSK_CASE(D)                                                        \
   case D:                                                                  \
     return launch_dq<D, T>(q, k, v, out, dout, lse, delta, dq, B, Hq, Hkv, \
-                           Lq, Lk, causal, s);
+                           Lq, Lk, causal, q_off, s);
     LSK_BWD_HEAD_DIMS(LSK_CASE)
 #undef LSK_CASE
     default:
@@ -632,12 +635,12 @@ template <typename T>
 int dispatch_dkdv(const void* q, const void* k, const void* v,
                   const void* dout, const float* lse, const float* delta,
                   void* dk, void* dv, int B, int Hq, int Hkv, int Lq, int Lk,
-                  int dh, int causal, cudaStream_t s) {
+                  int dh, int causal, int q_off, cudaStream_t s) {
   switch (dh) {
 #define LSK_CASE(D)                                                      \
   case D:                                                                \
     return launch_dkdv<D, T>(q, k, v, dout, lse, delta, dk, dv, B, Hq,   \
-                             Hkv, Lq, Lk, causal, s);
+                             Hkv, Lq, Lk, causal, q_off, s);
     LSK_BWD_HEAD_DIMS(LSK_CASE)
 #undef LSK_CASE
     default:
@@ -645,9 +648,9 @@ int dispatch_dkdv(const void* q, const void* k, const void* v,
   }
 }
 
-int check_args(int B, int Hq, int Hkv, int Lq, int Lk,
+int check_args(int B, int Hq, int Hkv, int Lq, int Lk, int q_off,
                std::initializer_list<const void*> ptrs) {
-  if (Hkv <= 0 || Hq % Hkv != 0 || Lq < 0 || Lk < 0 ||
+  if (Hkv <= 0 || Hq % Hkv != 0 || Lq < 0 || Lk < 0 || q_off < 0 ||
       (Lq + ROWS - 1) / ROWS > 65535 || (Lk + ROWS - 1) / ROWS > 65535 ||
       B < 0)
     return (int)cudaErrorInvalidValue;
@@ -665,9 +668,11 @@ extern "C" int lsk_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* out, const void* dout,
                                 const void* lse, void* delta, void* dq, int B,
                                 int Hq, int Hkv, int Lq, int Lk, int dh,
-                                int causal, int is_bf16, void* stream) {
+                                int causal, int is_bf16, int q_offset,
+                                void* stream) {
   if (B == 0 || Hq == 0 || Lq == 0) return 0;
-  const int rc = check_args(B, Hq, Hkv, Lq, Lk, {q, k, v, out, dout, dq});
+  const int rc =
+      check_args(B, Hq, Hkv, Lq, Lk, q_offset, {q, k, v, out, dout, dq});
   if (rc) return rc;
   if ((uintptr_t)lse % 4 || (uintptr_t)delta % 4)
     return (int)cudaErrorMisalignedAddress;
@@ -675,10 +680,10 @@ extern "C" int lsk_flash_bwd_dq(const void* q, const void* k, const void* v,
   return is_bf16 ? dispatch_dq<__nv_bfloat16>(q, k, v, out, dout,
                                               (const float*)lse,
                                               (float*)delta, dq, B, Hq, Hkv,
-                                              Lq, Lk, dh, causal, s)
+                                              Lq, Lk, dh, causal, q_offset, s)
                  : dispatch_dq<float>(q, k, v, out, dout, (const float*)lse,
                                       (float*)delta, dq, B, Hq, Hkv, Lq, Lk,
-                                      dh, causal, s);
+                                      dh, causal, q_offset, s);
 }
 
 extern "C" int lsk_flash_bwd_dkdv(const void* q, const void* k,
@@ -686,9 +691,10 @@ extern "C" int lsk_flash_bwd_dkdv(const void* q, const void* k,
                                   const void* lse, const void* delta,
                                   void* dk, void* dv, int B, int Hq, int Hkv,
                                   int Lq, int Lk, int dh, int causal,
-                                  int is_bf16, void* stream) {
+                                  int is_bf16, int q_offset, void* stream) {
   if (B == 0 || Hkv == 0 || Lk == 0) return 0;
-  const int rc = check_args(B, Hq, Hkv, Lq, Lk, {q, k, v, dout, dk, dv});
+  const int rc =
+      check_args(B, Hq, Hkv, Lq, Lk, q_offset, {q, k, v, dout, dk, dv});
   if (rc) return rc;
   if ((uintptr_t)lse % 4 || (uintptr_t)delta % 4)
     return (int)cudaErrorMisalignedAddress;
@@ -696,8 +702,9 @@ extern "C" int lsk_flash_bwd_dkdv(const void* q, const void* k,
   return is_bf16
              ? dispatch_dkdv<__nv_bfloat16>(q, k, v, dout, (const float*)lse,
                                             (const float*)delta, dk, dv, B,
-                                            Hq, Hkv, Lq, Lk, dh, causal, s)
+                                            Hq, Hkv, Lq, Lk, dh, causal,
+                                            q_offset, s)
              : dispatch_dkdv<float>(q, k, v, dout, (const float*)lse,
                                     (const float*)delta, dk, dv, B, Hq, Hkv,
-                                    Lq, Lk, dh, causal, s);
+                                    Lq, Lk, dh, causal, q_offset, s);
 }

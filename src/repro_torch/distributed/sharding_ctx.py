@@ -26,12 +26,25 @@ dimension d names that axis, else ``Replicate()``; a dimension over
 splits major to minor as JAX does. ``from_placements`` is the inverse.
 
 The port runs SPMD, one process a rank: every activation is a plain local
-tensor (a data rank's rows of the batch; the same on the ranks of one
-"model" row, whose compute is redundant), and ``constrain`` returns a
-plain tensor unchanged. Only a ``DTensor`` is redistributed, to the
-placements its logical axes resolve to. The collectives that the
-reference's global-array semantics hide are explicit here: ``dp_sum``
-(a global sum of per-rank partials) and the MoE's expert exchange.
+tensor, and ``constrain`` returns a plain tensor unchanged. Only a
+``DTensor`` is redistributed, to the placements its logical axes resolve
+to. The collectives that the reference's global-array semantics hide are
+explicit here: ``dp_sum`` (a global sum of per-rank partials), the MoE's
+expert exchange and the tensor-parallel pairs below.
+
+Tensor parallelism over "model" (Megatron's layout without sequence
+parallelism). A data rank holds its rows of the batch; the residual
+stream between layers is the same on every rank of a model row. Inside a
+layer the ranks split the work where the sharded train step hands them
+the layer's parameters by model shard (``ctx.params_source``, which
+``launch.step_fns.make_sharded_train_step`` installs; ``tp_split`` is
+then the model size, else 1 and every layer computes whole): a column-parallel
+block starts with ``tp_copy`` (identity forward, the gradient summed over
+the model ranks backward) and a row-parallel one ends with ``tp_sum``
+(the ranks' partial outputs summed forward, identity backward);
+``tp_gather`` joins the ranks' blocks of rows of the sequence-parallel
+fallback (all-gather forward, this rank's block backward). All three are
+identities outside a context or at one model rank.
 """
 
 from __future__ import annotations
@@ -57,6 +70,8 @@ class ShardingCtx:
     def __init__(self, mesh):
         self.mesh = mesh
         self.shape = mesh_shape(mesh)
+        # the sharded train step's per-layer parameters (``open_params``)
+        self.params_source = None
         multi = "pod" in self.shape
         self.logical = {
             "dp": ("pod", "data") if multi else ("data",),
@@ -112,6 +127,18 @@ class ShardingCtx:
     def coordinate(self, axis: str) -> int:
         """This rank's index along mesh ``axis``."""
         return self.mesh.get_coordinate()[axis_names(self.mesh).index(axis)]
+
+    @property
+    def tp_size(self) -> int:
+        return self.shape.get("model", 1)
+
+    @property
+    def tp_rank(self) -> int:
+        return self.coordinate("model") if self.tp_size > 1 else 0
+
+    def model_group(self):
+        """The process group of this rank's model row."""
+        return self.group("model")
 
     def dp_group(self):
         axes = self.logical["dp"]
@@ -226,3 +253,103 @@ def dp_sum(x: torch.Tensor) -> torch.Tensor:
     if ctx is None or ctx.dp_size == 1:
         return x
     return _DpSum.apply(x, ctx.dp_group())
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over "model"
+# ---------------------------------------------------------------------------
+
+def tp_split() -> int:
+    """The number of model ranks a layer splits its compute over: the
+    context's model size when the sharded train step hands the layers
+    their parameters by model shard, else 1."""
+    ctx = current()
+    if ctx is None or ctx.params_source is None:
+        return 1
+    return ctx.tp_size
+
+
+def tp_rank() -> int:
+    """This rank's index in its model row (0 when ``tp_split`` is 1)."""
+    return current().tp_rank if tp_split() > 1 else 0
+
+
+@contextlib.contextmanager
+def open_params(tree, uses=None, keys=None):
+    """A layer's parameters for the length of its forward: ``tree`` itself
+    outside the sharded train step; under it, a nested dict of the
+    tensors the step hands over (``uses``: ``{dotted name: "split" |
+    "partial"}`` relative to ``tree``, the rest "full"; ``keys``: the
+    top-level names to open, all when None)."""
+    ctx = current()
+    if ctx is None or ctx.params_source is None:
+        yield tree
+        return
+    with ctx.params_source.open(tree, uses or {}, keys) as opened:
+        yield opened
+
+
+class _TpCopy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _TpSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _TpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, n, index, group):
+        ctx.dim, ctx.n, ctx.index = dim, n, index
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x, group=group)
+        return torch.cat(parts, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.chunk(ctx.n, ctx.dim)[ctx.index].contiguous(), None, None,
+                None, None)
+
+
+def tp_copy(x: torch.Tensor) -> torch.Tensor:
+    """Enter a split block (Megatron's f): ``x`` as it is; its gradient is
+    summed over the model ranks, each of which computed a part."""
+    if tp_split() == 1:
+        return x
+    return _TpCopy.apply(x, current().model_group())
+
+
+def tp_sum(x: torch.Tensor) -> torch.Tensor:
+    """Leave a split block (Megatron's g): the sum of the model ranks'
+    partial ``x``; the gradient goes to each rank's part unchanged."""
+    if tp_split() == 1:
+        return x
+    return _TpSum.apply(x, current().model_group())
+
+
+def tp_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The model ranks' blocks of ``x`` joined along ``dim`` in rank order;
+    each rank's gradient is its own block of the joined gradient."""
+    n = tp_split()
+    if n == 1:
+        return x
+    ctx = current()
+    return _TpGather.apply(x, dim, n, ctx.tp_rank, ctx.model_group())

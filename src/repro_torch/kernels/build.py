@@ -33,9 +33,9 @@ SIGNATURES = {
     "lsk_edge_query": [_P] * 14 + [_I] * 13 + [_P],
     "lsk_vertex_scan": [_P] * 9 + [_I] * 8 + [_P],
     "lsk_cell_decode": [_P] * 5 + [_I] * 5 + [_P],
-    "lsk_flash_attention": [_P] * 5 + [_I] * 8 + [_P],
-    "lsk_flash_bwd_dq": [_P] * 8 + [_I] * 8 + [_P],
-    "lsk_flash_bwd_dkdv": [_P] * 8 + [_I] * 8 + [_P],
+    "lsk_flash_attention": [_P] * 5 + [_I] * 9 + [_P],
+    "lsk_flash_bwd_dq": [_P] * 8 + [_I] * 9 + [_P],
+    "lsk_flash_bwd_dkdv": [_P] * 8 + [_I] * 9 + [_P],
 }
 
 _lib = None

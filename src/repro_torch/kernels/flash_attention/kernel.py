@@ -14,7 +14,10 @@ tensors it launches the kernel or raises.
 
 Both compute what ``_flash_body`` computes: q scaled by 1/sqrt(dh) before
 the dot, the causal mask on absolute positions with the TPU kernel's
-top-left rule ``i >= j`` (masked scores -1e30), the result
+top-left rule ``i >= j`` (masked scores -1e30; with ``q_offset``, query row
+i sits at position ``q_offset + i`` and the rule is ``q_offset + i >= j``,
+as the reference's ``_attn_block(..., q_offset, ...)``: a block of query
+rows of a longer sequence, the sequence-parallel split of a layer), the result
 ``acc / max(l, 1e-30)`` cast to q's dtype, every sum in f32. Query head h
 reads KV head ``h // (Hq // Hkv)``. The plain version widens bf16 inputs
 to f32; the kernel's bf16 variant scales the f32 scores after the product
@@ -59,7 +62,8 @@ DTYPES = (torch.float32, torch.bfloat16)
 PLAIN_BLOCK_Q = 512  # query rows per block of the plain version
 
 
-def flash_attention_plain(q, k, v, causal: bool = True, lse: bool = False):
+def flash_attention_plain(q, k, v, causal: bool = True, lse: bool = False,
+                          q_offset: int = 0):
     B, Hq, Lq, dh = q.shape
     Hkv, Lk = k.shape[1], k.shape[2]
     g = Hq // Hkv
@@ -75,7 +79,7 @@ def flash_attention_plain(q, k, v, causal: bool = True, lse: bool = False):
         qb = q[:, :, a:z].float().reshape(B, Hkv, g, z - a, dh) * scale
         s = qb @ kf.transpose(-1, -2)  # [B, Hkv, g, bq, Lk]
         if causal:
-            i = torch.arange(a, z, device=q.device)
+            i = torch.arange(a, z, device=q.device) + q_offset
             s = s.masked_fill(i[:, None] < j[None, :], NEG_INF)
         m = s.amax(dim=-1, keepdim=True)
         p = torch.exp(s - m)
@@ -87,7 +91,7 @@ def flash_attention_plain(q, k, v, causal: bool = True, lse: bool = False):
 
 
 def flash_attention_backward_plain(q, k, v, out, lse, dout,
-                                   causal: bool = True):
+                                   causal: bool = True, q_offset: int = 0):
     """(dq, dk, dv) of ``flash_attention_plain``'s function, in plain
     PyTorch over blocks of PLAIN_BLOCK_Q query rows, every sum in f32:
     P = exp(S scale - lse) under the forward's top-left causal rule
@@ -114,7 +118,7 @@ def flash_attention_backward_plain(q, k, v, out, lse, dout,
         s = (qb @ kf.transpose(-1, -2)) * scale  # [B, Hkv, g, bq, Lk]
         p = torch.exp(s - grouped(lse[..., None]))
         if causal:
-            i = torch.arange(a, z, device=q.device)
+            i = torch.arange(a, z, device=q.device) + q_offset
             p = p.masked_fill(i[:, None] < j[None, :], 0.0)
         dv += (p.transpose(-1, -2) @ dob).sum(2, keepdim=True)
         dd = (dob * ob).sum(-1, keepdim=True)
@@ -149,19 +153,28 @@ def _check(q, k, v):
                          "(the kernel copies 16 B at a time)")
 
 
-def flash_attention_kernel(q, k, v, causal: bool = True, lse: bool = False):
+def _check_offset(q_offset) -> None:
+    if int(q_offset) != q_offset or q_offset < 0:
+        raise ValueError(f"q_offset must be a non-negative int, got "
+                         f"{q_offset!r}")
+
+
+def flash_attention_kernel(q, k, v, causal: bool = True, lse: bool = False,
+                           q_offset: int = 0):
     """out, or (out, lse) with ``lse``: serving passes no lse buffer and the
     kernel writes none."""
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal, lse)
+        return flash_attention_plain(q, k, v, causal, lse, q_offset)
     _check(q, k, v)
+    _check_offset(q_offset)
     B, Hq, Lq, dh = q.shape
     Hkv, Lk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     lse_out = torch.empty((B, Hq, Lq), dtype=torch.float32,
                           device=q.device) if lse else None
     build.call("lsk_flash_attention", q, k, v, out, lse_out, B, Hq, Hkv, Lq,
-               Lk, dh, int(causal), int(q.dtype == torch.bfloat16))
+               Lk, dh, int(causal), int(q.dtype == torch.bfloat16),
+               int(q_offset))
     flash_attention_kernel.launches += 1
     return (out, lse_out) if lse else out
 
@@ -170,13 +183,15 @@ flash_attention_kernel.launches = 0
 
 
 def flash_attention_backward_kernel(q, k, v, out, lse, dout,
-                                    causal: bool = True):
+                                    causal: bool = True, q_offset: int = 0):
     """(dq, dk, dv) by the two backward launches: ``lsk_flash_bwd_dq``
     (which writes D, f32 [B, Hq, Lq]) then ``lsk_flash_bwd_dkdv``. One
     launch of the pair adds one to ``launches``."""
     if q.device.type == "cpu":
-        return flash_attention_backward_plain(q, k, v, out, lse, dout, causal)
+        return flash_attention_backward_plain(q, k, v, out, lse, dout, causal,
+                                              q_offset)
     _check(q, k, v)
+    _check_offset(q_offset)
     _check(out, dout, dout)  # device, dtype, layout and alignment
     if out.shape != q.shape or dout.shape != q.shape or \
             out.dtype != q.dtype or dout.dtype != q.dtype:
@@ -195,9 +210,9 @@ def flash_attention_backward_kernel(q, k, v, out, lse, dout,
     delta = torch.empty((B, Hq, Lq), dtype=torch.float32, device=q.device)
     bf16 = int(q.dtype == torch.bfloat16)
     build.call("lsk_flash_bwd_dq", q, k, v, out, dout, lse, delta, dq, B, Hq,
-               Hkv, Lq, Lk, dh, int(causal), bf16)
+               Hkv, Lq, Lk, dh, int(causal), bf16, int(q_offset))
     build.call("lsk_flash_bwd_dkdv", q, k, v, dout, lse, delta, dk, dv, B,
-               Hq, Hkv, Lq, Lk, dh, int(causal), bf16)
+               Hq, Hkv, Lq, Lk, dh, int(causal), bf16, int(q_offset))
     flash_attention_backward_kernel.launches += 1
     return dq, dk, dv
 

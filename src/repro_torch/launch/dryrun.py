@@ -13,10 +13,14 @@ rank 0 of the mesh sees it, and counts as it goes:
     moments by ``step_fns.state_placements``, the batch rows; serving:
     the parameters' and caches' shards) plus the peak of the live bytes
     over the step — the counterpart of ``memory_analysis()``. It is split
-    into parameters, gradients, moments, the gathered copy of the
-    sharded step (every sharded parameter whole on every rank, and a serving
-    cell's caches whole over their sharded non-batch axes), the full
-    gradients before their slice, the saved activations of a microbatch
+    into parameters, gradients, moments, the gathered copies (a train
+    step over one model rank: every sharded parameter whole; over several:
+    the most bytes of layers' copies live at once, measured; a serving
+    cell: every sharded parameter whole, and its caches whole over their
+    sharded non-batch axes), the gradients before their slice (one model
+    rank: the whole tree; several: the largest layer's gathered copies, as
+    the backward reduces and slices a layer's gradients as it goes), the
+    saved activations of a microbatch
     (``torch.autograd.graph.saved_tensors_hooks``) and the logits;
   * FLOPs: ``torch.utils.flop_counter.FlopCounterMode`` over the whole
     step (every microbatch's forward and backward). The flash kernels
@@ -34,23 +38,28 @@ rank 0 of the mesh sees it, and counts as it goes:
     writes its outputs once (eager PyTorch fuses nothing), plus the flash
     kernels' q, k, v, out and lse (backward: and dout, dq, dk, dv);
   * collective bytes, by kind: the step's ``torch.distributed`` calls
-    (the gradient sum over the data group, the norm's scalar, ``dp_sum``'s
-    scalars, the MoE's all-gather over "model") are recorded instead of
-    run, with this rank at coordinate 0 of every mesh axis, at their
-    result bytes (the reference's convention); a sharded parameter's
-    ``full_tensor`` counts one all-gather a sharded mesh axis, the last
-    axis first.
+    (the gradient sums over the data and model groups, the per-layer
+    parameter gathers and their repeats in the backward, the model
+    group's ``tp_copy``/``tp_sum``/``tp_gather`` and vocab-parallel loss,
+    the norm's scalar, ``dp_sum``'s scalars, the MoE's all-gather over
+    "model") are recorded instead of run, with this rank at coordinate 0
+    of every mesh axis, at their result bytes (the reference's
+    convention); a sharded parameter's ``full_tensor`` counts one
+    all-gather a sharded mesh axis, the last axis first.
 
 Per device, a train cell's step is the port's: at one rank,
 ``make_train_step``; over several, ``make_sharded_train_step`` with meta
-shards. The port has no sharded serving step: a prefill or decode cell
-runs ``make_prefill_step``/``make_serve_step`` on this rank's batch rows
-with every parameter and cache gathered whole (the sharded trainer's
-design carried to serving). Whole-mesh totals (``hlo_flops``, ``hlo_bytes``,
+shards, which over several model ranks splits the compute over "model"
+(Megatron's layout: heads, MLP columns and rows, vocabulary; the "sp"
+fallback; the recurrent mixers whole on every rank). The port has no
+sharded serving step yet: a prefill or decode cell runs
+``make_prefill_step``/``make_serve_step`` on this rank's batch rows with
+every parameter and cache gathered whole, so a model row's ranks compute
+the same there. Whole-mesh totals (``hlo_flops``, ``hlo_bytes``,
 ``collective_bytes``) are the rank's times the chips, as the reference
-multiplies its per-device HLO; every rank of a model row computes the
-same, so ``useful_flops_ratio`` shows what tensor parallelism would
-save.
+multiplies its per-device HLO; ``useful_flops_ratio`` shows the share of
+them the model needs (what a train cell's split leaves redundant, a
+serving cell's whole compute).
 
 The three-term roofline divides by the H100's rates, kept here for the
 whole port. Records go to
@@ -69,6 +78,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import csv
+import functools
 import json
 import math
 import sys
@@ -93,6 +103,7 @@ from repro_torch.launch.inputs import input_specs
 from repro_torch.launch.mesh import (axis_names, make_production_mesh,
                                      mesh_axes, mesh_shape, mesh_size)
 from repro_torch.models import lm
+from repro_torch.models.layers import vocab_split
 from repro_torch.models.moe import TELEMETRY_BUCKETS
 from repro_torch.optim import AdamWConfig
 
@@ -209,6 +220,16 @@ class _Tally(TorchDispatchMode):
         self.flops_by_dtype = defaultdict(int)
         self.by_source = defaultdict(lambda: defaultdict(int))
         self.bytes_accessed = 0
+        self.gathered_keys: set = set()  # the train step's gathered copies
+        self.gathered_cur = self.gathered_peak = 0
+
+    def mark_gathered(self, t: torch.Tensor) -> None:
+        """Count ``t``'s storage (live) as a gathered parameter copy."""
+        key = t.untyped_storage()._cdata
+        if key in self.live and key not in self.gathered_keys:
+            self.gathered_keys.add(key)
+            self.gathered_cur += self.live[key][0]
+            self.gathered_peak = max(self.gathered_peak, self.gathered_cur)
 
     def _release(self, key) -> None:
         self.refs[key] -= 1
@@ -217,6 +238,9 @@ class _Tally(TorchDispatchMode):
             n, src = self.live.pop(key)
             self.cur -= n
             self.live_by[src] -= n
+            if key in self.gathered_keys:
+                self.gathered_keys.discard(key)
+                self.gathered_cur -= n
 
     def track(self, t: torch.Tensor, src: str) -> None:
         if t.device.type != "meta":
@@ -382,13 +406,13 @@ class _MetaLeaves:
                  gathered: set):
         self.pl, self.shapes, self.mesh, self.log = placements, shapes, \
             mesh, log
-        self.gathered = gathered
+        self.gathered_set = gathered
 
     def full(self, name, leaf):
         out = _gather(leaf, self.shapes[name][0], self.pl[name], self.mesh,
                       self.log, "parameter gather")
         if out is not leaf:
-            self.gathered.add(out.untyped_storage()._cdata)
+            self.gathered_set.add(out.untyped_storage()._cdata)
         return out
 
     @staticmethod
@@ -397,6 +421,45 @@ class _MetaLeaves:
 
     def placements(self, name, leaf):
         return self.pl[name]
+
+
+class _MetaGathers(step_fns._LayerGathers):
+    """The split step's parameter source on meta (``_gathers``): each
+    layer's gathered copies, and those the backward gathers again, go to
+    the tally and to ``notes["largest_open"]`` (the most bytes one layer
+    opened); a tensor saved for the backward that is no gathered copy goes
+    on to the estimator's own pack hook, which this source's hooks replace
+    while the step runs. ``notes`` holds ``tally`` and ``pack``, filled by
+    ``estimate``."""
+
+    def __init__(self, notes: dict, *args):
+        super().__init__(*args)
+        self.notes = notes
+        notes.setdefault("largest_open", 0)
+
+    def _note(self, ts) -> None:
+        self.notes["largest_open"] = max(self.notes["largest_open"],
+                                         sum(_nbytes(t) for t in ts))
+        for t in ts:
+            self.notes["tally"].mark_gathered(t)
+
+    @contextlib.contextmanager
+    def open(self, tree, uses: dict, keys=None):
+        with super().open(tree, uses, keys) as opened:
+            self._note([t for t in _tensors(opened)
+                        if t.untyped_storage()._cdata in self.live])
+            yield opened
+
+    def pack(self, t):
+        out = super().pack(t)
+        return out if isinstance(out, step_fns._Regather) else \
+            self.notes["pack"](t)
+
+    def unpack(self, obj):
+        out = super().unpack(obj)
+        if isinstance(obj, step_fns._Regather):
+            self._note([out])
+        return out
 
 
 def _meta(shape, dtype) -> torch.Tensor:
@@ -429,20 +492,20 @@ def _flash_stand_ins():
     """The flash wrappers that ``kernels/flash_attention/ops.py`` calls,
     swapped for meta stand-ins: each allocates its outputs, launches
     nothing and notes the call as ("forward" | "backward", q's shape, k's
-    shape, causal, dtype) in the list it yields."""
+    shape, causal, dtype, q_offset) in the list it yields."""
     calls = []
 
-    def forward(q, k, v, causal=True, lse=False):
+    def forward(q, k, v, causal=True, lse=False, q_offset=0):
         calls.append(("forward", tuple(q.shape), tuple(k.shape),
-                      bool(causal), q.dtype))
+                      bool(causal), q.dtype, q_offset))
         out = torch.empty_like(q)
         if not lse:
             return out
         return out, _meta(q.shape[:3], torch.float32)
 
-    def backward(q, k, v, out, lse, dout, causal=True):
+    def backward(q, k, v, out, lse, dout, causal=True, q_offset=0):
         calls.append(("backward", tuple(q.shape), tuple(k.shape),
-                      bool(causal), q.dtype))
+                      bool(causal), q.dtype, q_offset))
         grads = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         delta = _meta(q.shape[:3], torch.float32)  # noqa: F841 the
         return grads  # kernel's scratch, live until it returns
@@ -458,12 +521,20 @@ def _flash_stand_ins():
          flash_ops.flash_attention_backward_kernel) = saved
 
 
+def causal_pairs(Lq: int, Lk: int, q_offset: int = 0) -> int:
+    """The (query, key) pairs a causal call keeps: row i (at absolute
+    position ``q_offset + i``) keeps keys 0 .. min(q_offset + i, Lk - 1)."""
+    full = max(0, min(Lq, Lk - q_offset))  # rows short of the last key
+    pairs = full * q_offset + full * (full + 1) // 2
+    return pairs + (Lq - full) * Lk
+
+
 def _flash_costs(calls) -> tuple:
     """(flops by dtype, forward flops, bytes) of the flash calls noted on
     meta."""
     flops, forward, moved = defaultdict(int), 0, 0
-    for kind, (B, Hq, Lq, dh), (_, Hkv, Lk, _), causal, dtype in calls:
-        pairs = Lq * (Lq + 1) // 2 if causal and Lq == Lk else Lq * Lk
+    for kind, (B, Hq, Lq, dh), (_, Hkv, Lk, _), causal, dtype, off in calls:
+        pairs = causal_pairs(Lq, Lk, off) if causal else Lq * Lk
         f = 4 * dh * B * Hq * pairs
         q = B * Hq * Lq * dh * dtype.itemsize
         kv = B * Hkv * Lk * dh * dtype.itemsize
@@ -499,12 +570,15 @@ def _tree_bytes(shapes: dict, numel=None) -> int:
                for k, (s, d) in shapes.items())
 
 
-def _train_cell(cfg, cell, mesh, microbatches, opt_cfg, log, gathered):
-    """(step thunk, resting tensors, split, rows) of a train cell on rank
-    0 of ``mesh``."""
+def _train_cell(cfg, cell, mesh, microbatches, opt_cfg, log, gathered,
+                notes):
+    """(step thunk, resting tensors, split, rows, whether the step splits
+    over "model") of a train cell on rank 0 of ``mesh``; the split step's
+    notes go to ``notes`` (``_MetaGathers``)."""
     shapes = lm.param_shapes(cfg)
     rows = _local_rows(cell, mesh)
     batch = _spec_tensors(input_specs(cfg, cell), rows)
+    split_step = False
     if mesh_size(mesh) == 1:
         params = lm.params_from_leaves(
             cfg, {k: _meta(s, d) for k, (s, d) in shapes.items()})
@@ -528,7 +602,11 @@ def _train_cell(cfg, cell, mesh, microbatches, opt_cfg, log, gathered):
             step=_meta((), torch.int32))
         step = step_fns.make_sharded_train_step(
             cfg, opt_cfg, mm, microbatches,
-            _leaves=_MetaLeaves(pl.params, shapes, mm, log, gathered))
+            _leaves=_MetaLeaves(pl.params, shapes, mm, log, gathered),
+            _gathers=functools.partial(_MetaGathers, notes))
+        # over one model rank the gathered step: the whole tree's copy
+        split_step = mesh_shape(mesh).get("model", 1) > 1
+    tp = mesh_shape(mesh).get("model", 1)
     n_local = {k: math.prod(s) for k, s in local.items()}
     n_full = sum(math.prod(s) for s, _ in shapes.values())
     g_size = 4 if microbatches > 1 else cfg.param_dtype.itemsize
@@ -539,11 +617,13 @@ def _train_cell(cfg, cell, mesh, microbatches, opt_cfg, log, gathered):
         gathered_params=sum(math.prod(s) * d.itemsize
                             for k, (s, d) in shapes.items()
                             if tuple(local[k]) != tuple(s)),
-        logits=rows // microbatches * cell.seq_len * cfg.vocab_size
+        # this rank's vocabulary block where the split step splits it
+        logits=rows // microbatches * cell.seq_len * (
+            cfg.vocab_size // tp if vocab_split(cfg, tp) else cfg.vocab_size)
         * cfg.compute_dtype.itemsize)
     resting = list(step_fns.state_leaves(state).values()) + \
         list(_tensors(batch))
-    return (lambda: step(state, batch)), resting, split, rows
+    return (lambda: step(state, batch)), resting, split, rows, split_step
 
 
 def _serve_cell(cfg, cell, mesh, log, gathered):
@@ -639,11 +719,11 @@ def estimate(cfg, cell: ShapeCell, mesh, microbatches: int = 1,
     what is counted and how."""
     opt_cfg = opt_cfg or AdamWConfig()
     t0 = time.time()
-    log, gathered = _Collectives(), set()
+    log, gathered, notes = _Collectives(), set(), {}
+    split_step = False
     if cell.mode == "train":
-        run, resting, split, rows = _train_cell(cfg, cell, mesh,
-                                                microbatches, opt_cfg, log,
-                                                gathered)
+        run, resting, split, rows, split_step = _train_cell(
+            cfg, cell, mesh, microbatches, opt_cfg, log, gathered, notes)
     else:
         microbatches = 1
         run, resting, split, rows = _serve_cell(cfg, cell, mesh, log,
@@ -666,6 +746,7 @@ def estimate(cfg, cell: ShapeCell, mesh, microbatches: int = 1,
 
     counter = FlopCounterMode(display=False)
     tally = _Tally(counter, static)
+    notes.update(tally=tally, pack=pack)
     with log.patched(mesh_size(mesh)), _flash_stand_ins() as calls, \
             counter, tally, _Tagger(), \
             torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
@@ -701,6 +782,9 @@ def estimate(cfg, cell: ShapeCell, mesh, microbatches: int = 1,
     peak = argument_bytes + tally.peak
     split.update(activations=sum(saved_by.values()) // microbatches,
                  peak=peak)
+    if split_step:  # what the split step held, measured
+        split.update(gathered_params=tally.gathered_peak,
+                     full_grads=notes["largest_open"])
     return {
         "arch": cfg.name, "shape": cell.name,
         "mesh": "x".join(str(v) for v in mesh_shape(mesh).values()),
@@ -806,8 +890,8 @@ TABLE_COLUMNS = ["arch", "shape", "mesh", "mode", "compute_s", "memory_s",
                  "collective_s", "dominant", "useful_ratio",
                  "peak_GiB_per_dev", "note"]
 NOTES = {
-    "compute": "tensor-parallel compute over model: a model row's ranks "
-               "compute the same step today",
+    "compute": "train: the split's redundant part (mixers, KV heads "
+               "shared, sp's keys); serving: sharded serving (16.2c)",
     "memory": "fuse the elementwise chains eager runs one op at a time",
     "collective": "keep parameters and caches sharded through the step, "
                   "not gathered whole",

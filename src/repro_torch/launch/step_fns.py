@@ -13,16 +13,30 @@ Over a ``("data", "model")`` ``DeviceMesh`` (``shard_state``,
 shards its placements name (``train_state_specs`` through
 ``launch.shardings``: FSDP over "data", TP over "model"): parameters and
 AdamW's moments as ``DTensor``s, the step counters and the telemetry
-replicated. The step gathers every parameter (``full_tensor``, no
-gradient), runs the forward and backward on plain tensors under the
-mesh's sharding context (this rank's rows of the batch; the loss and the
-MoE's global quantities through ``dp_sum``, so every rank computes the
-global loss and its gradient share), sums the gradients over the data
-ranks, keeps each leaf's slice of its placements and updates the shards.
-A model row's ranks compute the same step; TP-split compute over "model"
-is a later item. The global gradient norm counts each element once.
-``fully_shard`` (FSDP2) is not used: it gathers in hooks on a module's
-``forward``, and a ``ParamTree`` is never called.
+replicated. The step runs the forward and backward on plain tensors under
+the mesh's sharding context (this rank's rows of the batch; the loss and
+the MoE's global quantities through ``dp_sum``, so every rank computes
+the global loss and its gradient share) and updates the shards. The
+global gradient norm counts each element once. ``fully_shard`` (FSDP2) is
+not used: it gathers in hooks on a module's ``forward``, and a
+``ParamTree`` is never called.
+
+With one model rank the step gathers every parameter whole
+(``full_tensor``), sums the gradients over the data ranks and keeps each
+leaf's slice. With several it splits the compute over "model" as the
+reference's layout does (Megatron's tensor parallelism; the model
+modules' ``*_tp_uses`` and ``distributed.sharding_ctx``): it hands each
+layer its parameters as the layer opens (``_LayerGathers``): a split
+leaf's model shard gathered over "data" alone, any other leaf whole; a
+layer's gathered copies are freed when its forward ends and gathered
+again for its backward (``torch.autograd.graph.saved_tensors_hooks``), so
+at most about two layers' copies are live at a time. Each leaf's gradient
+reaches its resting shard inside the backward: summed over "data" (and
+over "model" first for a "partial" leaf, whose ranks each computed a
+part: the "sp" fallback's whole weights, per-head norms, a KV head shared
+by several ranks' query heads), then sliced. A leaf computed the same on
+every model rank (the recurrent mixers, norms, router) is sliced with no
+sum over "model".
 
 A train state's trees are flat dicts keyed by the parameters' dotted
 names (``dict(params.named_parameters())``, e.g. ``layers.3.attn.wq``);
@@ -34,6 +48,7 @@ state).
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, NamedTuple
 
 import numpy as np
@@ -44,7 +59,7 @@ from repro_torch.core.types import resolve_device
 from repro_torch.distributed.sharding_ctx import (local_slice,
                                                   use_sharding_ctx)
 from repro_torch.launch import shardings
-from repro_torch.launch.mesh import mesh_axes
+from repro_torch.launch.mesh import axis_names, mesh_axes
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.moe import TELEMETRY_BUCKETS
@@ -337,17 +352,218 @@ class _DTensorLeaves:
         return leaf.placements
 
 
+class _LeafPlan:
+    """How the tensor-parallel step hands one leaf to its layer: the mesh
+    axes to gather its shard over (``(group, size, coordinate, dim)``,
+    mesh order) and the groups to sum its gradient over."""
+
+    def __init__(self, placements, use: str, ctx, mesh):
+        from torch.distributed.tensor import Shard
+
+        names = axis_names(mesh)
+        coord = mesh.get_coordinate()
+        self.gather = []
+        model_split = False
+        for i, p in enumerate(placements):
+            if not isinstance(p, Shard) or mesh.size(i) == 1:
+                continue
+            if names[i] == "model" and use == "split":
+                model_split = True
+                continue
+            self.gather.append((ctx.group(names[i]), mesh.size(i), coord[i],
+                                p.dim))
+        if use == "split" and not model_split:
+            raise ValueError("a split leaf must rest sharded over 'model'")
+        self.sums = []
+        if use == "partial":
+            self.sums.append(ctx.model_group())
+        if ctx.dp_size > 1:
+            self.sums.append(ctx.dp_group())
+
+    @property
+    def moves(self) -> bool:
+        return bool(self.gather or self.sums)
+
+    def gather_shard(self, shard):
+        """The shard whole over ``gather``'s axes (the minor axis first)."""
+        t = shard
+        for group, n, _, dim in reversed(self.gather):
+            t = t.contiguous()
+            parts = [torch.empty_like(t) for _ in range(n)]
+            dist.all_gather(parts, t, group=group)
+            t = torch.cat(parts, dim)
+        return t
+
+    def reduce(self, g):
+        """The gradient of the gathered copy to the shard's: summed over
+        ``sums``, then this rank's slice (a copy: the whole goes)."""
+        if self.sums:
+            g = g.contiguous().clone()  # all_reduce writes in place
+            for group in self.sums:
+                dist.all_reduce(g, group=group)
+        for _, n, index, dim in self.gather:
+            g = g.chunk(n, dim)[index]
+        return g.clone(memory_format=torch.contiguous_format) \
+            if self.gather else g
+
+
+class _GatherLeaf(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, shard, plan):
+        ctx.plan = plan
+        return plan.gather_shard(shard) if plan.gather else \
+            shard.view_as(shard)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.plan.reduce(g), None
+
+
+class _Regather(NamedTuple):
+    shard: torch.Tensor
+    plan: _LeafPlan
+    size: tuple
+    stride: tuple
+    offset: int
+
+
+class _LayerGathers:
+    """The tensor-parallel step's parameter source (``ctx.params_source``):
+    ``open`` hands a layer its leaves as ``uses`` asks and drops them when
+    the layer's forward ends; a tensor the backward saves from a layer's
+    gathered copy is kept as a note and gathered again when the backward
+    reads it."""
+
+    def __init__(self, ctx, mesh, params, placements: dict):
+        self.ctx, self.mesh = ctx, mesh
+        self.name = {id(p): k for k, p in params.named_parameters()}
+        self.placements = placements
+        self.plans: dict = {}
+        self.live: dict = {}  # storage of an open layer's copy -> (shard, plan)
+
+    def plan(self, name: str, use: str) -> _LeafPlan:
+        key = (name, use)
+        if key not in self.plans:
+            self.plans[key] = _LeafPlan(self.placements[name], use,
+                                        self.ctx, self.mesh)
+        return self.plans[key]
+
+    @contextlib.contextmanager
+    def open(self, tree, uses: dict, keys=None):
+        opened, mine = {}, []
+        for rel, shard in tree.named_parameters():
+            if keys is not None and rel.split(".", 1)[0] not in keys:
+                continue
+            plan = self.plan(self.name[id(shard)], uses.get(rel, "full"))
+            t = _GatherLeaf.apply(shard, plan) if plan.moves else shard
+            if plan.gather:
+                key = t.untyped_storage()._cdata
+                self.live[key] = (shard, plan)
+                mine.append(key)
+            *path, last = rel.split(".")
+            node = opened
+            for p in path:
+                node = node.setdefault(p, {})
+            node[last] = t
+        try:
+            yield opened
+        finally:
+            for key in mine:
+                self.live.pop(key, None)
+            opened.clear()
+
+    def pack(self, t):
+        hit = self.live.get(t.untyped_storage()._cdata)
+        if hit is None:
+            return t
+        return _Regather(hit[0], hit[1], tuple(t.size()), tuple(t.stride()),
+                         t.storage_offset())
+
+    def unpack(self, obj):
+        if not isinstance(obj, _Regather):
+            return obj
+        with torch.no_grad():
+            full = obj.plan.gather_shard(obj.shard)
+        return full.as_strided(obj.size, obj.stride, obj.offset)
+
+    @contextlib.contextmanager
+    def installed(self):
+        self.ctx.params_source = self
+        try:
+            with torch.autograd.graph.saved_tensors_hooks(self.pack,
+                                                          self.unpack):
+                yield
+        finally:
+            self.ctx.params_source = None
+            self.live.clear()
+
+
+def _split_grads(cfg, mesh, ctx, microbatches, leaves, gathers, state,
+                 batch):
+    """(loss, aux, {name: gradient of this rank's shard}, placements) of
+    the tensor-parallel step (the module docstring)."""
+    shards = dict(state.params.named_parameters())
+    placements = {k: leaves.placements(k, p) for k, p in shards.items()}
+    params = lm.params_from_leaves(
+        cfg, {k: leaves.local(p).detach() for k, p in shards.items()}
+    ).requires_grad_(True)
+    source = gathers(ctx, mesh, params, placements)
+    with source.installed():
+        loss, aux, grads = _accumulate(cfg, params, batch, microbatches)
+    return loss, aux, grads, placements
+
+
+def sharded_grads(cfg: ModelConfig, state: TrainState, batch, mesh,
+                  microbatches: int = 1):
+    """(loss, aux, {name: gradient of this rank's shard}) of the sharded
+    step over a mesh with several model ranks, without the update: what
+    ``make_sharded_train_step`` hands AdamW (the tests and the card's
+    check hold it to the one-device gradient)."""
+    with use_sharding_ctx(mesh) as ctx:
+        if ctx.tp_size == 1:
+            raise ValueError("sharded_grads splits over 'model': the mesh "
+                             "has one model rank")
+        loss, aux, grads, _ = _split_grads(cfg, mesh, ctx, microbatches,
+                                           _DTensorLeaves, _LayerGathers,
+                                           state, batch)
+    return loss, aux, grads
+
+
+def _split_step(cfg, opt_cfg, mesh, ctx, microbatches, leaves, gathers,
+                state, batch):
+    """The step over several model ranks (the module docstring)."""
+    shards = dict(state.params.named_parameters())
+    loss, aux, grads, placements = _split_grads(cfg, mesh, ctx, microbatches,
+                                                leaves, gathers, state, batch)
+    gnorm = _norm_of_shards(grads, placements, mesh)
+    with torch.no_grad():
+        _, opt, stats = apply_updates(
+            opt_cfg, {k: leaves.local(p) for k, p in shards.items()}, grads,
+            {"mu": {k: leaves.local(v) for k, v in state.opt["mu"].items()},
+             "nu": {k: leaves.local(v) for k, v in state.opt["nu"].items()},
+             "step": state.opt["step"]}, grad_norm=gnorm)
+    del grads
+    opt = dict(state.opt, step=opt["step"])
+    return _finish(cfg, state, opt, loss, aux, stats)
+
+
 def make_sharded_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh,
-                            microbatches: int = 1, _leaves=_DTensorLeaves):
+                            microbatches: int = 1, _leaves=_DTensorLeaves,
+                            _gathers=_LayerGathers):
     """f(state, batch) -> (state, metrics) over ``mesh`` (a ``DeviceMesh``
     over every rank of the group): ``state`` from ``shard_state``,
     ``batch`` this rank's rows (``local_rows``). The metrics are the
-    global ones, the same on every rank. ``_leaves`` is a seam for the
-    cell estimator alone (``launch.dryrun`` passes meta shards whose
-    gathers it records); every other caller leaves it as it is."""
+    global ones, the same on every rank. ``_leaves`` (the state's reader)
+    and ``_gathers`` (the split step's parameter source) are seams for the
+    cell estimator alone (``launch.dryrun`` passes meta shards and a
+    source that notes what it gathers and saves); every other caller
+    leaves them as they are."""
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         with use_sharding_ctx(mesh) as ctx:
+            if ctx.tp_size > 1:
+                return _split_step(cfg, opt_cfg, mesh, ctx, microbatches,
+                                   _leaves, _gathers, state, batch)
             shards = dict(state.params.named_parameters())
             with torch.no_grad():
                 full = {k: _leaves.full(k, p) for k, p in shards.items()}

@@ -30,7 +30,9 @@ With ``mesh=`` (a ``DeviceMesh`` over every rank of this process's group;
 CLI ``--mesh DATA[xMODEL]`` spawns the ranks through
 ``distributed.ranks.spawn_ranks``: NCCL, one card a rank, or gloo on the
 CPU) the state rests sharded and the step is ``make_sharded_train_step``
-under the mesh's sharding context. Every rank draws the same state from
+under the mesh's sharding context: with several model ranks it splits the
+compute over "model" (``split_summary`` is the start line that says how
+each layer splits). Every rank draws the same state from
 the seed and reads the same pipeline; each data rank takes its rows of
 the global batch (``local_rows``). Rank 0 alone logs, keeps the router
 telemetry and writes the checkpoints (full leaves, gathered by every
@@ -58,6 +60,9 @@ from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
 from repro_torch.distributed.checkpoint import CheckpointManager
 from repro_torch.distributed.ranks import spawn_ranks
 from repro_torch.launch.mesh import make_smoke_mesh, mesh_size
+from repro_torch.models import lm
+from repro_torch.models.attention import attn_mode
+from repro_torch.models.layers import mlp_split, vocab_split
 from repro_torch.launch.step_fns import (full_state_leaves, init_train_state,
                                          load_state_leaves, local_rows,
                                          make_sharded_train_step,
@@ -65,6 +70,35 @@ from repro_torch.launch.step_fns import (full_state_leaves, init_train_state,
                                          state_leaves)
 from repro_torch.optim import AdamWConfig
 from repro_torch.telemetry import CapacityController, RouterTelemetry
+
+
+def split_summary(cfg, tp: int, seq_len: int) -> str:
+    """How the step splits each layer over ``tp`` model ranks at
+    ``seq_len``: the attention layers by heads, by query rows ("sp") or
+    whole, the recurrent mixers whole, the MLPs and the vocabulary."""
+    dec, enc = lm.plans(cfg)
+    plans = dec.layers + (enc.layers if enc else [])
+    L = seq_len + (cfg.frontend_len if cfg.frontend == "vision" else 0)
+    attn = {"heads": 0, "sp": 0, "none": 0}
+    for p in plans:
+        if p.kind == "attn":
+            attn[attn_mode(cfg.n_heads, L, tp)] += 1
+    mixers = sum(p.kind != "attn" for p in plans)
+    dense = sum(p.mlp == "dense" for p in plans)
+    moe = sum(p.mlp == "moe" for p in plans)
+    parts = [f"attention by heads {attn['heads']}, by rows (sp) "
+             f"{attn['sp']}, whole {attn['none']}"]
+    if mixers:
+        parts.append(f"recurrent mixers whole {mixers}")
+    if dense:
+        parts.append(f"MLPs {'split' if mlp_split(cfg.d_ff, tp) else 'whole'}"
+                     f" {dense}")
+    if moe:
+        parts.append(f"MoE experts "
+                     f"{'by rank' if cfg.n_experts % tp == 0 else 'whole'} "
+                     f"{moe}")
+    parts.append(f"vocabulary {'split' if vocab_split(cfg, tp) else 'whole'}")
+    return f"tensor parallel over {tp} model ranks: " + "; ".join(parts)
 
 
 def train(arch: str = "smollm-135m", steps: int = 100, smoke: bool = True,
@@ -117,6 +151,9 @@ def train(arch: str = "smollm-135m", steps: int = 100, smoke: bool = True,
         leaves_of = full_state_leaves
         n_data = mesh.size(0)
         row = mesh.get_coordinate()[0]
+        if lead and mesh.size(1) > 1:
+            print(f"[train] {cfg.name} on a {n_data} x {mesh.size(1)} mesh, "
+                  f"{split_summary(cfg, mesh.size(1), seq_len)}")
 
     start = 0
     cursor = 0

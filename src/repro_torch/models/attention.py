@@ -15,6 +15,20 @@ W_uk, scores read the compressed cache directly). Cross attention (the
 encoder-decoder's) is non-causal ``_masked_attention`` over the encoder's
 memory.
 
+Tensor parallelism (the sharded train step, ``tp_split() > 1``): a layer
+whose heads divide the model ranks runs this rank's heads (``wq``/``wo``
+its columns and rows; ``wk``/``wv`` its KV heads' columns where the KV
+heads divide too, else the whole weights, from which it takes the KV
+heads its query heads read) between ``tp_copy`` and ``tp_sum``, the flash
+kernel on ``[B, H/tp, L, dh]``. Where the heads do not divide, the
+reference's resolver puts "sp" on the query axis: rank r projects the
+queries of rows ``[r L/tp, (r+1) L/tp)`` and the keys and values of all
+rows with the whole weights, attends with ``q_offset = r L/tp``, applies
+``wo`` and joins the blocks of rows by ``tp_gather``; the whole weights'
+gradients are then this rank's part ("partial"). Where L does not divide
+either, the layer computes whole on every rank. ``*_tp_uses`` say how
+each layer takes its parameters (``sharding_ctx.open_params``).
+
 Activations are ``[B, L, H, dh]``; the flash wrapper takes ``[B, H, L,
 dh]``; GQA caches are ``{"k": [B, S, KV, dh], "v": ..., "pos": [B]
 int32}``, MLA's ``{"ckv": [B, S, r], "krope": [B, S, rope_dim], "pos"}``.
@@ -24,6 +38,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.sharding_ctx import (tp_copy, tp_gather,
+                                                  tp_rank, tp_split, tp_sum)
 from repro_torch.kernels.flash_attention.ops import \
     attention as flash_attention
 
@@ -52,23 +68,38 @@ def gqa_defs(cfg: ModelConfig):
     return defs
 
 
-def _project_qkv(params, x, cfg: ModelConfig, positions):
-    B, L, _ = x.shape
-    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = x @ params["wq"]
-    k = x @ params["wk"]
-    v = x @ params["wv"]
-    if cfg.qkv_bias:
-        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    q = q.reshape(B, L, H, dh)
-    k = k.reshape(B, L, KV, dh)
-    v = v.reshape(B, L, KV, dh)
+def _heads(x, w, b, dh: int):
+    y = x @ w
+    if b is not None:
+        y = y + b
+    return y.reshape(*x.shape[:2], -1, dh)
+
+
+def _norm_rope(params, t, norm: str, cfg: ModelConfig, positions):
     if cfg.qk_norm:
-        q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
-        k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+        t = rmsnorm(params[norm], t, cfg.norm_eps)
+    return apply_rope(t, positions, cfg.rope_theta)
+
+
+def _bias(params, name: str, cfg: ModelConfig):
+    return params[name] if cfg.qkv_bias else None
+
+
+def _project_q(params, x, cfg: ModelConfig, positions):
+    q = _heads(x, params["wq"], _bias(params, "bq", cfg), cfg.head_dim)
+    return _norm_rope(params, q, "q_norm", cfg, positions)
+
+
+def _project_kv(params, x, cfg: ModelConfig, positions):
+    dh = cfg.head_dim
+    k = _heads(x, params["wk"], _bias(params, "bk", cfg), dh)
+    v = _heads(x, params["wv"], _bias(params, "bv", cfg), dh)
+    return _norm_rope(params, k, "k_norm", cfg, positions), v
+
+
+def _project_qkv(params, x, cfg: ModelConfig, positions):
+    return (_project_q(params, x, cfg, positions),
+            *_project_kv(params, x, cfg, positions))
 
 
 CHUNKED_ATTN_THRESHOLD = 8192  # above this, q is processed in blocks
@@ -96,8 +127,9 @@ def _attn_block(qh, kh, vh, q_offset, dh, causal, window,
 
 
 def _masked_attention(q, k, v, causal=True, window=0,
-                      mat_dtype=torch.float32):
-    """q: [B,L,H,dh]; k/v: [B,Lk,KV,dh].
+                      mat_dtype=torch.float32, q_offset=0):
+    """q: [B,L,H,dh]; k/v: [B,Lk,KV,dh]; query row i at absolute position
+    ``q_offset + i``.
 
     Sequences longer than ``CHUNKED_ATTN_THRESHOLD`` run q in chunks of up
     to 1,024 rows, so a score tensor is [B,H,chunk,S] instead of
@@ -108,13 +140,15 @@ def _masked_attention(q, k, v, causal=True, window=0,
     kh = k.transpose(1, 2).repeat_interleave(group, dim=1).float()
     vh = v.transpose(1, 2).repeat_interleave(group, dim=1).float()
     if L <= CHUNKED_ATTN_THRESHOLD:
-        out = _attn_block(qh, kh, vh, 0, dh, causal, window, mat_dtype)
+        out = _attn_block(qh, kh, vh, q_offset, dh, causal, window,
+                          mat_dtype)
     else:
         chunk = 1024
         while L % chunk:
             chunk //= 2
-        out = torch.cat([_attn_block(qh[:, :, a:a + chunk], kh, vh, a, dh,
-                                     causal, window, mat_dtype)
+        out = torch.cat([_attn_block(qh[:, :, a:a + chunk], kh, vh,
+                                     q_offset + a, dh, causal, window,
+                                     mat_dtype)
                          for a in range(0, L, chunk)], dim=2)
     return out.transpose(1, 2).to(q.dtype)
 
@@ -128,20 +162,127 @@ def causal_mask(L: int, window: int = 0, device=None):
     return m
 
 
+# ---- tensor parallelism over "model" --------------------------------------
+
+def attn_mode(n_heads: int, L: int, tp: int) -> str:
+    """How a layer of ``n_heads`` heads over L query rows splits over
+    ``tp`` model ranks, as the reference resolves ("dp", "tp", "sp", None)
+    on its scores: "heads" where the heads divide, else "sp" (blocks of
+    query rows) where L divides, else "none" (whole on every rank)."""
+    if tp <= 1:
+        return "none"
+    if n_heads % tp == 0:
+        return "heads"
+    return "sp" if L % tp == 0 else "none"
+
+
+def _leaf_names(defs: dict, prefix: str = "") -> list:
+    out = []
+    for k, d in defs.items():
+        out += _leaf_names(d, f"{prefix}{k}.") if isinstance(d, dict) \
+            else [f"{prefix}{k}"]
+    return out
+
+
+def gqa_tp_uses(cfg: ModelConfig, tp: int, L: int, cross: bool = False):
+    """How a GQA (or, ``cross``, a cross-attention) layer over L query rows
+    takes its parameters over ``tp`` model ranks."""
+    mode = attn_mode(cfg.n_heads, L, tp)
+    names = _leaf_names(cross_defs(cfg) if cross else gqa_defs(cfg))
+    if mode == "none":
+        return {}
+    if mode == "sp":
+        return dict.fromkeys(names, "partial")
+    kv = "split" if cfg.n_kv_heads % tp == 0 else "partial"
+    return {n: "split" if n in ("wq", "bq", "wo") else
+            kv if n in ("wk", "wv", "bk", "bv") else "partial"
+            for n in names}
+
+
+def _kv_heads(cfg: ModelConfig, tp: int, rank: int) -> tuple:
+    """(first, count, index) of the KV heads that rank's query heads read
+    when the KV heads do not divide the ranks: query head ``rank H/tp + i``
+    reads local KV head ``index[i]``, or ``i // (H/tp / count)`` (the flash
+    kernel's grouping) where ``index`` is None."""
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    Hl, g = H // tp, H // KV
+    a = rank * Hl
+    lo = a // g
+    n = (a + Hl - 1) // g + 1 - lo
+    idx = [(a + i) // g - lo for i in range(Hl)]
+    grouped = Hl % n == 0 and idx == [i // (Hl // n) for i in range(Hl)]
+    return lo, n, None if grouped else idx
+
+
+def _local_kv_params(params, cfg: ModelConfig, tp: int) -> tuple:
+    """In head mode, ``params`` with ``wk``/``wv`` (``bk``/``bv``) cut to
+    the KV heads this rank reads, and the query heads' index into them
+    (None: grouped). Where the KV heads divide the ranks the step already
+    handed over this rank's shards."""
+    if cfg.n_kv_heads % tp == 0:
+        return params, None
+    lo, n, idx = _kv_heads(cfg, tp, tp_rank())
+    cols = slice(lo * cfg.head_dim, (lo + n) * cfg.head_dim)
+    out = dict(params, wk=params["wk"][:, cols], wv=params["wv"][:, cols])
+    if cfg.qkv_bias:
+        out.update(bk=params["bk"][cols], bv=params["bv"][cols])
+    return out, idx
+
+
+def _by_query_head(t, idx):
+    return t if idx is None else t[:, :, idx]
+
+
+def _attend(q, k, v, cfg: ModelConfig, window: int, q_offset: int = 0):
+    """Causal attention of q ``[B, Lq, Hq, dh]`` (rows from ``q_offset``)
+    over k, v ``[B, L, Hkv, dh]``: the flash kernel for a global layer
+    when ``cfg.attn_impl == "kernel"``, else the masked attention."""
+    if cfg.attn_impl == "kernel" and window == 0:
+        return flash_attention(q.transpose(1, 2).contiguous(),
+                               k.transpose(1, 2).contiguous(),
+                               v.transpose(1, 2).contiguous(), causal=True,
+                               q_offset=q_offset).transpose(1, 2)
+    return _masked_attention(q, k, v, causal=True, window=window,
+                             mat_dtype=cfg.attn_mat_dtype, q_offset=q_offset)
+
+
+def _query_rows(x, L: int, tp: int, mode: str) -> tuple:
+    """(x entering a split block, the rows of it this rank queries from,
+    the first one's position): all rows but in "sp", there this rank's
+    block of L/tp."""
+    if mode != "none":
+        x = tp_copy(x)
+    if mode != "sp":
+        return x, x, 0
+    off = tp_rank() * (L // tp)
+    return x, x[:, off:off + L // tp], off
+
+
+def _tp_join(y, mode: str):
+    """Leave a split block: the ranks' partial outputs summed in head
+    mode, their blocks of rows joined in "sp"."""
+    if mode == "heads":
+        return tp_sum(y)
+    return tp_gather(y, 1) if mode == "sp" else y
+
+
 def gqa_train(params, x, cfg: ModelConfig, window: int = 0):
-    B, L, D = x.shape
+    """Split over the model ranks as the module docstring says: this
+    rank's query heads (head mode) or query rows ("sp")."""
+    B, L, _ = x.shape
+    tp = tp_split()
+    mode = attn_mode(cfg.n_heads, L, tp)
+    x, xq, off = _query_rows(x, L, tp, mode)
+    Lq = xq.shape[1]
+    kvp, idx = (_local_kv_params(params, cfg, tp) if mode == "heads"
+                else (params, None))
     positions = torch.arange(L, dtype=torch.int32,
                              device=x.device).expand(B, L)
-    q, k, v = _project_qkv(params, x, cfg, positions)
-    if cfg.attn_impl == "kernel" and window == 0:
-        out = flash_attention(q.transpose(1, 2).contiguous(),
-                              k.transpose(1, 2).contiguous(),
-                              v.transpose(1, 2).contiguous(),
-                              causal=True).transpose(1, 2)
-    else:
-        out = _masked_attention(q, k, v, causal=True, window=window,
-                                mat_dtype=cfg.attn_mat_dtype)
-    return out.reshape(B, L, cfg.n_heads * cfg.head_dim) @ params["wo"]
+    q = _project_q(params, xq, cfg, positions[:, off:off + Lq])
+    k, v = _project_kv(kvp, x, cfg, positions)
+    out = _attend(q, _by_query_head(k, idx), _by_query_head(v, idx), cfg,
+                  window, off)
+    return _tp_join(out.reshape(B, Lq, -1) @ params["wo"], mode)
 
 
 def gqa_decode(params, x, cache, cfg: ModelConfig, window: int = 0):
@@ -240,24 +381,45 @@ def _mla_kv_new(params, x, cfg: ModelConfig, positions):
     return c_kv, k_rope
 
 
+def mla_tp_uses(cfg: ModelConfig, tp: int, L: int) -> dict:
+    """How an MLA layer over L rows takes its parameters over ``tp`` model
+    ranks: in head mode this rank's heads of the up-projections and ``wo``,
+    the compressed KV, its RoPE key and the query's down-projection whole
+    (each rank's gradient a part); in "sp" every weight whole."""
+    mode = attn_mode(cfg.n_heads, L, tp)
+    if mode == "none":
+        return {}
+    names = _leaf_names(mla_defs(cfg))
+    if mode == "sp":
+        return dict.fromkeys(names, "partial")
+    split = ("w_uk", "w_uv", "wo", "w_uq", "wq")
+    return {n: "split" if n in split else "partial" for n in names}
+
+
 def mla_train(params, x, cfg: ModelConfig):
     """MLA full-sequence attention: the decoupled-RoPE score q_nope.k_nope +
     q_rope.k_rope is one dot over the concatenated [dh ; rope_dim] feature
-    axis (k_rope broadcast per head)."""
+    axis (k_rope broadcast per head). Split over the model ranks as the
+    module docstring says (c_kv and k_rope on every rank)."""
     B, L, D = x.shape
-    H, dh, rd = cfg.n_heads, cfg.head_dim, cfg.rope_dim
+    dh, rd = cfg.head_dim, cfg.rope_dim
+    tp = tp_split()
+    mode = attn_mode(cfg.n_heads, L, tp)
+    x, xq, off = _query_rows(x, L, tp, mode)
+    Lq = xq.shape[1]
     positions = torch.arange(L, dtype=torch.int32,
                              device=x.device).expand(B, L)
-    q_nope, q_rope = _mla_q(params, x, cfg, positions)
+    q_nope, q_rope = _mla_q(params, xq, cfg, positions[:, off:off + Lq])
+    H = q_nope.shape[2]  # this rank's heads in head mode
     c_kv, k_rope = _mla_kv_new(params, x, cfg, positions)
     k_nope = _up(c_kv, params["w_uk"])
     v = _up(c_kv, params["w_uv"])
-    q_cat = torch.cat([q_nope, q_rope], dim=-1)  # [B, L, H, dh + rd]
+    q_cat = torch.cat([q_nope, q_rope], dim=-1)  # [B, Lq, H, dh + rd]
     k_cat = torch.cat([k_nope, k_rope.expand(B, L, H, rd)], dim=-1)
     del k_nope
     out = _masked_attention(q_cat, k_cat, v, causal=True,
-                            mat_dtype=cfg.attn_mat_dtype)
-    return out.reshape(B, L, H * dh) @ params["wo"]
+                            mat_dtype=cfg.attn_mat_dtype, q_offset=off)
+    return _tp_join(out.reshape(B, Lq, H * dh) @ params["wo"], mode)
 
 
 def mla_decode(params, x, cache, cfg: ModelConfig):
@@ -314,13 +476,20 @@ def cross_defs(cfg: ModelConfig):
 
 
 def cross_attention(params, x, memory, cfg: ModelConfig):
-    """x: [B, L, D] decoder states; memory: [B, S, D] encoder output."""
+    """x: [B, L, D] decoder states; memory: [B, S, D] encoder output. Split
+    over the model ranks as GQA (no causal mask: "sp" splits the decoder's
+    rows and reads all of the memory)."""
     B, L, _ = x.shape
-    S = memory.shape[1]
-    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ params["wq"]).reshape(B, L, H, dh)
-    k = (memory @ params["wk"]).reshape(B, S, KV, dh)
-    v = (memory @ params["wv"]).reshape(B, S, KV, dh)
-    out = _masked_attention(q, k, v, causal=False,
-                            mat_dtype=cfg.attn_mat_dtype)
-    return out.reshape(B, L, H * dh) @ params["wo"]
+    tp, dh = tp_split(), cfg.head_dim
+    mode = attn_mode(cfg.n_heads, L, tp)
+    _, xq, _ = _query_rows(x, L, tp, mode)
+    if mode != "none":
+        memory = tp_copy(memory)
+    kvp, idx = (_local_kv_params(params, cfg, tp) if mode == "heads"
+                else (params, None))
+    q = _heads(xq, params["wq"], None, dh)
+    k = _heads(memory, kvp["wk"], None, dh)
+    v = _heads(memory, kvp["wv"], None, dh)
+    out = _masked_attention(q, _by_query_head(k, idx), _by_query_head(v, idx),
+                            causal=False, mat_dtype=cfg.attn_mat_dtype)
+    return _tp_join(out.reshape(B, xq.shape[1], -1) @ params["wo"], mode)

@@ -29,10 +29,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.types import resolve_device
+from repro_torch.distributed.sharding_ctx import open_params, tp_split
 
 from .config import ModelConfig
-from .layers import (embed, embed_defs, rmsnorm, rmsnorm_defs, softmax_xent,
-                     unembed)
+from .layers import (embed, embed_defs, embed_tp_uses, rmsnorm, rmsnorm_defs,
+                     softmax_xent, unembed, vocab_start)
 from .params import ParamTree, init_tree, spec_tree
 from .transformer import (LayerParams, build_plan, layer_defs, stack_apply,
                           stack_cache, stack_decode, stack_specs)
@@ -152,14 +153,19 @@ def encode_memory(cfg: ModelConfig, params: LMParams, frame_emb):
     if params.encoder is None:
         raise ValueError(f"{cfg.name} has no encoder")
     mem, _ = stack_apply(cfg, params.encoder, frame_emb.to(cfg.compute_dtype))
-    return rmsnorm(params["enc_norm"], mem, cfg.norm_eps)
+    with open_params(params, keys=("enc_norm",)) as top:
+        return rmsnorm(top["enc_norm"], mem, cfg.norm_eps)
 
 
 def forward(cfg: ModelConfig, params: LMParams, batch):
     """batch: {tokens [B, S], (prefix_emb [B, P, D] | frame_emb [B, Se,
-    D])}. Returns (logits [B, S, V] at the token positions, aux)."""
+    D])}. Returns (logits [B, S, V] at the token positions, aux); under
+    the sharded train step's vocabulary split, this model rank's
+    ``[B, S, V/tp]`` block (``layers.vocab_start``)."""
     tokens = batch["tokens"]
-    x = embed(params["embed"], tokens, cfg)
+    uses = embed_tp_uses(cfg, tp_split())
+    with open_params(params["embed"], uses, keys=("tok",)) as e:
+        x = embed(e, tokens, cfg)
     memory = None
     if cfg.is_encdec:
         memory = encode_memory(cfg, params, batch["frame_emb"])
@@ -170,18 +176,24 @@ def forward(cfg: ModelConfig, params: LMParams, batch):
         x = torch.cat([pre, x], dim=1)
     x, aux = stack_apply(cfg, params.layers, x, token_ids=tokens,
                          memory=memory)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    with open_params(params, keys=("final_norm",)) as top:
+        x = rmsnorm(top["final_norm"], x, cfg.norm_eps)
     if n_prefix:
         x = x[:, n_prefix:]
-    return unembed(params["embed"], x, cfg), aux
+    with open_params(params["embed"], uses, keys=(
+            "tok" if cfg.tie_embeddings else "unembed",)) as e:
+        return unembed(e, x, cfg), aux
 
 
 def loss_fn(cfg: ModelConfig, params: LMParams, batch):
     """The training loss on ``forward``: token-mean cross entropy against
-    ``batch["labels"]`` (masked by ``batch["mask"]`` where given), plus
-    0.01 lb_loss + 1e-3 z_loss for a MoE config. Returns (loss, aux)."""
+    ``batch["labels"]`` (masked by ``batch["mask"]`` where given; over the
+    model ranks' vocabulary blocks where the sharded train step splits the
+    logits), plus 0.01 lb_loss + 1e-3 z_loss for a MoE config. Returns
+    (loss, aux)."""
     logits, aux = forward(cfg, params, batch)
-    loss = softmax_xent(logits, batch["labels"], batch.get("mask"))
+    loss = softmax_xent(logits, batch["labels"], batch.get("mask"),
+                        vocab_start=vocab_start(cfg))
     if cfg.n_experts:
         loss = loss + 0.01 * aux["lb_loss"] + 1e-3 * aux["z_loss"]
     return loss, aux

@@ -18,8 +18,15 @@ Where the experts resolve onto "model" ("ep", the weights' TP axis), the
 ranks of one model row hold the same packed buffer, so the reference's
 first all-to-all is a slice: a rank runs only its own block of experts,
 and the second is an all-gather over the model group. The two are each
-other's gradient (a model row's compute is redundant, so the gathered
-output's gradient is the same on its ranks). The global quantities come
+other's gradient: the layer's input and output lie on the residual
+stream, which is the same on every rank of a model row under tensor
+parallelism too (the split blocks end in ``tp_sum`` and begin with
+``tp_copy``, whose backward completes the input's gradient), so the
+gathered output's gradient is the same on those ranks. The sharded train
+step hands a rank its own experts' weights (``moe_tp_uses``); a whole
+tree (one device, or a caller's own) is cut here. The router is whole on
+every rank and the shared expert is the split MLP (``layers.mlp`` with its
+width). The global quantities come
 from sums over dp (``dp_sum``): ``density`` (a bincount), ``router_prob``
 and the z-loss (means), ``dropped`` and the telemetry; ``lb_loss`` is their
 product, so it is not a mean of the shards' values.
@@ -37,7 +44,7 @@ import torch.nn.functional as F
 from repro_torch.distributed.sharding_ctx import current, dp_sum
 
 from .config import ModelConfig
-from .layers import mlp, mlp_defs
+from .layers import mlp, mlp_defs, mlp_tp_uses
 from .params import FSDP, TP, ParamDef
 
 TELEMETRY_BUCKETS = 256  # token-hash buckets for the routing stream
@@ -54,6 +61,19 @@ def moe_defs(cfg: ModelConfig):
     if cfg.n_shared_experts:
         defs["shared"] = mlp_defs(cfg, cfg.moe_d_ff * cfg.n_shared_experts)
     return defs
+
+
+def moe_tp_uses(cfg: ModelConfig, tp: int) -> dict:
+    """How the layer takes its parameters over ``tp`` model ranks: this
+    rank's experts where they divide (expert parallelism), the shared
+    expert as the split MLP, the router whole."""
+    uses = {}
+    if tp > 1 and cfg.n_experts % tp == 0:
+        uses.update(dict.fromkeys(("w_gate", "w_up", "w_down"), "split"))
+    if cfg.n_shared_experts:
+        uses.update({f"shared.{k}": v for k, v in mlp_tp_uses(
+            cfg.moe_d_ff * cfg.n_shared_experts, tp).items()})
+    return uses
 
 
 def zero_aux(cfg: ModelConfig, device) -> dict:
@@ -153,7 +173,8 @@ def moe(params, x, cfg: ModelConfig, token_ids=None,
     block = _expert_block(ctx, E, cap, D)
     if block is not None:  # expert parallelism: this rank's experts only
         xe = _ExpertSlice.apply(xe, *block)
-        ws = [w.chunk(block[1], 0)[block[0]] for w in ws]
+        if ws[0].shape[0] == E:  # a whole tree: cut this rank's experts
+            ws = [w.chunk(block[1], 0)[block[0]] for w in ws]
     g = torch.bmm(xe, ws[0])  # [E, cap, F]
     u = torch.bmm(xe, ws[1])
     del xe
@@ -168,7 +189,8 @@ def moe(params, x, cfg: ModelConfig, token_ids=None,
     y = (back.reshape(N, K, D) * gate_vals[..., None].to(ye.dtype)).sum(1)
     y = y.reshape(B, S, D)
     if cfg.n_shared_experts:
-        y = y + mlp(params["shared"], x)
+        y = y + mlp(params["shared"], x,
+                    cfg.moe_d_ff * cfg.n_shared_experts)
 
     # aux losses (Switch/GShard) and the router z-loss
     lse2 = torch.logsumexp(logits, dim=-1) ** 2

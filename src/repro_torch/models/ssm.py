@@ -15,6 +15,14 @@ sLSTM (counterpart of ``repro.models.ssm``).
 Recurrent states are f32 where the JAX package keeps them f32 (Mamba's
 ssm, mLSTM's C and n); decode writes each new state into the cache in
 place and returns it.
+
+Tensor parallelism: these mixers do not split over "model" (the
+reference pins their channels to "tp"; the channel split is a later
+item). Under the sharded train step a mixer's layer takes every weight
+whole, gathered over "data" and "model", and computes the same on every
+rank of a model row; each rank's gradient of such a leaf is then the
+whole gradient, of which the step keeps this rank's slice, with no sum
+over "model".
 """
 
 from __future__ import annotations

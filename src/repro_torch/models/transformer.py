@@ -10,7 +10,13 @@ weights across (``lm.from_jax_params``).
 
 Every layer kind of the JAX package is here: GQA (global or sliding
 window) or MLA attention, the Mamba, mLSTM and sLSTM mixers, a dense or
-MoE MLP (or none), and the encoder-decoder's cross attention. Decode
+MoE MLP (or none), and the encoder-decoder's cross attention.
+
+``stack_apply`` opens each layer's parameters for the length of its
+forward (``sharding_ctx.open_params``): the layer's own tree on one
+device; under the sharded train step, the tensors the step gathers for it
+as ``layer_tp_uses`` asks (this rank's model shards of the split blocks,
+whole weights for the rest), freed when the layer's forward ends. Decode
 keeps heterogeneous per-layer caches: ring buffers for local attention,
 MLA's compressed cache, O(1) recurrent states.
 """
@@ -22,11 +28,13 @@ from typing import List, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding_ctx import open_params, tp_split
+
 from . import attention as attn
 from . import ssm
 from .config import ModelConfig
-from .layers import mlp, mlp_defs, rmsnorm, rmsnorm_defs
-from .moe import moe, moe_defs, zero_aux
+from .layers import mlp, mlp_defs, mlp_tp_uses, rmsnorm, rmsnorm_defs
+from .moe import moe, moe_defs, moe_tp_uses, zero_aux
 from .params import ParamTree, spec_tree
 
 
@@ -143,6 +151,28 @@ def stack_specs(cfg: ModelConfig, plan: StackPlan, fsdp_axes=("data",),
             for p in plan.layers]
 
 
+def layer_tp_uses(cfg: ModelConfig, plan: LayerPlan, tp: int,
+                  L: int) -> dict:
+    """How one layer over L rows takes its parameters over ``tp`` model
+    ranks: ``{dotted name: "split" | "partial"}``, the rest whole ("full":
+    the recurrent mixers, the norms, the router)."""
+    uses = {}
+
+    def add(prefix, sub):
+        uses.update({f"{prefix}.{k}": v for k, v in sub.items()})
+
+    if plan.kind == "attn":
+        add("attn", attn.mla_tp_uses(cfg, tp, L) if cfg.attention == "mla"
+            else attn.gqa_tp_uses(cfg, tp, L))
+    if plan.cross:
+        add("cross", attn.gqa_tp_uses(cfg, tp, L, cross=True))
+    if plan.mlp == "dense":
+        add("mlp", mlp_tp_uses(cfg.d_ff, tp))
+    elif plan.mlp == "moe":
+        add("moe", moe_tp_uses(cfg, tp))
+    return uses
+
+
 def layer_apply(cfg: ModelConfig, plan: LayerPlan, params, x,
                 token_ids=None, memory=None):
     """Prefill application of one layer: x [B, L, D] -> (x, aux); aux is
@@ -161,7 +191,8 @@ def layer_apply(cfg: ModelConfig, plan: LayerPlan, params, x,
         x = x + attn.cross_attention(params["cross"], hx, memory, cfg)
     aux = None
     if plan.mlp == "dense":
-        x = x + mlp(params["mlp"], rmsnorm(params["norm2"], x, cfg.norm_eps))
+        x = x + mlp(params["mlp"], rmsnorm(params["norm2"], x, cfg.norm_eps),
+                    cfg.d_ff)
     elif plan.mlp == "moe":
         y2, aux = moe(params["moe"], rmsnorm(params["norm2"], x,
                                              cfg.norm_eps),
@@ -219,8 +250,11 @@ def stack_apply(cfg: ModelConfig, layers, x, token_ids=None, memory=None):
     ``plan.layers`` order). Returns (x, aux), the aux summed over the
     layers as the JAX ``stack_apply`` sums it."""
     aux = zero_aux(cfg, x.device)
+    tp = tp_split()
     for lp in layers:
-        x, a = layer_apply(cfg, lp.plan, lp, x, token_ids, memory)
+        uses = layer_tp_uses(cfg, lp.plan, tp, x.shape[1]) if tp > 1 else {}
+        with open_params(lp, uses) as p:
+            x, a = layer_apply(cfg, lp.plan, p, x, token_ids, memory)
         if a is not None:
             aux = {k: aux[k] + a[k] for k in aux}
     return x, aux

@@ -8,10 +8,10 @@ baseline failure). So:
   * parameter counts: ``repro``'s ``ModelConfig.param_count()`` and
     ``active_param_count()``, every arch at its published config;
   * state and collective bytes a device: one real sharded step of the
-    port on a gloo world of 4 ranks, mesh (2, 2), for a dense, a MoE and
-    an MLA arch (``tests/torch_dryrun_ranks.py``): the local shards'
-    ``nbytes`` and the result bytes of every collective the step issued,
-    equal;
+    port on a gloo world of 4 ranks, meshes (2, 2) and (1, 4) (both the
+    tensor-parallel step), for a dense, a MoE and an MLA arch
+    (``tests/torch_dryrun_ranks.py``): the local shards' ``nbytes`` and
+    the result bytes of every collective the step issued, equal;
   * train-step FLOPs: ``repro.launch.hlo_analysis.analyze(...).flops`` of
     the reference's single-device ``jax.jit(make_train_step(cfg, opt))``
     compiled on the CPU (remat off), against the estimate with the plain
@@ -94,6 +94,40 @@ def test_state_and_collective_bytes_equal_a_real_sharded_step(world4, arch):
     assert got["collective"]["all-gather"] > split["gathered_params"] > 0
     if arch != "smollm_135m":  # the MoE's exchange over "model"
         assert got["ops"]["c10d.allgather_"] > 0
+
+
+def _two_layers(cfg) -> int:
+    """The bytes of the two largest layers' parameters, the embedding and
+    the unembedding counting as layers."""
+    by = {}
+    for k, (s, d) in lm.param_shapes(cfg).items():
+        parts = k.split(".")
+        key = ".".join(parts[:2]) if parts[0] in ("layers", "encoder") \
+            else k
+        by[key] = by.get(key, 0) + torch.Size(s).numel() * d.itemsize
+    return sum(sorted(by.values())[-2:])
+
+
+@pytest.mark.parametrize("arch", R.ARCHS)
+def test_split_cell_bytes_equal_a_real_split_step(world4, arch):
+    """At mesh (1, 4), four model ranks: the state's bytes and the
+    collective bytes by kind equal the real tensor-parallel step's (the
+    per-layer gathers and their repeats in the backward, the model
+    group's sums and gathers, the vocab-parallel loss); the gathered
+    copies the estimate measures stay within two layers' parameters."""
+    got = world4.result()[(R.SPLIT_MESH, arch)]
+    cfg = configs.get(arch, reduced=True)
+    rec = dryrun.estimate(cfg, ShapeCell("t", R.S, R.B, "train"),
+                          AbstractMesh(R.SPLIT_MESH, ("data", "model")),
+                          R.MICROBATCHES, R.OPT)
+    split = rec["memory_split"]
+    for k in ("params", "moments", "grads"):
+        assert split[k] == got[k], k
+    coll = dict(rec["collective_bytes_per_device"])
+    assert coll.pop("total") == sum(got["collective"].values())
+    assert coll == got["collective"]
+    assert 0 < split["gathered_params"] <= _two_layers(cfg)
+    assert 0 < split["full_grads"] <= split["gathered_params"]
 
 
 def _reference_flops(arch: str, B: int, S: int) -> float:
@@ -235,3 +269,47 @@ def test_chip_smoke_estimate_phase_rehearses_on_the_cpu(monkeypatch,
     text = capsys.readouterr().out
     assert "E1 estimator at L8's cell" in text
     assert "E1 estimator at L3's decode step" in text
+
+
+def test_chip_smoke_estimate_phase_holds_l12s_split_cell(monkeypatch,
+                                                         capsys):
+    """E1 with L12's measurements: the estimator at L12's first mesh (three
+    model ranks, the reduced SmolLM) against a made-up rank-0 peak; within
+    the margin it passes and reports the split step's useful FLOP ratio,
+    outside it fails the phase."""
+    from pathlib import Path
+
+    monkeypatch.syspath_prepend(str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as cs
+
+    for name, value in (("LM_REDUCED", True), ("TRAIN_BATCH", 2),
+                        ("TRAIN_SEQ", 32), ("TRAIN_MICROBATCHES", 2),
+                        ("PREFILL_LEN", 32), ("TP_SEQ", 32)):
+        monkeypatch.setattr(cs, name, value)
+    big = 10 ** 15  # L8's, L2's and L3's peaks: kept inside the margin
+    cfg = configs.get(cs.TRAIN_ARCH, reduced=True)
+    shape = cs.TP_MESHES[0]
+    want = dryrun.estimate(cfg, ShapeCell("l12", cs.TP_SEQ, cs.TP_BATCH,
+                                          "train"),
+                           AbstractMesh(shape, ("data", "model")), 1,
+                           AdamWConfig(lr_peak=cs.TRAIN_LR, warmup_steps=2,
+                                       decay_steps=10, eps=1e-3))
+    monkeypatch.setattr(cs.dryrun, "estimate", lambda *a, **k: dict(
+        want, memory=dict(want["memory"], peak_bytes=big))
+        if a[1].name != "l12" else want)
+    l8 = dict(peak_memory_bytes=big, step_ms=10.0, model_flops_per_step=1)
+    l2 = dict(prefill_matmul_flops=1, prefill_attention_flops=1,
+              lm_peak_memory_bytes=big, decode_peak_memory_bytes=big)
+    name = "x".join(map(str, shape))
+    peak = want["memory"]["peak_bytes"]
+    for scale, ok in ((1.05, True), (1.25, False)):
+        l12 = {name: dict(peak_memory_bytes=round(peak * scale),
+                          collectives={})}
+        if not ok:
+            with pytest.raises(AssertionError, match="E1: a memory"):
+                cs.estimate_phase(l8, l2, "[cpu]", l12)
+            continue
+        out = cs.estimate_phase(l8, l2, "[cpu]", l12)["split_train"]
+        assert out["peak_rel_err"] == pytest.approx(1 / scale - 1, abs=1e-5)
+        assert 0.5 < out["useful_flops_ratio"] <= 1.0
+    assert "E1 estimator at L12's 1x3 cell" in capsys.readouterr().out

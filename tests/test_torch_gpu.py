@@ -600,6 +600,96 @@ def test_cuda_flash_attention_raises_on_what_it_does_not_take():
         flash_attention_kernel(q, q, q)
 
 
+# the query offset (the "sp" fallback's blocks of rows of a longer
+# sequence): the local-head shape of a split layer (Hq 3 over Hkv 1) at dh
+# 16, 64 and 128, a block of L/4 rows at offsets 0, L/2 and 3L/4 (and the
+# last rows) against all L keys, both types
+FLASH_OFFSET_SHAPES = [(2, 3, 1, 2048, 64), (1, 3, 1, 520, 16),
+                       (1, 3, 1, 1000, 128)]
+FLASH_OFFSET_CASES = [
+    pytest.param(shape, dt, off, id=f"dh{shape[4]}-L{shape[3]}-off{off}-"
+                 f"{str(dt)[6:]}")
+    for shape in FLASH_OFFSET_SHAPES
+    for off in (0, shape[3] // 2, 3 * shape[3] // 4,
+                shape[3] - shape[3] // 4)
+    for dt in (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype,off", FLASH_OFFSET_CASES)
+def test_cuda_flash_offset_matches_plain(no_tf32, shape, dtype, off):
+    """Forward (out and lse) and the backward pair at ``q_offset`` against
+    the plain versions at the same offset, the forward's and backward's
+    tolerances above."""
+    _need_card()
+    B, Hq, Hkv, L, dh = shape
+    n = L // 4
+    g = torch.Generator(device="cuda").manual_seed(L + dh + off)
+    q, k, v, do = [torch.randn(s, generator=g, device="cuda").to(dtype)
+                   for s in ((B, Hq, n, dh), (B, Hkv, L, dh),
+                             (B, Hkv, L, dh), (B, Hq, n, dh))]
+    before = (flash_attention_kernel.launches,
+              flash_attention_backward_kernel.launches)
+    out, lse = flash_attention_kernel(q, k, v, True, lse=True, q_offset=off)
+    want, lse_plain = flash_attention_plain(q, k, v, True, lse=True,
+                                            q_offset=off)
+    got = flash_attention_backward_kernel(q, k, v, out, lse, do, True, off)
+    wgrads = flash_attention_backward_plain(q, k, v, out, lse, do, True, off)
+    torch.cuda.synchronize()
+    assert (flash_attention_kernel.launches,
+            flash_attention_backward_kernel.launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    assert flash_close(out, want)
+    assert float((lse - lse_plain).abs().max()) < 1e-5
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    assert max(flash_bwd_errors(got, wgrads)) < tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16),
+                         ids=("float32", "bfloat16"))
+@pytest.mark.parametrize("dh", (16, 64, 128))
+def test_cuda_flash_offset_rows_equal_the_whole_sequence(no_tf32, dh, dtype):
+    """Four blocks of rows at offsets that are multiples of the 64-row tile
+    give the whole sequence's out, lse and dq bit for bit (a row's sums run
+    over the same key tiles in the same order), and their dk and dv summed
+    the whole call's within the backward's tolerance."""
+    _need_card()
+    B, Hq, Hkv, L = 2, 3, 1, 1024
+    g = torch.Generator(device="cuda").manual_seed(dh)
+    q, k, v, do = [torch.randn(s, generator=g, device="cuda").to(dtype)
+                   for s in ((B, Hq, L, dh), (B, Hkv, L, dh),
+                             (B, Hkv, L, dh), (B, Hq, L, dh))]
+    out, lse = flash_attention_kernel(q, k, v, True, lse=True)
+    dq, dk, dv = flash_attention_backward_kernel(q, k, v, out, lse, do, True)
+    n = L // 4
+    dk_sum, dv_sum = torch.zeros_like(dk, dtype=torch.float32), \
+        torch.zeros_like(dv, dtype=torch.float32)
+    for r in range(4):
+        rows = slice(r * n, (r + 1) * n)
+        qr, dor = q[:, :, rows].contiguous(), do[:, :, rows].contiguous()
+        o, lr = flash_attention_kernel(qr, k, v, True, lse=True,
+                                       q_offset=r * n)
+        assert torch.equal(o, out[:, :, rows])
+        assert torch.equal(lr, lse[:, :, rows])
+        gq, gk, gv = flash_attention_backward_kernel(qr, k, v, o, lr, dor,
+                                                     True, r * n)
+        assert torch.equal(gq, dq[:, :, rows])
+        dk_sum += gk.float()
+        dv_sum += gv.float()
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    assert max(flash_bwd_errors((dk_sum, dv_sum), (dk, dv))) < tol
+
+
+@pytest.mark.gpu
+def test_cuda_flash_rejects_a_negative_offset():
+    _need_card()
+    q = torch.zeros(1, 3, 64, 64, device="cuda")
+    with pytest.raises(ValueError, match="q_offset"):
+        flash_attention_kernel(q, q[:, :1], q[:, :1], True, q_offset=-64)
+
+
 # the backward: every head dim in both types, causal and not, GQA (g = 2)
 # at a ragged length (129: past the 64-row tiles and the 32-row ones);
 # then (B, Hq, Hkv, L, dh) edges: one key, lengths short of a tile and

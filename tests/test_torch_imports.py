@@ -60,6 +60,30 @@ def test_sharding_modules_import_neither_jax_nor_repro(module):
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+# the tensor-parallel slice's modules, held together in a fresh interpreter
+TP_MODULES = ("repro_torch.distributed.sharding_ctx",
+              "repro_torch.distributed.ranks",
+              "repro_torch.kernels.flash_attention.kernel",
+              "repro_torch.kernels.flash_attention.ops",
+              "repro_torch.models.layers", "repro_torch.models.attention",
+              "repro_torch.models.moe", "repro_torch.models.ssm",
+              "repro_torch.models.transformer", "repro_torch.models.lm",
+              "repro_torch.launch.step_fns", "repro_torch.launch.dryrun",
+              "repro_torch.launch.train")
+
+
+def test_tensor_parallel_modules_import_neither_jax_nor_repro():
+    code = ("import importlib, sys\n"
+            f"for m in {TP_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'repro'))\nprint(bad)\nassert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 SPEC = dict(d=16, n_blocks=2, F=256, r=4, s=4, c=4, k=4, window_size=100,
             pool_capacity=8, pool_probes=2)
 

@@ -1,5 +1,6 @@
 """Rank bodies of ``tests/test_torch_dryrun.py``: one real sharded train
-step a config on gloo ranks, its state's local shard bytes and the bytes
+step a config and mesh on gloo ranks (two and four model ranks: the
+tensor-parallel step), its state's local shard bytes and the bytes
 of every collective it issued (no JAX here; the ranks import this module
 by path)."""
 
@@ -20,6 +21,7 @@ from repro_torch.optim import AdamWConfig
 
 ARCHS = ("smollm_135m", "kimi_k2_1t_a32b", "deepseek_v2_236b")
 MESH = (2, 2)
+SPLIT_MESH = (1, 4)  # every rank a model rank
 B, S, MICROBATCHES = 4, 32, 2
 OPT = AdamWConfig(lr_peak=1e-3, warmup_steps=2, decay_steps=10)
 
@@ -62,28 +64,36 @@ class CommBytes(TorchDispatchMode):
 
 
 def run() -> dict:
-    """Rank 0's shard bytes and one step's collective bytes, by arch."""
-    mesh = make_smoke_mesh(*MESH, device_type="cpu")
+    """Rank 0's shard bytes and one step's collective bytes, by arch on
+    MESH and by (SPLIT_MESH, arch)."""
     out = {}
-    for arch in ARCHS:
-        cfg = configs.get(arch, reduced=True)
-        state = shard_state(cfg, OPT, init_train_state(
-            cfg, OPT, torch.Generator().manual_seed(0), "cpu"), mesh)
-        rng = np.random.default_rng(3)
-        batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S),
-                                                  dtype=np.int32))
-                 for k in ("tokens", "labels")}
-        batch = local_rows(batch, MICROBATCHES, MESH[0],
-                           mesh.get_coordinate()[0])
-        step = make_sharded_train_step(cfg, OPT, mesh, MICROBATCHES)
-        with CommBytes() as comm:
-            state, _ = step(state, batch)
-        local = [p.to_local() for p in state.params.parameters()]
-        out[arch] = dict(
-            params=sum(_bytes(t) for t in local),
-            moments=sum(_bytes(v.to_local()) for tree in (
-                state.opt["mu"], state.opt["nu"]) for v in tree.values()),
-            # the step's gradient shards: f32 sums over the microbatches
-            grads=sum(t.numel() for t in local) * 4,
-            collective=dict(comm.bytes), ops=dict(comm.ops))
+    for shape in (MESH, SPLIT_MESH):
+        mesh = make_smoke_mesh(*shape, device_type="cpu")
+        for arch in ARCHS:
+            key = arch if shape == MESH else (shape, arch)
+            out[key] = _one_step(arch, shape, mesh)
     return out
+
+
+def _one_step(arch, shape, mesh) -> dict:
+    """Rank 0's shard bytes and one step's collective bytes."""
+    cfg = configs.get(arch, reduced=True)
+    state = shard_state(cfg, OPT, init_train_state(
+        cfg, OPT, torch.Generator().manual_seed(0), "cpu"), mesh)
+    rng = np.random.default_rng(3)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S),
+                                              dtype=np.int32))
+             for k in ("tokens", "labels")}
+    batch = local_rows(batch, MICROBATCHES, shape[0],
+                       mesh.get_coordinate()[0])
+    step = make_sharded_train_step(cfg, OPT, mesh, MICROBATCHES)
+    with CommBytes() as comm:
+        state, _ = step(state, batch)
+    local = [p.to_local() for p in state.params.parameters()]
+    return dict(
+        params=sum(_bytes(t) for t in local),
+        moments=sum(_bytes(v.to_local()) for tree in (
+            state.opt["mu"], state.opt["nu"]) for v in tree.values()),
+        # the step's gradient shards: f32 sums over the microbatches
+        grads=sum(t.numel() for t in local) * 4,
+        collective=dict(comm.bytes), ops=dict(comm.ops))

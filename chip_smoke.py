@@ -141,9 +141,9 @@ Phases (any failure raises, so the exit code is non-zero):
      reachability of sampled in-window edges, ``budget_report()`` and
      ``serving_summary()``; V4 pool mode at phase T's tenants, every
      answer equal to a per-tenant ``query_many``; V5 ``serve --mode
-     sketch`` for every kind and in pool mode with a sweep, as
-     concurrent processes (each must exit 0); V6 ``BigramSketch`` on the
-     card against a CPU twin;
+     sketch`` (CLI_ARGS: 5,000 edges) for every kind and in pool mode
+     with a sweep, as concurrent processes (each must exit 0); V6
+     ``BigramSketch`` on the card against a CPU twin;
   M. merge, reshard and restore: M1 a tenant at phase T's size resharded
      on the card 2 -> 4, 2 -> 1 and with the prune, each leaf for leaf
      against the plain host replay of a CPU copy (seconds of both, split
@@ -276,9 +276,26 @@ Phases (any failure raises, so the exit code is non-zero):
      call shape and ``q_offset`` L12's ranks launch, against the plain
      versions on the same card tensors at L1's and L7's tolerances
      (``check_flash_tp_rows``; rows "L12 ..." in the two kernels' cases);
+  L13. sharded serving on this one card (``step_fns.init_sharded_params``,
+     ``make_sharded_prefill_step``, ``make_sharded_serve_step``,
+     ``DecodeServer(mesh=)``), SERVE_TP_PARTS' ranks as one gloo group of
+     spawned processes sharing the card, each part against the
+     one-device path computed on the card first: (a) Qwen3-8B at 1 x 2,
+     a 2,048-token split prefill (one flash launch a global layer a
+     rank, on the rank's heads) and the server on SERVE_TP; (b)
+     xLSTM-1.3B at 1 x 2, one period of its pattern, the mixers on their
+     channel shards: prefill, server and the split train gradient; (c)
+     Gemma-3 4B at 2 x 1, one period of 6 layers, 4 decode steps of one
+     sequence of long_500k's slots (where the estimated peaks fit) with
+     the caches' sequence over "data"; ms a step, the share inside
+     gloo's collectives, rank 0's peak memory and collectives, every
+     rank's flash launches; then the flash forward at (a)'s call shape
+     against its plain version (``check_flash_serve_rows``; rows "L13
+     ..." in the kernel's cases);
   E1. the cell estimator (``launch.dryrun.estimate``, on the host's meta
-     tensors) at L8's cell, L2's prefill, L3's decode step and L12's
-     1 x 3 cell (rank 0) against their measurements in this run: the
+     tensors) at L8's cell, L2's prefill, L3's decode step, L12's 1 x 3
+     cell and L13's prefill and decode cells (rank 0) against their
+     measurements in this run: the
      peak memory within ESTIMATE_MEMORY_MARGIN and its split, the FLOPs
      against the run's own counts, L8's ms a step against the roofline's
      bound;
@@ -298,9 +315,10 @@ T1-T3; the grouped rows' launches), the object path (phase O, before its
 comparisons; the single-sketch rows' launches) and the prefill (L2, the
 kernel forward); the trainer (L8, the flash forward and backward) and
 the MoE trainer (L9, the telemetry's kernels), the sharded trainer
-(L10), the restarted trainer (L11, with its unbroken twin) and the
-tensor-parallel trainer (L12, every rank's launches summed) each count
-from 0 too, in every row's ``launches_train``. Each kernel's
+(L10), the restarted trainer (L11, with its unbroken twin), the
+tensor-parallel trainer (L12, every rank's launches summed) and sharded
+serving (L13, likewise) each count from 0 too, in every row's
+``launches_train``. Each kernel's
 ``launches`` in the JSON line is from the path it was ported for (the
 flash backward's from L8).
 TF32 is off throughout (the models are f32), except in the one forward
@@ -499,7 +517,9 @@ SERVER_REQUESTS = 4096
 SERVER_HORIZONS = (1, 8)
 SERVER_LASTS = (None, 1, 8)
 SERVER_TOPK = 16
-CLI_ARGS = ()
+# phase V5's CLI runs at 5,000 edges (the CLI's default 20,000 cut for the
+# run's time limit: lsketch's scan-route ingest runs ~800 edges/s there)
+CLI_ARGS = ("--edges", "5000")
 BIGRAM_STEPS = 8
 BIGRAM_BATCH = (4, 256)
 
@@ -620,6 +640,41 @@ TP_BATCH, TP_SEQ, TP_STEPS = 2, 2048, 2
 # the flash forward's lse against the plain version's at L12's call shapes:
 # max |d| (f32 sums in another order move it ~1e-6)
 TP_LSE_TOL = 1e-5
+# L13: sharded serving on this one card, the ranks as gloo processes as
+# L12's (one group for the three parts): (a) Qwen3-8B at 1 x 2 (16 query
+# heads and 4 KV heads a rank, the vocabulary split): a split prefill of
+# 2,048 tokens and DecodeServer(mesh=) on SERVE_TP; (b) xLSTM-1.3B at 1 x 2
+# (the channel split: 2 mLSTM heads a rank, sLSTM on half the channels): a
+# 512-token prefill, the server and the split train gradient of 2 x 512;
+# (c) Gemma-3 4B at 2 x 1, one sequence, its caches' sequence over "data"
+# (context parallelism): 4 decode steps from seeded caches, long_500k's
+# CP_SEQ_MAX slots where the estimated peaks fit CP_MEMORY_SHARE of the
+# card. Widths are published; (b) keeps one period of its 7:1 pattern (8
+# layers: deeper, the random-weight stack's f32 rounding alone moves its
+# logits past LOGIT_TOL), (c) one period of 6 (5 local layers, 1 global:
+# every decode step gathers each layer over "data", and gloo stages the
+# bytes through host memory); tools/serve_tp_conditioning.py --card runs
+# both at published depth. Each part against the one-device path computed
+# on the card first: logits within LOGIT_TOL, the greedy tokens equal, a
+# gradient as SERVE_TP_GRAD_REL
+SERVE_TP = dict(batch_slots=4, max_seq=256, requests=4, prompt=8, max_new=8)
+SERVE_TP_PARTS = {
+    "a": dict(arch=LM_ARCH, mesh=(1, 2), prefill=2048, serve=SERVE_TP),
+    "b": dict(arch="xlstm_13b", mesh=(1, 2), prefill=512, serve=SERVE_TP,
+              train=(2, 512), layers=8),
+    "c": dict(arch=GEMMA_ARCH, mesh=(2, 1), steps=4, layers=6),
+}
+CP_SEQ_MAX = 524_288  # long_500k
+CP_MEMORY_SHARE = 0.9
+# L13b's gradient: the loss within TRAIN_REL; each rank's shard of each
+# gradient leaf within SERVE_TP_GRAD_REL of the leaf's norm. Leaf by leaf
+# and element by element (L12's 1e-5) f32 cannot hold here: the
+# random-weight xLSTM at published width is ill-conditioned, so that one
+# device's f32 gradient at L13b's 2 x 512 tokens lies 2.4e-3 of a leaf's
+# largest element from an f64 evaluation (sLSTM's w_gates;
+# tools/serve_tp_conditioning.py --cpu); a wrong split is off by O(1) of
+# the norm
+SERVE_TP_GRAD_REL = 1e-3
 # E1: the cell estimator against L8's, L2's and L3's measurements; the memory
 # estimate must fall within this share of the measured peak (fixed in
 # PERF.md before the first card run)
@@ -706,8 +761,13 @@ KERNELS = {
 }
 
 
+_T0 = time.perf_counter()
+
+
 def _log(msg: str) -> None:
-    print(msg, flush=True)
+    """A line of the run's log, after the seconds since the script
+    started."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s] {msg}", flush=True)
 
 
 def card_line() -> str:
@@ -3426,15 +3486,531 @@ def check_flash_tp_rows(dev, tag) -> dict:
     return dict(forward=fwd, backward=bwd)
 
 
-def estimate_phase(l8: dict, l2: dict, tag, l12: dict | None = None) -> dict:
+# --------------------------------------------------------------------------
+# L13: sharded serving
+# --------------------------------------------------------------------------
+
+def _serve_requests(cfg, serve: dict) -> list:
+    """The prompts of L13's servers, seeded."""
+    rng = np.random.default_rng(SEED + 13)
+    return [[int(t) for t in rng.integers(0, cfg.vocab_size,
+                                          serve["prompt"])]
+            for _ in range(serve["requests"])]
+
+
+def _recording_server(server, logits: list, times: list):
+    """``server`` with each step's logits (on the host) and seconds noted."""
+    inner = server._step
+
+    def step(params, caches, tokens):
+        t0 = time.perf_counter()
+        out = inner(params, caches, tokens)
+        logits.append(out[0][:, 0].float().cpu())
+        times.append(time.perf_counter() - t0)
+        return out
+
+    server._step = step
+    return server
+
+
+def cp_pos0(cfg, seq: int) -> int:
+    """L13c's first decode position: near the cache's end and past the
+    local rings' wrap, so that the steps' ring slots straddle the boundary
+    of the two data ranks' blocks."""
+    ring = min(seq, cfg.sliding_window or seq)
+    return seq - ring + ring // 2 - 2
+
+
+def seeded_cp_caches(cfg, seq: int, dev, mesh=None) -> list:
+    """L13c's caches of one sequence of ``seq`` slots, drawn leaf by leaf
+    from a seed on ``dev``, every ``pos`` at ``cp_pos0``; with ``mesh``,
+    each layer's leaves as this rank's shards (``step_fns.shard_caches``),
+    one whole layer at a time on the rank."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    pos0 = cp_pos0(cfg, seq)
+    out = []
+    for spec in step_fns.cache_specs(cfg, 1, seq):
+        layer = {"mixer": {
+            name: torch.full(shape, pos0, dtype=dtype, device=dev)
+            if name == "pos" else torch.randn(shape, generator=gen,
+                                              dtype=dtype, device=dev)
+            for name, (shape, dtype) in spec["mixer"].items()}}
+        if mesh is not None:
+            layer = step_fns.shard_caches(cfg, [layer], mesh)[0]
+        out.append(layer)
+    return out
+
+
+def _timed_on(cuda: bool, fn):
+    """(``fn()``, its seconds), the card synchronised around it where the
+    rank runs on one."""
+    if cuda:
+        _sync()
+    t0 = time.perf_counter()
+    out = fn()
+    if cuda:
+        _sync()
+    return out, time.perf_counter() - t0
+
+
+def _peak_reset(cuda: bool) -> None:
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak(cuda: bool) -> int:
+    if not cuda:
+        return 0
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated()
+
+
+def serve_cfg(run: dict):
+    """An L13 part's config: the arch's, its depth cut to ``run["layers"]``
+    where given."""
+    cfg = configs.get(run["arch"], reduced=run["reduced"])
+    return cfg.replace(n_layers=run["layers"]) if "layers" in run else cfg
+
+
+def _serve_part(run: dict, ref: dict, dev, cuda: bool) -> tuple:
+    """One L13 part on this rank (see ``serve_rank_body``): (this rank's
+    numbers, rank 0's comparisons)."""
+    cfg = serve_cfg(run)
+    mesh = make_smoke_mesh(*run["mesh"], dev.type)
+    rank = dist.get_rank()
+    params = step_fns.init_sharded_params(
+        cfg, mesh, torch.Generator(device=dev).manual_seed(SEED))
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    mine, res = {}, {}
+    calls = []
+    fwd = flash_ops.flash_attention_kernel
+
+    def noted(q, k, v, causal=True, lse=False, q_offset=0):
+        calls.append((tuple(q.shape), tuple(k.shape), int(q_offset)))
+        return fwd(q, k, v, causal, lse, q_offset)
+
+    if "prefill" in run:
+        tokens = ref["prefill_tokens"].to(dev)
+        step = step_fns.make_sharded_prefill_step(cfg, mesh)
+        flash_ops.flash_attention_kernel = noted
+        try:
+            with TpCommLog() as comm:
+                _peak_reset(cuda)
+                (logits, sec), launches = count_launches((), lambda: _timed_on(
+                    cuda, lambda: step(params, {"tokens": tokens})))
+                peak = _peak(cuda)
+        finally:
+            flash_ops.flash_attention_kernel = fwd
+        mine["prefill"] = dict(launches=launches, flash_calls=calls,
+                               peak_bytes=peak, seconds=sec,
+                               collectives=comm.summary())
+        if rank == 0:
+            want = ref["prefill_logits"]
+            res["prefill_logit_rel_err"] = logit_err(
+                logits, want, float(want.abs().max()))
+        del logits
+    if "serve" in run:
+        logits, times = [], []
+        server = _recording_server(DecodeServer(
+            cfg, params, batch_slots=run["serve"]["batch_slots"],
+            max_seq=run["serve"]["max_seq"], device=dev, mesh=mesh),
+            logits, times)
+        reqs = [Request(prompt=p, max_new=run["serve"]["max_new"])
+                for p in ref["prompts"]]
+        with TpCommLog() as comm:
+            _peak_reset(cuda)
+            (_, sec), launches = count_launches((), lambda: _timed_on(
+                cuda, lambda: server.run(reqs)))
+            peak = _peak(cuda)
+        mine["decode"] = dict(launches=launches, peak_bytes=peak,
+                              seconds=sec, step_s=times,
+                              collectives=comm.summary())
+        if rank == 0:
+            res["decode_tokens_equal"] = [r.out for r in reqs] == \
+                ref["server_tokens"]
+            res["decode_logit_rel_err"] = max(
+                logit_err(g.to(dev), w, float(w.abs().max()))
+                for g, w in zip(logits, ref["server_logits"])) \
+                if len(logits) == len(ref["server_logits"]) else float("inf")
+        del server
+    if "train" in run:
+        batch = {k: v.to(dev) for k, v in ref["train_batch"].items()}
+        state = step_fns.TrainState(params=params, opt=None, telemetry=None,
+                                    step=None)
+        placements = {k: p.placements
+                      for k, p in params.named_parameters()}
+        with TpCommLog() as comm:
+            _peak_reset(cuda)
+            (got, sec), launches = count_launches((), lambda: _timed_on(
+                cuda, lambda: step_fns.sharded_grads(cfg, state, batch,
+                                                     mesh)))
+            peak = _peak(cuda)
+        loss, _, grads = got
+        del state, got, params
+        params = None
+        mine["train"] = dict(launches=launches, peak_bytes=peak, seconds=sec,
+                             collectives=comm.summary())
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        for r in range(dist.get_world_size()):  # one whole model at a time
+            if r == rank:
+                plain = lm.init_params(cfg, torch.Generator(
+                    device=dev).manual_seed(SEED), dev).requires_grad_(True)
+                loss_p, _, want = step_fns._grads(cfg, plain, batch)
+                del plain
+                diff = {k: grads[k] - local_slice(w, placements[k], mesh)
+                        for k, w in want.items()}
+                mine["train"]["grad_err"] = max(
+                    float(d.abs().max()) / max(float(want[k].abs().max()),
+                                               1e-30)
+                    for k, d in diff.items())
+                mine["train"]["grad_norm_err"] = max(
+                    float(torch.linalg.vector_norm(d)) / max(float(
+                        torch.linalg.vector_norm(want[k])), 1e-30)
+                    for k, d in diff.items())
+                del diff
+                mine["train"]["loss_rel"] = abs(float(loss) - float(
+                    loss_p)) / abs(float(loss_p))
+                del want, grads
+                gc.collect()
+                if cuda:
+                    torch.cuda.empty_cache()
+            dist.barrier()
+    if "steps" in run:
+        caches = seeded_cp_caches(cfg, run["seq"], dev, mesh)
+        step = step_fns.make_sharded_serve_step(cfg, mesh)
+        toks = ref["cp_tokens"].to(dev)
+        logits, times = [], []
+
+        def decode():
+            nonlocal caches
+            for i in range(run["steps"]):
+                t0 = time.perf_counter()
+                lg, caches = step(params, caches, toks[:, i:i + 1])
+                if cuda:
+                    _sync()
+                times.append(time.perf_counter() - t0)
+                logits.append(lg[:, 0].float().cpu())
+
+        with TpCommLog() as comm:
+            _peak_reset(cuda)
+            _, launches = count_launches((), decode)
+            peak = _peak(cuda)
+        mine["cp"] = dict(launches=launches, peak_bytes=peak, step_s=times,
+                          collectives=comm.summary())
+        if rank == 0:
+            res["cp_logit_rel_err"] = max(
+                logit_err(g, w, float(w.abs().max()))
+                for g, w in zip(logits, ref["cp_logits"]))
+        del caches
+    del params
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return mine, res
+
+
+def serve_rank_body(dev_type: str, parts: dict, ref_paths: dict) -> dict:
+    """One rank of L13 (``spawn_ranks``, a gloo group), every part in turn
+    on its mesh: the parameters drawn as ``lm.init_params`` draws them,
+    each rank keeping its shards (``step_fns.init_sharded_params``);
+    then, by part, the split prefill, ``DecodeServer(mesh=)`` on the
+    parent's requests, the split train gradient (each rank then holds its
+    shards to the one-device gradient of the same state and batch, one
+    rank at a time) or the context-parallel decode from the seeded
+    caches. Every comparison is against the parent's one-device results
+    in ``ref_paths``; timings, peaks and collectives are rank 0's, flash
+    launches every rank's. Returns rank 0's comparisons and every rank's
+    numbers, by part."""
+    dev = torch.device(dev_type)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(0)
+        build.load_library()
+    out = {}
+    for part, run in parts.items():
+        mine, res = _serve_part(run, torch.load(ref_paths[part]), dev, cuda)
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, mine)
+        out[part] = dict(ranks=every, **res)
+    return dict(parts=out, backend=dist.get_backend())
+
+
+def serve_reference(run: dict, dev) -> dict:
+    """The one-device results L13's part is held to, computed on ``dev``
+    from the same seeds (the weights freed at the end)."""
+    cfg = serve_cfg(run)
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                            dev)
+    rng = np.random.default_rng(SEED + 14)
+    ref = {}
+    with torch.no_grad():
+        if "prefill" in run:
+            ref["prefill_tokens"] = torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (1, run["prefill"]), dtype=np.int32))
+            lg, _ = lm.forward(cfg, params, {
+                "tokens": ref["prefill_tokens"].to(dev)})
+            ref["prefill_logits"] = lg.float().cpu()
+            del lg
+        if "serve" in run:
+            ref["prompts"] = _serve_requests(cfg, run["serve"])
+            logits, times = [], []
+            server = _recording_server(DecodeServer(
+                cfg, params, batch_slots=run["serve"]["batch_slots"],
+                max_seq=run["serve"]["max_seq"], device=dev), logits, times)
+            reqs = [Request(prompt=p, max_new=run["serve"]["max_new"])
+                    for p in ref["prompts"]]
+            server.run(reqs)
+            ref.update(server_logits=logits,
+                       server_tokens=[r.out for r in reqs],
+                       server_step_s=times)
+            del server
+        if "steps" in run:
+            caches = seeded_cp_caches(cfg, run["seq"], dev)
+            ref["cp_tokens"] = torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (1, run["steps"]), dtype=np.int32))
+            toks = ref["cp_tokens"].to(dev)
+            ref["cp_logits"], ref["cp_step_s"] = [], []
+            for i in range(run["steps"]):
+                t0 = time.perf_counter()
+                lg, caches = lm.serve_step(cfg, params, caches,
+                                           toks[:, i:i + 1])
+                ref["cp_logits"].append(lg[:, 0].float().cpu())
+                ref["cp_step_s"].append(time.perf_counter() - t0)
+            del caches
+    if "train" in run:
+        B, L = run["train"]
+        toks = rng.integers(0, cfg.vocab_size, (B, L + 1), dtype=np.int32)
+        ref["train_batch"] = {"tokens": torch.from_numpy(toks[:, :-1].copy()),
+                              "labels": torch.from_numpy(toks[:, 1:].copy())}
+    del params
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return ref
+
+
+def cp_seq(cfg, tag) -> tuple:
+    """L13c's sequence: long_500k's CP_SEQ_MAX slots if the estimator's
+    rank-0 peak at the 2 x 1 mesh plus the one-device reference's peak fit
+    CP_MEMORY_SHARE of the card (and the two ranks' peaks do), else the
+    largest power of two that does; (seq, its estimates)."""
+    budget = CP_MEMORY_SHARE * torch.cuda.get_device_properties(
+        0).total_memory
+    mesh = AbstractMesh(SERVE_TP_PARTS["c"]["mesh"], ("data", "model"))
+    seq = CP_SEQ_MAX
+    while True:
+        cell = ShapeCell("l13c", seq, 1, "decode")
+        rank0 = dryrun.estimate(cfg, cell, mesh)["memory"]["peak_bytes"]
+        one = dryrun.estimate(cfg, cell, AbstractMesh(
+            (1, 1), ("data", "model")))["memory"]["peak_bytes"]
+        if rank0 + one <= budget and 2 * rank0 <= budget or seq <= 1024:
+            break
+        seq //= 2
+    cut = "" if seq == CP_SEQ_MAX else "cut from "
+    _log(f"L13c sequence {seq} ({cut}long_500k's {CP_SEQ_MAX}): the "
+         f"estimator's rank-0 peak {rank0} bytes at "
+         f"2 x 1 plus the one-device {one} against {int(budget)} bytes "
+         f"({CP_MEMORY_SHARE:.0%} of the card) {tag}")
+    return seq, dict(rank0=rank0, one_device=one, budget=budget)
+
+
+def serve_tp_phase(dev, tag, parts: dict | None = None) -> dict:
+    """L13 (see SERVE_TP_PARTS): every part's one-device reference on this
+    card, then one gloo group of processes on this card running the parts
+    on their meshes (``serve_rank_body``); rank 0's ms a step, share of it
+    inside gloo's collectives, peak memory and collectives, every rank's
+    flash launches. Raises on any disagreement."""
+    out, bad = {}, []
+    total = {n: 0 for n in WRAPPERS}
+    if parts is None:
+        parts = {k: dict(v, reduced=LM_REDUCED) for k, v in
+                 SERVE_TP_PARTS.items()}
+        parts["c"]["seq"], out["cp_estimates"] = cp_seq(
+            serve_cfg(parts["c"]), tag)
+    world = max(r["mesh"][0] * r["mesh"][1] for r in parts.values())
+    tmp = tempfile.mkdtemp(prefix="phase-l13-")
+    t0 = time.perf_counter()
+    refs, ref_paths = {}, {}
+    try:
+        for part, run in parts.items():
+            ref = serve_reference(run, dev)
+            ref_paths[part] = os.path.join(tmp, f"reference-{part}.pt")
+            torch.save(ref, ref_paths[part])
+            refs[part] = {k: v for k, v in ref.items()
+                          if k in ("server_step_s", "cp_step_s")}
+            del ref
+        t_ref = time.perf_counter() - t0
+        res = spawn_ranks(serve_rank_body, world, device=dev,
+                          backend="gloo", init_file=os.path.join(
+                              tmp, "rendezvous"),
+                          args=(dev.type, parts, ref_paths))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    sec = time.perf_counter() - t0
+    for part, run in parts.items():
+        cfg = serve_cfg(run)
+        got = res["parts"][part]
+        r0 = got["ranks"][0]
+        o = dict(arch=cfg.name, layers=cfg.n_layers, mesh=list(run["mesh"]),
+                 backend=res["backend"])
+        for kind in ("prefill", "decode", "train", "cp"):
+            if kind not in r0:
+                continue
+            x = r0[kind]
+            step_s = x.get("step_s") or [x["seconds"]]
+            comm_s = sum(c["seconds"] for c in x["collectives"].values())
+            o[kind] = dict(
+                ms_a_step=1e3 * float(np.median(step_s)),
+                seconds=sum(step_s), comm_share=comm_s / max(sum(step_s),
+                                                             1e-9),
+                peak_memory_bytes=x["peak_bytes"],
+                collectives=x["collectives"],
+                flash_launches=[r[kind]["launches"]["flash_attention_kernel"]
+                                for r in got["ranks"]])
+            for r in got["ranks"]:
+                for n, c in r[kind]["launches"].items():
+                    total[n] += c
+        if "prefill" in o:
+            calls = sorted({c for r in got["ranks"]
+                            for c in r["prefill"]["flash_calls"]})
+            o["prefill"].update(logit_rel_err=got["prefill_logit_rel_err"],
+                                flash_call_shapes=calls)
+            if not got["prefill_logit_rel_err"] <= LOGIT_TOL:
+                bad.append(f"{part} prefill")
+        if "decode" in o:
+            o["decode"].update(logit_rel_err=got["decode_logit_rel_err"],
+                               tokens_equal=got["decode_tokens_equal"],
+                               one_device_ms_a_step=1e3 * float(np.median(
+                                   refs[part]["server_step_s"])))
+            if not (got["decode_tokens_equal"]
+                    and got["decode_logit_rel_err"] <= LOGIT_TOL):
+                bad.append(f"{part} decode")
+        if "train" in o:
+            norm_err = max(r["train"]["grad_norm_err"] for r in got["ranks"])
+            o["train"].update(
+                grad_rel_err=max(r["train"]["grad_err"]
+                                 for r in got["ranks"]),
+                grad_norm_rel_err=norm_err, loss_rel=r0["train"]["loss_rel"])
+            if norm_err > SERVE_TP_GRAD_REL or \
+                    r0["train"]["loss_rel"] > TRAIN_REL:
+                bad.append(f"{part} train")
+        if "cp" in o:
+            o["cp"].update(logit_rel_err=got["cp_logit_rel_err"],
+                           seq=run["seq"], pos0=cp_pos0(cfg, run["seq"]),
+                           one_device_ms_a_step=1e3 * float(np.median(
+                               refs[part]["cp_step_s"])))
+            if not got["cp_logit_rel_err"] <= LOGIT_TOL:
+                bad.append(f"{part} context parallel")
+        out[part] = o
+        name = "x".join(map(str, run["mesh"]))
+        ranks = run["mesh"][0] * run["mesh"][1]
+        for kind in ("prefill", "decode", "train", "cp"):
+            if kind not in o:
+                continue
+            x = o[kind]
+            err = {k: x[k] for k in ("logit_rel_err", "tokens_equal",
+                                     "grad_rel_err", "grad_norm_rel_err",
+                                     "loss_rel") if k in x}
+            _log(f"L13{part} {cfg.name} ({cfg.n_layers} layers) {kind} on a "
+                 f"{name} mesh ({ranks} ranks as processes on this card, "
+                 f"gloo): {x['ms_a_step']:.1f} ms a step on rank 0, "
+                 f"{x['comm_share']:.3f} of it inside gloo's collectives; "
+                 f"rank 0's peak device memory {x['peak_memory_bytes']} "
+                 f"bytes; rank 0's collectives {json.dumps(x['collectives'])}"
+                 f"; flash launches by rank {x['flash_launches']}; "
+                 f"{json.dumps(err)} (tolerance {LOGIT_TOL} of the largest "
+                 f"logit; a loss {TRAIN_REL}, a rank's shard of a gradient "
+                 f"leaf {SERVE_TP_GRAD_REL} of the leaf's norm) {tag}")
+    out.update(seconds=sec, reference_seconds=t_ref, launches=total)
+    _log(f"L13 spawned and run in {sec:.1f} s, the one-device references "
+         f"{t_ref:.1f} s of it {tag}")
+    if bad:
+        raise AssertionError(f"L13: the sharded serving disagrees with the "
+                             f"one-device path at {bad}")
+    return out
+
+
+def check_serve_tp_on_the_card(out) -> None:
+    """L13's launch check, which only the card can make: every rank of the
+    split prefill launched one flash kernel a global GQA layer, and the
+    decodes none."""
+    for part, run in SERVE_TP_PARTS.items():
+        o = out[part]
+        cfg = serve_cfg(dict(run, reduced=LM_REDUCED))
+        if "prefill" in o and set(o["prefill"]["flash_launches"]) != {
+                n_flash_layers(cfg)}:
+            raise AssertionError(f"L13{part}: flash launches "
+                                 f"{o['prefill']['flash_launches']}; want "
+                                 f"{n_flash_layers(cfg)} a rank")
+        for kind in ("decode", "cp"):
+            if kind in o and any(o[kind]["flash_launches"]):
+                raise AssertionError(f"L13{part}: a decode launched the "
+                                     f"flash kernel")
+
+
+def check_flash_serve_rows(dev, tag, calls) -> list:
+    """L13's kernel rows: the flash forward at every distinct (q shape,
+    k shape, q_offset) the split prefills launch (``calls``: L13's noted
+    shapes), f32, against ``flash_attention_plain`` on the same card
+    tensors (out at L1's tolerance, lse within TP_LSE_TOL); CUDA-event
+    medians. Raises on any mismatch."""
+    rows = []
+    for qs, ks, off in calls:
+        rng = np.random.default_rng(SEED + qs[1] + qs[2] + off)
+        q, k, v = [torch.from_numpy(rng.standard_normal(
+            s, dtype=np.float32)).to(dev) for s in (qs, ks, ks)]
+        out, lse = flash_attention_kernel(q, k, v, True, lse=True,
+                                          q_offset=off)
+        want, lse_p = flash_attention_plain(q, k, v, True, lse=True,
+                                            q_offset=off)
+        _sync()
+        err, n_bad, tol = flash_check(out, want)
+        lse_err = float((lse - lse_p).abs().max())
+        n_lse = int(((lse - lse_p).abs() >= TP_LSE_TOL).sum())
+        del want, lse_p
+        times = {name: float(np.median(event_times(fn, FLASH_BWD_REPS)))
+                 for name, fn in (
+                     ("ms", lambda: flash_attention_kernel(
+                         q, k, v, True, q_offset=off)),
+                     ("plain_ms", lambda: flash_attention_plain(
+                         q, k, v, True, q_offset=off)))}
+        label = f"L13 q {list(qs)} k {list(ks)} q_offset {off} float32"
+        rows.append(dict(label=label, max_abs_err=err,
+                         lse_max_abs_err=lse_err,
+                         out_of_tolerance=n_bad + n_lse,
+                         tolerance=f"{tol}; lse |d| < {TP_LSE_TOL}",
+                         ms=times["ms"], plain_ms=times["plain_ms"]))
+        _log(f"L13 flash rows {label}: out max_abs_err={err:.3g} ({tol}; "
+             f"{n_bad} out), lse {lse_err:.3g} ({n_lse} out); "
+             f"{times['ms']:.3f} ms, plain {times['plain_ms']:.3f} ms "
+             f"(medians of {FLASH_BWD_REPS}) {tag}")
+        del q, k, v, out, lse
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    bad = [r["label"] for r in rows if r["out_of_tolerance"]]
+    if bad:
+        raise AssertionError(f"L13: the flash kernel disagrees with its "
+                             f"plain version at {bad}")
+    return rows
+
+
+def estimate_phase(l8: dict, l2: dict, tag, l12: dict | None = None,
+                   l13: dict | None = None, parts: dict | None = None
+                   ) -> dict:
     """E1: the cell estimator (``launch.dryrun.estimate``, on the host's
     meta tensors) at L8's cell (a 1 x 1 mesh), L2's prefill and L3's
-    decode step (``l2`` holds L2's and L3's measurements) and, with
-    ``l12``, L12's first mesh (a model row of three), beside their
-    measurements in this run: the peak memory against the estimate's (it
-    must fall within ESTIMATE_MEMORY_MARGIN) and its split, the FLOPs
-    against the run's own counts, L8's ms a step against the roofline's
-    lower bound."""
+    decode step (``l2`` holds L2's and L3's measurements), with ``l12``
+    L12's first mesh (a model row of three) and with ``l13`` L13's
+    prefill and decode cells on their meshes (``parts``: L13's, as
+    SERVE_TP_PARTS), beside their measurements in this run: the peak
+    memory against the estimate's (it must fall within
+    ESTIMATE_MEMORY_MARGIN) and its split, the FLOPs against the run's
+    own counts, L8's ms a step against the roofline's lower bound."""
     mesh = AbstractMesh((1, 1), ("data", "model"))
     cfg = configs.get(TRAIN_ARCH, reduced=LM_REDUCED)
     opt = AdamWConfig(lr_peak=TRAIN_LR, warmup_steps=max(2, TRAIN_STEPS // 20),
@@ -3520,6 +4096,9 @@ def estimate_phase(l8: dict, l2: dict, tag, l12: dict | None = None) -> dict:
              f"{json.dumps(x['collective_bytes'])} against rank 0's "
              f"measured {json.dumps(l12[name]['collectives'])} (two "
              f"steps) {tag}")
+    if l13 is not None:
+        out["serving"] = serving_estimates(l13, parts, tag)
+        checked += list(out["serving"].values())
     t, p, d = out["train"], out["prefill"], out["decode"]
     _log(f"E1 estimator at L8's cell ({cfg.name}, {TRAIN_BATCH} x "
          f"{TRAIN_SEQ}, {TRAIN_MICROBATCHES} microbatches, 1 x 1): peak "
@@ -3551,6 +4130,54 @@ def estimate_phase(l8: dict, l2: dict, tag, l12: dict | None = None) -> dict:
         raise AssertionError(f"E1: a memory estimate falls outside "
                              f"{ESTIMATE_MEMORY_MARGIN:.0%} of the "
                              f"measured peak")
+    return out
+
+
+def serving_estimates(l13: dict, parts: dict | None, tag) -> dict:
+    """E1 at L13's cells: each part's prefill (batch 1) and decode cell
+    (the server's slots and cache, or L13c's one sequence) on its mesh,
+    rank 0's estimated peak against rank 0's measured one; the gathered
+    copies, collective bytes and useful FLOP ratio beside."""
+    parts = parts or {k: dict(v, reduced=LM_REDUCED)
+                      for k, v in SERVE_TP_PARTS.items()}
+    out = {}
+    for part, run in parts.items():
+        cfg = serve_cfg(run)
+        mesh = AbstractMesh(run["mesh"], ("data", "model"))
+        cells = []
+        if "prefill" in run:
+            cells.append(("prefill", ShapeCell(f"l13{part}-prefill",
+                                               run["prefill"], 1,
+                                               "prefill")))
+        if "serve" in run:
+            cells.append(("decode", ShapeCell(
+                f"l13{part}-decode", run["serve"]["max_seq"],
+                run["serve"]["batch_slots"], "decode")))
+        if "steps" in run:
+            cells.append(("cp", ShapeCell(f"l13{part}-cp",
+                                          l13[part]["cp"]["seq"], 1,
+                                          "decode")))
+        for kind, cell in cells:
+            est = dryrun.estimate(cfg, cell, mesh)
+            measured = l13[part][kind]["peak_memory_bytes"]
+            x = dict(mesh=list(run["mesh"]), measured_peak_bytes=measured,
+                     estimate_peak_bytes=est["memory"]["peak_bytes"],
+                     peak_rel_err=est["memory"]["peak_bytes"] /
+                     max(measured, 1) - 1, split=est["memory_split"],
+                     collective_bytes=est["collective_bytes_per_device"],
+                     useful_flops_ratio=est["roofline"][
+                         "useful_flops_ratio"],
+                     estimate_s=est["estimate_s"])
+            out[f"{part}_{kind}"] = x
+            _log(f"E1 estimator at L13{part}'s {kind} cell ({cfg.name}, "
+                 f"{cell.global_batch} x {cell.seq_len}, "
+                 f"{'x'.join(map(str, run['mesh']))}, rank 0): peak "
+                 f"{x['estimate_peak_bytes']} bytes against the measured "
+                 f"{measured} ({x['peak_rel_err']:+.4%}; margin "
+                 f"{ESTIMATE_MEMORY_MARGIN:.0%}), split "
+                 f"{json.dumps(x['split'])}; collective bytes "
+                 f"{json.dumps(x['collective_bytes'])}; useful FLOP ratio "
+                 f"{x['useful_flops_ratio']:.4f} {tag}")
     return out
 
 
@@ -5492,9 +6119,9 @@ def server_pool(dev, tag):
 
 
 def server_cli(dev, tag) -> int:
-    """Phase V5: ``repro_torch.launch.serve --mode sketch`` at its
-    defaults for every kind, and once in pool mode with a sweep, as
-    concurrent processes; each must exit 0."""
+    """Phase V5: ``repro_torch.launch.serve --mode sketch`` with CLI_ARGS
+    for every kind, and once in pool mode with a sweep, as concurrent
+    processes; each must exit 0."""
     root = Path(__file__).resolve().parent
     runs = [["--sketch", k] for k in ("lsketch", "gss", "lgs")]
     runs.append(["--tenants", "4", "--horizons", "1,2,4"])
@@ -6063,11 +6690,16 @@ def main() -> int:
     tp_rows = check_flash_tp_rows(dev, tag)  # L12's shapes against plain
     results["flash_attention_kernel"]["cases"] += tp_rows["forward"]
     results["flash_attention_backward_kernel"]["cases"] += tp_rows["backward"]
-    estimate_out = estimate_phase(train_out, lm_out, tag, tp_out)  # E1
+    serve_out = serve_tp_phase(dev, tag)  # L13
+    check_serve_tp_on_the_card(serve_out)
+    results["flash_attention_kernel"]["cases"] += check_flash_serve_rows(
+        dev, tag, serve_out["a"]["prefill"]["flash_call_shapes"])
+    estimate_out = estimate_phase(train_out, lm_out, tag, tp_out,
+                                  serve_out)  # E1
     train_paths = {"L8": train_out["launches"], "L9": moe_out["launches"],
                    "L10": sharded_out["launches"],
                    "L11": restart_out["launches"],
-                   "L12": tp_out["launches"]}
+                   "L12": tp_out["launches"], "L13": serve_out["launches"]}
 
     seconds = time.perf_counter() - t_start
     _log(f"total {seconds:.1f} s")
@@ -6085,6 +6717,7 @@ def main() -> int:
                       "train": train_out, "moe_train": moe_out,
                       "sharded_train": sharded_out,
                       "restart": restart_out, "tensor_parallel": tp_out,
+                      "sharded_serving": serve_out,
                       "estimate": estimate_out,
                       "seconds": seconds}), flush=True)
     print(card_line(), flush=True)

@@ -32,6 +32,8 @@ from datetime import timedelta
 import torch
 import torch.distributed as dist
 
+from repro_torch.core.types import resolve_device
+
 GROUP_TIMEOUT_S = 300
 
 
@@ -70,16 +72,17 @@ def _rank_main(fn, rank, world, init_file, backend, args, results):
             dist.destroy_process_group()
 
 
-def spawn_ranks(fn, world: int, *, device="cpu", args=(), init_file=None,
+def spawn_ranks(fn, world: int, *, device=None, args=(), init_file=None,
                 backend: str | None = None):
     """Run ``fn(*args)`` on ``world`` spawned ranks of one group (NCCL for
     a CUDA ``device``, gloo for the CPU, or ``backend``: gloo ranks that
-    share one card) and return rank 0's result.
+    share one card) and return rank 0's result. ``device``: the card
+    unless the caller names the CPU (``core.types.resolve_device``).
     ``fn`` and ``args`` are pickled, so ``fn`` must be importable by its
     module path. ``init_file`` is the rendezvous file (default: one in a
     fresh temporary directory). Raises ``RuntimeError`` naming the first
     rank that failed, with its traceback."""
-    backend = backend or backend_for(device)
+    backend = backend or backend_for(resolve_device(device))
     ctx = torch.multiprocessing.get_context("spawn")
     results = ctx.SimpleQueue()
     tmp = None

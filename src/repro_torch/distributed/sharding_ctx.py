@@ -44,7 +44,18 @@ the model ranks backward) and a row-parallel one ends with ``tp_sum``
 (the ranks' partial outputs summed forward, identity backward);
 ``tp_gather`` joins the ranks' blocks of rows of the sequence-parallel
 fallback (all-gather forward, this rank's block backward). All three are
-identities outside a context or at one model rank.
+identities outside a context or at one model rank. A contraction over
+channels split over "model" whose sum every rank then uses in its own
+way (the recurrent mixers' projections out of their channel blocks) is
+``tp_copy(tp_sum(x))``, so that its gradient is summed over the ranks in
+turn.
+
+Serving installs the same parameter source (``launch.step_fns``'s
+sharded prefill and serve steps, forward only). Its caches rest sharded
+as the reference's cache rules place them; where the batch does not
+divide the data ranks (``long_500k``: one sequence) a cache's sequence
+axis splits over "data" instead (context parallelism), and attention over
+it combines the ranks' softmax parts with ``cp_attend``.
 """
 
 from __future__ import annotations
@@ -353,3 +364,28 @@ def tp_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
         return x
     ctx = current()
     return _TpGather.apply(x, dim, n, ctx.tp_rank, ctx.model_group())
+
+
+# ---------------------------------------------------------------------------
+# context parallelism over "data" (serving only)
+# ---------------------------------------------------------------------------
+
+def cp_attend(s: torch.Tensor, attend):
+    """Softmax attention over a sequence split over the data ranks, forward
+    only: ``s`` this rank's masked scores ``[..., S_local]``, ``attend(e)``
+    the weighted sum of this rank's values by weights ``e [..., S_local]``
+    (a tensor ``[..., E]``). The ranks' largest score (all-reduce max),
+    then their weight sums and weighted sums (one all-reduce) give the
+    softmax-weighted sum over the whole sequence. The slot just written
+    is live on its rank, so the largest score is a real one and a rank
+    with no live slot adds zeros."""
+    group = current().group("data")
+    m = s.amax(dim=-1, keepdim=True)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    e = torch.exp(s - m)
+    o = attend(e)
+    lead = o.shape[:-1]
+    packed = torch.cat([o.reshape(-1), e.sum(dim=-1).reshape(-1)])
+    dist.all_reduce(packed, group=group)
+    o = packed[:o.numel()].view(o.shape)
+    return o / packed[o.numel():].view(*lead, 1)

@@ -14,10 +14,9 @@ rank 0 of the mesh sees it, and counts as it goes:
     the parameters' and caches' shards) plus the peak of the live bytes
     over the step — the counterpart of ``memory_analysis()``. It is split
     into parameters, gradients, moments, the gathered copies (a train
-    step over one model rank: every sharded parameter whole; over several:
-    the most bytes of layers' copies live at once, measured; a serving
-    cell: every sharded parameter whole, and its caches whole over their
-    sharded non-batch axes), the gradients before their slice (one model
+    step over one model rank: every sharded parameter whole; over several,
+    and in a serving cell: the most bytes of layers' copies live at once,
+    measured), the gradients before their slice (one model
     rank: the whole tree; several: the largest layer's gathered copies, as
     the backward reduces and slices a layer's gradients as it goes), the
     saved activations of a microbatch
@@ -51,11 +50,12 @@ Per device, a train cell's step is the port's: at one rank,
 ``make_train_step``; over several, ``make_sharded_train_step`` with meta
 shards, which over several model ranks splits the compute over "model"
 (Megatron's layout: heads, MLP columns and rows, vocabulary; the "sp"
-fallback; the recurrent mixers whole on every rank). The port has no
-sharded serving step yet: a prefill or decode cell runs
-``make_prefill_step``/``make_serve_step`` on this rank's batch rows with
-every parameter and cache gathered whole, so a model row's ranks compute
-the same there. Whole-mesh totals (``hlo_flops``, ``hlo_bytes``,
+fallback; the recurrent mixers' channels). A prefill or decode cell
+runs ``make_sharded_prefill_step``/``make_sharded_serve_step`` (over one
+rank, ``make_prefill_step``/``make_serve_step``) on this rank's batch
+rows: each layer gathered over "data" as it opens and split over
+"model", the caches as their shards (context parallelism where the
+batch does not divide). Whole-mesh totals (``hlo_flops``, ``hlo_bytes``,
 ``collective_bytes``) are the rank's times the chips, as the reference
 multiplies its per-device HLO; ``useful_flops_ratio`` shows the share of
 them the model needs (what a train cell's split leaves redundant, a
@@ -626,79 +626,66 @@ def _train_cell(cfg, cell, mesh, microbatches, opt_cfg, log, gathered,
     return (lambda: step(state, batch)), resting, split, rows, split_step
 
 
-def _serve_cell(cfg, cell, mesh, log, gathered):
+def _serve_cell(cfg, cell, mesh, log, gathered, notes):
     """(step thunk, resting tensors, split, rows) of a prefill or decode
-    cell on rank 0 of ``mesh``: the parameters' and caches' shards rest;
-    the step gathers them whole (a cache keeps its batch rows) and runs on
-    this rank's rows."""
-    ax = mesh_axes(mesh)
+    cell on rank 0 of ``mesh``: the parameters' and caches' shards rest.
+    Over one rank the unsharded step; over several the sharded prefill or
+    serve step (``step_fns.make_sharded_prefill_step``/
+    ``make_sharded_serve_step``) on meta shards, each layer's parameters
+    gathered as it opens (``_MetaGathers``: the copies measured) and the
+    caches read and written as their shards, on this rank's rows."""
     mm = _MetaMesh(mesh)
     pshapes = lm.param_shapes(cfg)
-    ppl = shd.to_named(shd.sanitize_specs(
-        lm.param_specs(cfg, ax["fsdp"], ax["tp"]), pshapes, mesh), mesh)
+    ppl = step_fns.param_placements(cfg, mesh)
     shards = {k: _meta(_shard_shape(s, ppl[k], mm), d)
               for k, (s, d) in pshapes.items()}
     rows = _local_rows(cell, mesh)
     specs = input_specs(cfg, cell)
     split = dict(params=sum(_nbytes(t) for t in shards.values()),
                  moments=0, grads=0, full_grads=0, caches=0,
-                 gathered_caches=0,
-                 gathered_params=sum(
-                     math.prod(s) * d.itemsize for k, (s, d) in
-                     pshapes.items() if tuple(shards[k].shape) != tuple(s)),
+                 gathered_params=0,
                  logits=rows * (cell.seq_len if cell.mode == "prefill"
                                 else 1) * cfg.vocab_size
                  * cfg.compute_dtype.itemsize)
+    one = mesh_size(mesh) == 1
     if cell.mode == "decode":
         cpl = shd.cache_shardings(specs["caches"], mesh)
 
-        def shard_caches(spec, pl):  # leaves: (local shard, shape, placements)
+        def shard_caches(spec, pl):  # leaves: (local shard, placements)
             if isinstance(spec, dict):
                 return {k: shard_caches(spec[k], pl[k]) for k in spec}
             if isinstance(spec, list):
                 return [shard_caches(a, b) for a, b in zip(spec, pl)]
             shape, dtype = spec
-            return (_meta(_shard_shape(shape, pl, mm), dtype), shape, pl)
-
-        def whole(tree):
-            if isinstance(tree, dict):
-                return {k: whole(v) for k, v in tree.items()}
-            if isinstance(tree, list):
-                return [whole(v) for v in tree]
-            t, shape, pl = tree
-            out = _gather(t, shape, pl, mm, log, "cache gather", keep_dim=0)
-            if out is not t:
-                gathered.add(out.untyped_storage()._cdata)
-            return out
+            return (_meta(_shard_shape(shape, pl, mm), dtype), pl)
 
         caches = shard_caches(specs["caches"], cpl)
         inputs = {"tokens": _meta((rows, 1), torch.int32)}
         if "memory" in specs:
             inputs["memory"] = _spec_tensors(specs["memory"], rows)
-        cache_leaves = [t for t, _, _ in _cache_leaves(caches)]
+        cache_leaves = [t for t, _ in _cache_leaves(caches)]
         split["caches"] = sum(_nbytes(t) for t in cache_leaves)
-        split["gathered_caches"] = sum(
-            math.prod(shape[1:]) * t.shape[0] * t.element_size()
-            for t, shape, pl in _cache_leaves(caches)
-            if _sharded_axes(pl, mm, keep_dim=0))
         resting = cache_leaves + list(inputs.values())
     else:
         inputs = _spec_tensors(specs, rows)
         resting = list(_tensors(inputs))
     resting += list(shards.values())
+    params = lm.params_from_leaves(cfg, shards)
+    seams = dict(_leaves=_MetaLeaves(ppl, pshapes, mm, log, gathered),
+                 _gathers=functools.partial(_MetaGathers, notes))
 
     def run():
-        full = {}
-        for k, t in shards.items():
-            full[k] = _gather(t, pshapes[k][0], ppl[k], mm, log,
-                              "parameter gather")
-            if full[k] is not t:
-                gathered.add(full[k].untyped_storage()._cdata)
-        params = lm.params_from_leaves(cfg, full)
         if cell.mode == "prefill":
-            return step_fns.make_prefill_step(cfg)(params, inputs)
-        return step_fns.make_serve_step(cfg)(
-            params, whole(caches), inputs["tokens"], inputs.get("memory"))
+            step = step_fns.make_prefill_step(cfg) if one else \
+                step_fns.make_sharded_prefill_step(cfg, mm, **seams)
+            return step(params, inputs)
+        if one:
+            local = [{"mixer": {k: t for k, (t, _) in c["mixer"].items()}}
+                     for c in caches]
+            return step_fns.make_serve_step(cfg)(
+                params, local, inputs["tokens"], inputs.get("memory"))
+        return step_fns.make_sharded_serve_step(cfg, mm, **seams)(
+            params, caches, inputs["tokens"], inputs.get("memory"))
 
     return run, resting, split, rows
 
@@ -727,7 +714,7 @@ def estimate(cfg, cell: ShapeCell, mesh, microbatches: int = 1,
     else:
         microbatches = 1
         run, resting, split, rows = _serve_cell(cfg, cell, mesh, log,
-                                                gathered)
+                                                gathered, notes)
     storages = {t.untyped_storage()._cdata: t.untyped_storage().nbytes()
                 for t in resting}
     static = set(storages)
@@ -785,6 +772,8 @@ def estimate(cfg, cell: ShapeCell, mesh, microbatches: int = 1,
     if split_step:  # what the split step held, measured
         split.update(gathered_params=tally.gathered_peak,
                      full_grads=notes["largest_open"])
+    elif cell.mode != "train":
+        split["gathered_params"] = tally.gathered_peak
     return {
         "arch": cfg.name, "shape": cell.name,
         "mesh": "x".join(str(v) for v in mesh_shape(mesh).values()),

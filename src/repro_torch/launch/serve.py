@@ -10,6 +10,16 @@ carries its frame embeddings (``Request.frame_emb``), encoded once when
 the request takes its slot into that slot's row of the memory every step
 reads; the JAX server has no such input.
 
+With ``mesh`` (a ``DeviceMesh`` over every rank of the group, each rank
+running the same server on the same requests), the server is the
+reference's jitted one on placed inputs: the parameters come from
+``step_fns.shard_params``, the caches rest sharded
+(``step_fns.shard_caches``), each data rank decodes its block of the
+slots (all of them, the caches' sequence split over "data", where the
+slots do not divide the data ranks) through
+``step_fns.make_sharded_serve_step``, and every rank samples from the
+logits of every slot, gathered over "data".
+
 Usage: python -m repro_torch.launch.serve --arch smollm-135m --requests 8
        [--device cpu]   (any of ``configs.ARCHS``, reduced; an
        encoder-decoder's requests get seeded frame embeddings)
@@ -27,9 +37,13 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import repro_torch.configs as configs
 from repro_torch.core.types import resolve_device
+from repro_torch.distributed.sharding_ctx import ShardingCtx
+from repro_torch.launch import step_fns
+from repro_torch.launch.mesh import mesh_shape
 from repro_torch.models import lm
 
 CLI_FRAMES = 16  # frames a request of the CLI gives an encoder-decoder
@@ -48,7 +62,7 @@ class Request:
 class DecodeServer:
     def __init__(self, cfg, params, batch_slots: int = 4,
                  max_seq: int = 256, temperature: float = 0.0, seed: int = 0,
-                 device=None):
+                 device=None, mesh=None):
         # "cuda" names the current card: compare as tensors place it
         self.device = torch.empty(0, device=resolve_device(device)).device
         if params.device != self.device:
@@ -60,20 +74,46 @@ class DecodeServer:
         self.S = max_seq
         self.temperature = temperature
         self.rng = np.random.default_rng(seed)
-        self.caches = lm.init_cache(cfg, self.B, self.S, self.device)
+        self.mesh = mesh
+        self.rows = range(self.B)  # the slots this rank decodes
+        if mesh is None:
+            self.caches = lm.init_cache(cfg, self.B, self.S, self.device)
+        else:
+            self.caches = step_fns.shard_caches(
+                cfg, step_fns.cache_specs(cfg, self.B, self.S), mesh)
+            self._sharded = step_fns.make_sharded_serve_step(cfg, mesh)
+            ctx = ShardingCtx(mesh)
+            self._data = ctx.group("data"), mesh_shape(mesh)["data"]
+            n = self._data[1]
+            if self.B % n == 0:
+                a = ctx.coordinate("data") * (self.B // n)
+                self.rows = range(a, a + self.B // n)
         self.slots: List[Optional[Request]] = [None] * self.B
         self.tokens = np.zeros((self.B, 1), np.int32)
         self.memory = None  # encoder-decoder: [B, Se, D] on the device
 
     def _step(self, params, caches, tokens):
-        return lm.serve_step(self.cfg, params, caches, tokens,
-                             memory=self.memory)
+        if self.mesh is None:
+            return lm.serve_step(self.cfg, params, caches, tokens,
+                                 memory=self.memory)
+        rows = slice(self.rows.start, self.rows.stop)
+        logits, caches = self._sharded(params, caches, tokens[rows],
+                                       self.memory)
+        if len(self.rows) < self.B:  # every slot's logits on every rank
+            parts = [torch.empty_like(logits) for _ in range(self._data[1])]
+            dist.all_gather(parts, logits.contiguous(), group=self._data[0])
+            logits = torch.cat(parts)
+        return logits, caches
 
     def _reset_slot(self, i: int):
-        """Zero slot i's cache state (every leaf indexed by batch)."""
+        """Zero slot i's cache state (every leaf indexed by batch), where
+        this rank holds that slot's row."""
+        if i not in self.rows:
+            return
         for cache in self.caches:
             for x in cache["mixer"].values():
-                x[i].zero_()
+                x = x if self.mesh is None else x.to_local()
+                x[i - self.rows.start].zero_()
 
     def _encode(self, i: int, req: Request):
         """Encoder-decoder: the request's frames through the encoder, into
@@ -88,15 +128,18 @@ class DecodeServer:
         frames = torch.as_tensor(np.asarray(req.frame_emb, np.float32),
                                  device=self.device)[None]
         with torch.no_grad():
-            mem = lm.encode_memory(self.cfg, self.params, frames)
+            mem = lm.encode_memory(self.cfg, self.params, frames) \
+                if self.mesh is None else step_fns.sharded_encode_memory(
+                    self.cfg, self.mesh, self.params, frames)
         if self.memory is None:
-            self.memory = torch.zeros((self.B,) + mem.shape[1:],
+            self.memory = torch.zeros((len(self.rows),) + mem.shape[1:],
                                       dtype=mem.dtype, device=self.device)
         if mem.shape[1:] != self.memory.shape[1:]:
             raise ValueError(f"frame_emb of {mem.shape[1]} frames; this "
                              f"server's requests have "
                              f"{self.memory.shape[1]}")
-        self.memory[i] = mem[0]
+        if i in self.rows:
+            self.memory[i - self.rows.start] = mem[0]
 
     def submit(self, req: Request) -> bool:
         """Claim a free slot; the prompt streams through subsequent steps

@@ -62,6 +62,11 @@ _CACHE_RULES = {
 }
 
 
+def cache_seq_axis(name: str):
+    """The sequence axis of a cache leaf by its name, or None."""
+    return _CACHE_RULES.get(name, (None, None))[0]
+
+
 def _cache_leaf_spec(name, shape, mesh) -> tuple:
     ax = mesh_axes(mesh)
     dp, tp = ax["dp"], ax["tp"]

@@ -38,6 +38,17 @@ by several ranks' query heads), then sliced. A leaf computed the same on
 every model rank (the recurrent mixers, norms, router) is sliced with no
 sum over "model".
 
+Serving over a mesh (``shard_params``, ``shard_caches``,
+``make_sharded_prefill_step``, ``make_sharded_serve_step``), forward
+only: the parameters rest as the reference's serving cells place them
+(FSDP over "data", TP over "model"), the caches as its cache rules do;
+each layer opens through the same parameter source as the split train
+step (gathered over "data", split over "model" as the models' ``*_tp_uses``
+ask) and the logits are gathered over the vocabulary before any argmax.
+Where the batch does not divide the data ranks, the caches' sequence
+axis splits over "data" (context parallelism) and every data rank
+decodes the same rows.
+
 A train state's trees are flat dicts keyed by the parameters' dotted
 names (``dict(params.named_parameters())``, e.g. ``layers.3.attn.wq``);
 ``state_leaves``/``load_state_leaves`` flatten a state to the checkpoint's
@@ -62,7 +73,9 @@ from repro_torch.launch import shardings
 from repro_torch.launch.mesh import axis_names, mesh_axes
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import whole_vocab
 from repro_torch.models.moe import TELEMETRY_BUCKETS
+from repro_torch.models.transformer import layer_cache_spec
 from repro_torch.optim import (AdamWConfig, apply_updates, init_opt_state,
                                opt_state_specs)
 
@@ -272,20 +285,28 @@ def shard_state(cfg: ModelConfig, opt_cfg: AdamWConfig, state: TrainState,
     from torch.distributed.tensor import DTensor
 
     pl = state_placements(cfg, opt_cfg, mesh)
-
-    def shard(tree, placements):
-        return {k: DTensor.from_local(
-            local_slice(t.detach(), placements[k], mesh).clone(), mesh,
-            placements[k], shape=t.shape, stride=t.stride())
-            for k, t in tree.items()}
-
     params = lm.params_from_leaves(
-        cfg, shard(dict(state.params.named_parameters()), pl.params))
-    opt = {"mu": shard(state.opt["mu"], pl.opt["mu"]),
-           "nu": shard(state.opt["nu"], pl.opt["nu"]),
+        cfg, _shard_leaves(dict(state.params.named_parameters()), pl.params,
+                           mesh))
+    opt = {"mu": _shard_leaves(state.opt["mu"], pl.opt["mu"], mesh),
+           "nu": _shard_leaves(state.opt["nu"], pl.opt["nu"], mesh),
            "step": state.opt["step"]}
     return TrainState(params=params, opt=opt, telemetry=state.telemetry,
                       step=state.step)
+
+
+def _dtensor(t: torch.Tensor, placements, mesh):
+    """``t`` (the full value, the same on every rank) as a ``DTensor``
+    holding a copy of this rank's slice."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(
+        local_slice(t.detach(), placements, mesh).clone(), mesh, placements,
+        shape=t.shape, stride=t.stride())
+
+
+def _shard_leaves(tree: dict, placements: dict, mesh) -> dict:
+    return {k: _dtensor(t, placements[k], mesh) for k, t in tree.items()}
 
 
 def full_state_leaves(state: TrainState) -> Dict[str, torch.Tensor]:
@@ -593,6 +614,184 @@ def make_sharded_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh,
             return _finish(cfg, state, opt, loss, aux, stats)
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# sharded serving over a mesh
+# ---------------------------------------------------------------------------
+
+def param_placements(cfg: ModelConfig, mesh) -> dict:
+    """The parameters' placements on ``mesh``, as the reference's serving
+    cells place them: ``lm.param_specs`` (FSDP over "data", TP over
+    "model") through ``sanitize_specs`` and ``to_named``."""
+    ax = mesh_axes(mesh)
+    return shardings.to_named(shardings.sanitize_specs(
+        lm.param_specs(cfg, ax["fsdp"], ax["tp"]), lm.param_shapes(cfg),
+        mesh), mesh)
+
+
+@torch.no_grad()
+def shard_params(cfg: ModelConfig, params, mesh):
+    """Full parameters (the same on every rank) resting on ``mesh``: an
+    ``LMParams`` of ``DTensor``s, each a copy of this rank's slice of its
+    placements (``param_placements``), as ``shard_state`` places a train
+    state's."""
+    return lm.params_from_leaves(
+        cfg, _shard_leaves(dict(params.named_parameters()),
+                           param_placements(cfg, mesh), mesh))
+
+
+@torch.no_grad()
+def init_sharded_params(cfg: ModelConfig, mesh, generator=None):
+    """``lm.init_params``' draw from ``generator`` (the same stream, leaf by
+    leaf, on the generator's device; seeded 0 on this rank's device of the
+    mesh when not given), keeping only this rank's shard of each leaf:
+    ``shard_params`` of the drawn tree, with one whole leaf at a time on
+    the rank."""
+    from repro_torch.models.params import init_one
+
+    if generator is None:
+        generator = torch.Generator(device=_mesh_device(mesh)).manual_seed(0)
+    placements = param_placements(cfg, mesh)
+    leaves = {}
+    for name, d in lm.draw_order(cfg):
+        leaves[name] = _dtensor(init_one(d, generator, cfg.param_dtype,
+                                         generator.device),
+                                placements[name], mesh)
+    return lm.params_from_leaves(cfg, leaves)
+
+
+def cache_specs(cfg: ModelConfig, batch: int, seq: int) -> list:
+    """The decoder's per-layer caches as ``(shape, dtype)`` stand-ins."""
+    dec, _ = lm.plans(cfg)
+    return [layer_cache_spec(cfg, p, batch, seq) for p in dec.layers]
+
+
+@torch.no_grad()
+def shard_caches(cfg: ModelConfig, caches, mesh) -> list:
+    """Per-layer caches resting on ``mesh`` as ``shardings.cache_shardings``
+    places them (batch over "data" where it divides, else the sequence
+    axis: context parallelism; KV heads, Mamba's and sLSTM's channels and
+    mLSTM's heads over "model" where they divide). A leaf given as a
+    tensor (the same on every rank, e.g. seeded) becomes a ``DTensor`` of
+    a copy of this rank's slice; one given as a ``(shape, dtype)``
+    stand-in (``cache_specs``), a ``DTensor`` over a zeroed local shard
+    on this rank's device of the mesh."""
+    from torch.distributed.tensor import DTensor
+
+    placements = shardings.cache_shardings(caches, mesh)
+
+    def leaf(x, pl, device):
+        if isinstance(x, torch.Tensor):
+            return _dtensor(x, pl, mesh)
+        shape, dtype = x
+        local = local_slice(torch.empty(shape, dtype=dtype, device="meta"),
+                            pl, mesh).shape
+        return DTensor.from_local(
+            torch.zeros(local, dtype=dtype, device=device), mesh, pl,
+            shape=torch.Size(shape),
+            stride=torch.empty(shape, device="meta").stride())
+
+    device = _mesh_device(mesh)
+    return [{"mixer": {k: leaf(x, pl["mixer"][k], device)
+                       for k, x in c["mixer"].items()}}
+            for c, pl in zip(caches, placements)]
+
+
+def _mesh_device(mesh) -> torch.device:
+    """This rank's device of a ``DeviceMesh`` (its current card for CUDA)."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def _cache_leaf(leaf) -> tuple:
+    """(this rank's tensor, placements) of a resting cache leaf: a
+    ``DTensor``'s, or the estimator's ``(meta shard, placements)`` pair."""
+    if isinstance(leaf, tuple):
+        return leaf
+    return leaf.to_local(), leaf.placements
+
+
+def _cache_view(cache: dict, mesh) -> dict:
+    """A layer's resting cache as the decode reads it: each leaf's local
+    shard (written in place), and ``{"seq": (n, r)}`` where its sequence
+    axis is split n ways over "data" and this rank holds block r."""
+    from torch.distributed.tensor import Shard
+
+    coord = mesh.get_coordinate()
+    out = {"mixer": {}}
+    for name, leaf in cache["mixer"].items():
+        t, pl = _cache_leaf(leaf)
+        out["mixer"][name] = t
+        seq_ax = shardings.cache_seq_axis(name)
+        for i, p in enumerate(pl):
+            if isinstance(p, Shard) and p.dim == seq_ax and mesh.size(i) > 1:
+                out["seq"] = (mesh.size(i), coord[i])
+    return out
+
+
+@contextlib.contextmanager
+def _serving(cfg: ModelConfig, mesh, params, leaves, gathers):
+    """The sharded serving steps' setting: no graph, the mesh's sharding
+    context and the split's parameter source over ``params``' local
+    shards (each layer gathered over "data" as it opens, as the split
+    train step gathers it, and freed when it closes); yields the tree of
+    local shards."""
+    with torch.no_grad(), use_sharding_ctx(mesh) as ctx:
+        shards = dict(params.named_parameters())
+        placements = {k: leaves.placements(k, p) for k, p in shards.items()}
+        local = lm.params_from_leaves(
+            cfg, {k: leaves.local(p) for k, p in shards.items()})
+        with gathers(ctx, mesh, local, placements).installed():
+            yield local
+
+
+def make_sharded_prefill_step(cfg: ModelConfig, mesh, _leaves=_DTensorLeaves,
+                              _gathers=_LayerGathers):
+    """f(params, batch) -> logits over ``mesh``: ``params`` from
+    ``shard_params``, ``batch`` this rank's rows (``local_rows``). The
+    forward of the split train step without its graph (this rank's heads
+    or blocks of query rows, MLP columns, experts, mixer channels,
+    vocabulary block); returns the whole vocabulary's logits, the same on
+    every rank of a model row. ``_leaves``/``_gathers``: the estimator's
+    seams, as ``make_sharded_train_step``'s."""
+
+    def prefill_step(params, batch):
+        with _serving(cfg, mesh, params, _leaves, _gathers) as local:
+            logits, _ = lm.forward(cfg, local, batch)
+            return whole_vocab(logits, cfg)
+
+    return prefill_step
+
+
+def make_sharded_serve_step(cfg: ModelConfig, mesh, _leaves=_DTensorLeaves,
+                            _gathers=_LayerGathers):
+    """f(params, caches, tokens, memory=None) -> (logits, caches) over
+    ``mesh``: ``params`` from ``shard_params``; ``caches`` from
+    ``shard_caches`` (written in place); ``tokens`` ``[B, 1]`` and
+    ``memory`` this rank's rows where the batch divides the data ranks,
+    else the whole batch (then the caches' sequence axis is split over
+    "data" where it divides: context parallelism). One decode step on
+    this rank's rows, heads, channels and sequence block; the logits
+    ``[B, 1, V]`` are the whole vocabulary's on every rank of a model
+    row."""
+
+    def serve_step(params, caches, tokens, memory=None):
+        with _serving(cfg, mesh, params, _leaves, _gathers) as local:
+            views = [_cache_view(c, mesh) for c in caches]
+            logits, _ = lm.serve_step(cfg, local, views, tokens,
+                                      memory=memory)
+        return logits, caches
+
+    return serve_step
+
+
+def sharded_encode_memory(cfg: ModelConfig, mesh, params, frame_emb):
+    """The encoder-decoder's memory of ``frame_emb`` (this rank's rows)
+    under the split, ``params`` from ``shard_params``."""
+    with _serving(cfg, mesh, params, _DTensorLeaves, _LayerGathers) as local:
+        return lm.encode_memory(cfg, local, frame_emb)
 
 
 def make_prefill_step(cfg: ModelConfig):

@@ -27,7 +27,13 @@ rows with the whole weights, attends with ``q_offset = r L/tp``, applies
 ``wo`` and joins the blocks of rows by ``tp_gather``; the whole weights'
 gradients are then this rank's part ("partial"). Where L does not divide
 either, the layer computes whole on every rank. ``*_tp_uses`` say how
-each layer takes its parameters (``sharding_ctx.open_params``).
+each layer takes its parameters (``sharding_ctx.open_params``). Decode
+(one query row, so never "sp") runs on the rank's heads in head mode and
+whole otherwise, against caches the sharded serve step places as the
+reference's cache rules do; a cache whose sequence axis splits over
+"data" (context parallelism) is written by the rank that holds the slot,
+masked by global slot index, and its softmax combined over the data
+ranks (``sharding_ctx.cp_attend``).
 
 Activations are ``[B, L, H, dh]``; the flash wrapper takes ``[B, H, L,
 dh]``; GQA caches are ``{"k": [B, S, KV, dh], "v": ..., "pos": [B]
@@ -38,8 +44,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.distributed.sharding_ctx import (tp_copy, tp_gather,
-                                                  tp_rank, tp_split, tp_sum)
+from repro_torch.distributed.sharding_ctx import (cp_attend, tp_copy,
+                                                  tp_gather, tp_rank,
+                                                  tp_split, tp_sum)
 from repro_torch.kernels.flash_attention.ops import \
     attention as flash_attention
 
@@ -285,36 +292,93 @@ def gqa_train(params, x, cfg: ModelConfig, window: int = 0):
     return _tp_join(out.reshape(B, Lq, -1) @ params["wo"], mode)
 
 
-def gqa_decode(params, x, cache, cfg: ModelConfig, window: int = 0):
+def _write_slot(cache, names, new, slot, seq):
+    """Write ``new[i]`` (one ``[B, ...]`` tensor a leaf of ``names``) at
+    each row's global ``slot`` [B]: in place on one rank; with the
+    sequence axis split over "data" (``seq`` = (n, r)), only on the rank
+    whose block holds the slot."""
+    B = slot.shape[0]
+    rows = torch.arange(B, device=slot.device)
+    n, r = seq
+    if n == 1:
+        for name, t in zip(names, new):
+            cache[name][rows, slot] = t.to(cache[name].dtype)
+        return
+    S_loc = cache[names[0]].shape[1]
+    mine = (slot // S_loc) == r
+    local = slot % S_loc
+    for name, t in zip(names, new):
+        c = cache[name]
+        keep = mine.view(B, *([1] * (t.dim() - 1)))
+        c[rows, local] = torch.where(keep, t.to(c.dtype), c[rows, local])
+
+
+def _slot_indices(S_loc: int, seq, device):
+    """The global slot indices ``[1, S_loc]`` of this rank's block."""
+    n, r = seq
+    return r * S_loc + torch.arange(S_loc, dtype=torch.int32,
+                                    device=device)[None, :]
+
+
+def _softmax_attend(s, values, eq: str, seq, shape=None):
+    """Softmax over the last axis of the masked scores ``s`` (seen as
+    ``shape``), then the weighted sum of ``values`` by ``eq``: on one
+    rank as it stands; with the sequence split over "data", the ranks'
+    parts combined (``sharding_ctx.cp_attend``)."""
+    shape = shape or s.shape
+    if seq[0] == 1:
+        return torch.einsum(eq, torch.softmax(s, dim=-1).reshape(shape),
+                            values)
+    return cp_attend(s.reshape(shape), lambda e: torch.einsum(eq, e, values))
+
+
+def gqa_decode(params, x, cache, cfg: ModelConfig, window: int = 0,
+               seq=(1, 0)):
     """x: [B,1,D]; cache: {k: [B,S,KV,dh], v: ..., pos: [B]}; ring-buffered
     when ``window`` > 0 (local layers keep an O(window) cache). Writes the
     new key and value into the cache and advances ``pos`` in place (the
-    port's counterpart of buffer donation); returns (y, cache)."""
+    port's counterpart of buffer donation); returns (y, cache).
+
+    Split over the model ranks on this rank's query heads where they
+    divide (the cache holding the rank's KV heads where those divide too,
+    else all of them, every rank writing all of them from the whole
+    ``wk``/``wv`` and reading those its query heads read); ``seq`` = (n,
+    r): the cache's sequence axis is block r of n over "data" (the slot's
+    rank writes it; validity by global slot; the softmax combined over
+    the ranks)."""
     B = x.shape[0]
     pos = cache["pos"]  # [B] next absolute position
+    tp = tp_split()
+    mode = attn_mode(cfg.n_heads, 1, tp)
+    if mode == "heads":
+        x = tp_copy(x)
     q, k_new, v_new = _project_qkv(params, x, cfg, pos[:, None])
-    S = cache["k"].shape[1]
+    S_loc = cache["k"].shape[1]
+    S = S_loc * seq[0]
     slot = pos % S if window > 0 else pos
     # the reference's dynamic_update_slice clamps the start into range
     slot = slot.clamp(0, S - 1).long()
-    rows = torch.arange(B, device=x.device)
-    cache["k"][rows, slot] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][rows, slot] = v_new[:, 0].to(cache["v"].dtype)
+    _write_slot(cache, ("k", "v"), (k_new[:, 0], v_new[:, 0]), slot, seq)
     # validity: a slot is live if already written (<= pos), or — for ring
     # buffers — always once the ring has wrapped (pos >= S)
-    idx = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
+    idx = _slot_indices(S_loc, seq, x.device)
     valid = (idx <= pos[:, None]) | ((window > 0) & (pos[:, None] >= S))
-    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    keys, values = cache["k"], cache["v"]
+    if mode == "heads" and cfg.n_kv_heads % tp:
+        lo, n, sel = _kv_heads(cfg, tp, tp_rank())
+        keys, values = keys[:, :, lo:lo + n], values[:, :, lo:lo + n]
+        keys, values = _by_query_head(keys, sel), _by_query_head(values, sel)
+    H, KV, dh = q.shape[2], keys.shape[2], cfg.head_dim
     g = H // KV
     qg = q[:, 0].float().reshape(B, KV, g, dh)
     s = torch.einsum("bkgd,bskd->bkgs", qg,
-                     cache["k"].float()).reshape(B, H, S) / (dh ** 0.5)
+                     keys.float()).reshape(B, H, S_loc) / (dh ** 0.5)
     s = s.masked_fill(~valid[:, None, :], NEG_INF)
-    p = torch.softmax(s, dim=-1).reshape(B, KV, g, S)
-    out = torch.einsum("bkgs,bskd->bkgd", p, cache["v"].float()).to(x.dtype)
+    out = _softmax_attend(s, values.float(), "bkgs,bskd->bkgd", seq,
+                          (B, KV, g, S_loc)).to(x.dtype)
     y = (out.reshape(B, H * dh) @ params["wo"])[:, None]
     pos.add_(1)
-    return y, cache
+    return (tp_sum(y) if mode == "heads" else y), cache
 
 
 def gqa_cache_spec(cfg: ModelConfig, batch: int, seq: int, window: int = 0):
@@ -422,19 +486,25 @@ def mla_train(params, x, cfg: ModelConfig):
     return _tp_join(out.reshape(B, Lq, H * dh) @ params["wo"], mode)
 
 
-def mla_decode(params, x, cache, cfg: ModelConfig):
+def mla_decode(params, x, cache, cfg: ModelConfig, seq=(1, 0)):
     """Absorbed-matrices decode against the compressed cache (c_kv,
-    k_rope), written and advanced in place."""
+    k_rope), written and advanced in place. Split over the model ranks on
+    this rank's heads where they divide (the compressed cache whole on
+    every rank, each writing it); ``seq`` as ``gqa_decode``'s."""
     B = x.shape[0]
-    H, dh, rd = cfg.n_heads, cfg.head_dim, cfg.rope_dim
+    dh, rd = cfg.head_dim, cfg.rope_dim
     pos = cache["pos"]
+    mode = attn_mode(cfg.n_heads, 1, tp_split())
+    if mode == "heads":
+        x = tp_copy(x)
     q_nope, q_rope = _mla_q(params, x, cfg, pos[:, None])  # [B, 1, H, *]
+    H = q_nope.shape[2]
     c_new, kr_new = _mla_kv_new(params, x, cfg, pos[:, None])
-    S = cache["ckv"].shape[1]
+    S_loc = cache["ckv"].shape[1]
+    S = S_loc * seq[0]
     slot = pos.clamp(0, S - 1).long()  # dynamic_update_slice's clamp
-    rows = torch.arange(B, device=x.device)
-    cache["ckv"][rows, slot] = c_new[:, 0].to(cache["ckv"].dtype)
-    cache["krope"][rows, slot] = kr_new[:, 0, 0].to(cache["krope"].dtype)
+    _write_slot(cache, ("ckv", "krope"), (c_new[:, 0], kr_new[:, 0, 0]),
+                slot, seq)
     ckv = cache["ckv"].float()
     # absorb: q_c[h] = q_nope[h] @ W_uk[:, h, :]^T -> scores vs the cache
     q_c = torch.einsum("bhe,rhe->bhr", q_nope[:, 0], params["w_uk"])
@@ -442,15 +512,13 @@ def mla_decode(params, x, cache, cfg: ModelConfig):
     s = (torch.einsum("bhr,bsr->bhs", q_c.float(), ckv)
          + torch.einsum("bhe,bse->bhs", q_rope[:, 0].float(),
                         cache["krope"].float())) * scale
-    valid = torch.arange(S, dtype=torch.int32,
-                         device=x.device)[None, :] <= pos[:, None]
+    valid = _slot_indices(S_loc, seq, x.device) <= pos[:, None]
     s = s.masked_fill(~valid[:, None], NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    o_c = torch.einsum("bhs,bsr->bhr", p, ckv)  # [B, H, r]
+    o_c = _softmax_attend(s, ckv, "bhs,bsr->bhr", seq)  # [B, H, r]
     out = torch.einsum("bhr,rhe->bhe", o_c.to(x.dtype), params["w_uv"])
     y = (out.reshape(B, H * dh) @ params["wo"])[:, None]
     pos.add_(1)
-    return y, cache
+    return (tp_sum(y) if mode == "heads" else y), cache
 
 
 def mla_cache_spec(cfg: ModelConfig, batch: int, seq: int):

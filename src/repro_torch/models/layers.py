@@ -21,7 +21,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.distributed.sharding_ctx import (current, dp_sum, tp_copy,
-                                                  tp_rank, tp_split, tp_sum)
+                                                  tp_gather, tp_rank,
+                                                  tp_split, tp_sum)
 
 from .config import ModelConfig
 from .params import FSDP, TP, ParamDef
@@ -142,6 +143,15 @@ def unembed(params, x, cfg: ModelConfig):
         x = tp_copy(x)
     w = params["tok"].T if cfg.tie_embeddings else params["unembed"]
     return x @ w
+
+
+def whole_vocab(logits, cfg: ModelConfig):
+    """Logits over the whole vocabulary: under the split, this rank's
+    columns joined with the other model ranks' (serving gathers them
+    before any argmax or sampling)."""
+    if vocab_start(cfg) is None:
+        return logits
+    return tp_gather(logits, logits.dim() - 1)
 
 
 # ---- loss -----------------------------------------------------------------

@@ -33,8 +33,8 @@ from repro_torch.distributed.sharding_ctx import open_params, tp_split
 
 from .config import ModelConfig
 from .layers import (embed, embed_defs, embed_tp_uses, rmsnorm, rmsnorm_defs,
-                     softmax_xent, unembed, vocab_start)
-from .params import ParamTree, init_tree, spec_tree
+                     softmax_xent, unembed, vocab_start, whole_vocab)
+from .params import ParamTree, init_one, spec_tree
 from .transformer import (LayerParams, build_plan, layer_defs, stack_apply,
                           stack_cache, stack_decode, stack_specs)
 
@@ -81,15 +81,28 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device} cannot draw on "
                          f"{dev}")
+    return params_from_leaves(cfg, {
+        name: init_one(d, generator, cfg.param_dtype, dev)
+        for name, d in draw_order(cfg)})
+
+
+def draw_order(cfg: ModelConfig):
+    """(dotted name, ``ParamDef``) of every parameter in the order
+    ``init_params`` draws them: the top level, the decoder's layers, the
+    encoder's, each tree depth first in its defs' order."""
+    def walk(defs, prefix):
+        for k, d in defs.items():
+            if isinstance(d, dict):
+                yield from walk(d, f"{prefix}{k}.")
+            else:
+                yield f"{prefix}{k}", d
+
     dec, enc = plans(cfg)
-    top = init_tree(_top_defs(cfg), generator, cfg.param_dtype, dev)
-
-    def draw(plan):
-        return [LayerParams(p, init_tree(layer_defs(cfg, p), generator,
-                                         cfg.param_dtype, dev))
-                for p in plan.layers]
-
-    return LMParams(top, draw(dec), None if enc is None else draw(enc))
+    yield from walk(_top_defs(cfg), "")
+    for stack, plan in (("layers", dec), ("encoder", enc)):
+        if plan is not None:
+            for i, p in enumerate(plan.layers):
+                yield from walk(layer_defs(cfg, p), f"{stack}.{i}.")
 
 
 def _flat(tree: dict, prefix: str = ""):
@@ -212,11 +225,18 @@ def serve_step(cfg: ModelConfig, params: LMParams, caches, tokens,
                memory=None):
     """tokens: [B, 1] newest token ids (``memory``: the encoder-decoder's
     ``[B, Se, D]`` from ``encode_memory``). Returns (logits [B, 1, V],
-    caches); the caches are updated in place."""
-    x = embed(params["embed"], tokens, cfg)
+    caches); the caches are updated in place. Under the sharded serve
+    step the parameters open as ``forward``'s do, and the logits are the
+    whole vocabulary's on every model rank (``layers.whole_vocab``)."""
+    uses = embed_tp_uses(cfg, tp_split())
+    with open_params(params["embed"], uses, keys=("tok",)) as e:
+        x = embed(e, tokens, cfg)
     x, caches = stack_decode(cfg, params.layers, x, caches, memory=memory)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return unembed(params["embed"], x, cfg), caches
+    with open_params(params, keys=("final_norm",)) as top:
+        x = rmsnorm(top["final_norm"], x, cfg.norm_eps)
+    with open_params(params["embed"], uses, keys=(
+            "tok" if cfg.tie_embeddings else "unembed",)) as e:
+        return whole_vocab(unembed(e, x, cfg), cfg), caches
 
 
 def _take(cfg: ModelConfig, defs: dict, tree, path: str, periods=None,

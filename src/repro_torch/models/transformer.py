@@ -12,13 +12,17 @@ Every layer kind of the JAX package is here: GQA (global or sliding
 window) or MLA attention, the Mamba, mLSTM and sLSTM mixers, a dense or
 MoE MLP (or none), and the encoder-decoder's cross attention.
 
-``stack_apply`` opens each layer's parameters for the length of its
-forward (``sharding_ctx.open_params``): the layer's own tree on one
-device; under the sharded train step, the tensors the step gathers for it
-as ``layer_tp_uses`` asks (this rank's model shards of the split blocks,
-whole weights for the rest), freed when the layer's forward ends. Decode
-keeps heterogeneous per-layer caches: ring buffers for local attention,
-MLA's compressed cache, O(1) recurrent states.
+``stack_apply`` and ``stack_decode`` open each layer's parameters for the
+length of its forward (``sharding_ctx.open_params``): the layer's own
+tree on one device; under the sharded train step or the sharded serving
+steps, the tensors the step gathers for it as ``layer_tp_uses`` asks
+(this rank's model shards of the split blocks, whole weights for the
+rest), freed when the layer's forward ends. Decode keeps heterogeneous
+per-layer caches: ring buffers for local attention, MLA's compressed
+cache, O(1) recurrent states. Under the sharded serve step a layer's
+cache holds this rank's shards of its leaves, and ``{"seq": (n, r)}``
+beside ``"mixer"`` says that its sequence axis is block r of n over
+"data" (context parallelism; absent, the whole sequence).
 """
 
 from __future__ import annotations
@@ -112,13 +116,13 @@ class LayerParams(ParamTree):
         self.plan = plan
 
 
-_MIXERS = {  # kind -> (defs, train, decode, cache spec)
+_MIXERS = {  # kind -> (defs, train, decode, cache spec, tp uses)
     "mamba": (ssm.mamba_defs, ssm.mamba_train, ssm.mamba_decode,
-              ssm.mamba_cache_spec),
+              ssm.mamba_cache_spec, ssm.mamba_tp_uses),
     "mlstm": (ssm.mlstm_defs, ssm.mlstm_train, ssm.mlstm_decode,
-              ssm.mlstm_cache_spec),
+              ssm.mlstm_cache_spec, ssm.mlstm_tp_uses),
     "slstm": (ssm.slstm_defs, ssm.slstm_train, ssm.slstm_decode,
-              ssm.slstm_cache_spec),
+              ssm.slstm_cache_spec, ssm.slstm_tp_uses),
 }
 
 
@@ -151,11 +155,12 @@ def stack_specs(cfg: ModelConfig, plan: StackPlan, fsdp_axes=("data",),
             for p in plan.layers]
 
 
-def layer_tp_uses(cfg: ModelConfig, plan: LayerPlan, tp: int,
-                  L: int) -> dict:
-    """How one layer over L rows takes its parameters over ``tp`` model
-    ranks: ``{dotted name: "split" | "partial"}``, the rest whole ("full":
-    the recurrent mixers, the norms, the router)."""
+def layer_tp_uses(cfg: ModelConfig, plan: LayerPlan, tp: int, L: int,
+                  tokens: int) -> dict:
+    """How one layer over L rows (``tokens`` of them in the batch) takes
+    its parameters over ``tp`` model ranks: ``{dotted name: "split" |
+    "partial"}``, the rest whole ("full": the norms, the router, the
+    mixers' gate biases)."""
     uses = {}
 
     def add(prefix, sub):
@@ -164,6 +169,8 @@ def layer_tp_uses(cfg: ModelConfig, plan: LayerPlan, tp: int,
     if plan.kind == "attn":
         add("attn", attn.mla_tp_uses(cfg, tp, L) if cfg.attention == "mla"
             else attn.gqa_tp_uses(cfg, tp, L))
+    else:
+        add("mixer", _MIXERS[plan.kind][4](cfg, tp, tokens))
     if plan.cross:
         add("cross", attn.gqa_tp_uses(cfg, tp, L, cross=True))
     if plan.mlp == "dense":
@@ -204,15 +211,16 @@ def layer_apply(cfg: ModelConfig, plan: LayerPlan, params, x,
 def layer_decode(cfg: ModelConfig, plan: LayerPlan, params, x, cache,
                  memory=None):
     """Single-token decode of one layer. Returns (x, cache); the cache is
-    updated in place."""
+    updated in place (``cache["seq"]``: the module docstring)."""
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
+    seq = cache.get("seq", (1, 0))
     if plan.kind == "attn":
         if cfg.attention == "mla":
             y, cache_m = attn.mla_decode(params["attn"], h, cache["mixer"],
-                                         cfg)
+                                         cfg, seq=seq)
         else:
             y, cache_m = attn.gqa_decode(params["attn"], h, cache["mixer"],
-                                         cfg, window=plan.window)
+                                         cfg, window=plan.window, seq=seq)
     else:
         y, cache_m = _MIXERS[plan.kind][2](params["mixer"], h,
                                            cache["mixer"], cfg)
@@ -221,7 +229,8 @@ def layer_decode(cfg: ModelConfig, plan: LayerPlan, params, x, cache,
         hx = rmsnorm(params["norm_x"], x, cfg.norm_eps)
         x = x + attn.cross_attention(params["cross"], hx, memory, cfg)
     if plan.mlp == "dense":
-        x = x + mlp(params["mlp"], rmsnorm(params["norm2"], x, cfg.norm_eps))
+        x = x + mlp(params["mlp"], rmsnorm(params["norm2"], x, cfg.norm_eps),
+                    cfg.d_ff)
     elif plan.mlp == "moe":
         # decode is drop-free (capacity = all tokens): serving must not
         # depend on what else is in the batch
@@ -252,7 +261,8 @@ def stack_apply(cfg: ModelConfig, layers, x, token_ids=None, memory=None):
     aux = zero_aux(cfg, x.device)
     tp = tp_split()
     for lp in layers:
-        uses = layer_tp_uses(cfg, lp.plan, tp, x.shape[1]) if tp > 1 else {}
+        uses = layer_tp_uses(cfg, lp.plan, tp, x.shape[1],
+                             x.shape[0] * x.shape[1]) if tp > 1 else {}
         with open_params(lp, uses) as p:
             x, a = layer_apply(cfg, lp.plan, p, x, token_ids, memory)
         if a is not None:
@@ -261,10 +271,15 @@ def stack_apply(cfg: ModelConfig, layers, x, token_ids=None, memory=None):
 
 
 def stack_decode(cfg: ModelConfig, layers, x, caches, memory=None):
-    """Single-token decode through every layer."""
+    """Single-token decode through every layer, each opening its
+    parameters as ``stack_apply``'s do."""
     new_caches = []
+    tp = tp_split()
     for lp, cache in zip(layers, caches):
-        x, c = layer_decode(cfg, lp.plan, lp, x, cache, memory)
+        uses = layer_tp_uses(cfg, lp.plan, tp, 1, x.shape[0]) \
+            if tp > 1 else {}
+        with open_params(lp, uses) as p:
+            x, c = layer_decode(cfg, lp.plan, p, x, cache, memory)
         new_caches.append(c)
     return x, new_caches
 

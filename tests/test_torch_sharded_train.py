@@ -53,8 +53,11 @@ def pinned():
 def worlds(tmp_path_factory, pinned):
     """``{world: future of rank 0's results}``, both worlds spawned as the
     module starts so that the oracles compute meanwhile."""
+    # made here: the base temporary directory is not made thread-safely
+    tmps = {w: tmp_path_factory.mktemp(f"world{w}") for w in (2, 4)}
+
     def spawn(world):
-        tmp = tmp_path_factory.mktemp(f"world{world}")
+        tmp = tmps[world]
         return spawn_ranks(R.run, world, device="cpu",
                            init_file=tmp / "rendezvous",
                            args=(world, str(tmp)))

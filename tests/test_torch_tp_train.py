@@ -100,8 +100,11 @@ def worlds(tmp_path_factory, states):
     n = torch.get_num_threads()
     torch.set_num_threads(1)
 
+    # made here: the base temporary directory is not made thread-safely
+    tmps = {w: tmp_path_factory.mktemp(f"tp{w}") for w in (2, 4)}
+
     def spawn(world):
-        tmp = tmp_path_factory.mktemp(f"tp{world}")
+        tmp = tmps[world]
         return spawn_ranks(R.run, world, device="cpu",
                            init_file=tmp / "rendezvous",
                            args=(world, str(tmp), leaves, vocab))
@@ -235,6 +238,18 @@ def test_flash_runs_on_local_heads_or_offset_rows(worlds, world, arch,
                 r = rank % tp
                 assert (q, k, off) == ((b, H, L // tp, dh), (b, KV, L, dh),
                                        r * L // tp)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_mixers_compute_on_their_channel_shards(worlds, arch):
+    """At (1, 2) the recurrent mixers run on their channel shards: every
+    mixer call of the split step holds di / 2 rows of ``w_out``."""
+    cfg = R.config(arch)
+    di = cfg.ssm_expand * cfg.d_model
+    seen = worlds[2].result()[(arch, (1, 2))]["mixers"]
+    assert len(seen) == sum(p.kind != "attn"
+                            for p in lm.plans(cfg)[0].layers)
+    assert {rows for _, (rows, _) in seen} == {di // 2}
 
 
 @pytest.mark.parametrize("vocab", R.VOCABS)

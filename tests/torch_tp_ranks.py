@@ -27,6 +27,8 @@ from repro_torch.models import lm
 from repro_torch.models.layers import embed, softmax_xent
 from repro_torch.optim import AdamWConfig
 
+from torch_serve_ranks import mixer_rows
+
 B, S, FRAMES = 4, 32, 16
 STEPS = 2
 # eps = 1e-3: AdamW's update a smooth function of the gradient, so the
@@ -101,8 +103,9 @@ def whole(grads: dict, placements: dict, mesh) -> dict:
 
 def split_case(arch, shape, microbatches, leaves) -> dict:
     """One step's loss and gradients by ``sharded_grads`` (joined over the
-    ranks), the flash calls it made on each rank, then STEPS train steps'
-    metrics and parameters, all from the handed state."""
+    ranks), the flash calls it made on each rank and rank 0's mixer calls,
+    then STEPS train steps' metrics and parameters, all from the handed
+    state."""
     cfg = config(arch)
     mesh = make_smoke_mesh(*shape, device_type="cpu")
     n_data, row = mesh.size(0), mesh.get_coordinate()[0]
@@ -111,13 +114,14 @@ def split_case(arch, shape, microbatches, leaves) -> dict:
     state = shard_state(cfg, OPT, state_of(cfg, leaves), mesh)
     placements = {k: p.placements
                   for k, p in state.params.named_parameters()}
-    with flash_calls() as calls:
+    with flash_calls() as calls, mixer_rows() as mixers:
         loss, aux, grads = sharded_grads(cfg, state, mine, mesh,
                                          microbatches)
     every = [None] * mesh.size()
     torch.distributed.all_gather_object(every, calls)
     out = dict(loss=float(loss), grads=whole(grads, placements, mesh),
-               flash=every, telemetry=aux["telemetry"].numpy())
+               flash=every, telemetry=aux["telemetry"].numpy(),
+               mixers=mixers)
     step = make_sharded_train_step(cfg, OPT, mesh, microbatches)
     metrics = []
     for i in range(STEPS):

@@ -20,16 +20,15 @@ on no device read):
 Each route keeps its own claim rule, as in the reference: the kernel
 claims a key only for weight > 0, the scan claims at weight 0 too.
 Everything updates the state's tensors in place. The stages carry
-``torch.profiler.record_function`` ranges named ``lsketch.*`` (window
-plan, addressing, bin plan, insert kernel, pool pass, scan insert,
-planes delta), so a profiler trace splits a flush's time by stage.
+``telemetry.spans`` ranges named ``lsketch.*`` (window plan, addressing,
+bin plan, insert kernel, pool pass, scan insert, planes delta), so a
+profiler trace splits a flush's time by stage.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from repro_torch.core import hashing as hsh
 from repro_torch.core.lsketch import EdgeProbes, edge_probes, precompute
@@ -39,6 +38,7 @@ from repro_torch.core.types import EMPTY, EdgeBatch, LSketchConfig, \
 from repro_torch.kernels.sketch_insert.kernel import _pool_step
 from repro_torch.kernels.sketch_insert.ops import \
     matrix_insert_binned_sharded
+from repro_torch.telemetry.spans import span
 
 from .window import WindowRing, pad_to_bucket
 
@@ -152,7 +152,7 @@ def insert_stacked_fused_impl(cfg: LSketchConfig, states: LSketchState,
     valid_host = np.arange(B)[None, :] < counts[:, None]
     valid = torch.from_numpy(valid_host).to(dev)
 
-    with record_function("lsketch.window_plan"):
+    with span("lsketch.window_plan"):
         ring = WindowRing.for_config(cfg)
         widx = torch.div(batch.time.to(torch.int32), cfg.subwindow_size,
                          rounding_mode="floor").to(torch.int32)
@@ -166,7 +166,7 @@ def insert_stacked_fused_impl(cfg: LSketchConfig, states: LSketchState,
         states.slot_widx.copy_(plan.slot_widx)
         states.cur_widx.copy_(plan.cur_widx)
 
-    with record_function("lsketch.addressing"):
+    with span("lsketch.addressing"):
         pa = precompute(cfg, batch.src, batch.src_label)
         pb = precompute(cfg, batch.dst, batch.dst_label)
         probes = edge_probes(cfg, pa, pb)
@@ -185,12 +185,12 @@ def insert_stacked_fused_impl(cfg: LSketchConfig, states: LSketchState,
                                      touched, max_bin=B)
     else:
         ROUTE_EDGES["scan"] += n_edges
-        with record_function("lsketch.scan_insert"):
+        with span("lsketch.scan_insert"):
             _scan_insert(cfg, states, probes, le_idx, plan.slot, w_count,
                          w_key, valid)
     if not emit_delta:
         return states
-    with record_function("lsketch.planes_delta"):
+    with span("lsketch.planes_delta"):
         post = _touched_slot_slices(states, touched)
         for a, b in zip(post, pre):
             a.sub_(b)

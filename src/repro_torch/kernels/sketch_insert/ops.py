@@ -16,12 +16,12 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from repro_torch.core import hashing as hsh
 from repro_torch.core.lsketch import (EdgeProbes, advance_window, edge_probes,
                                       precompute)
 from repro_torch.core.types import EdgeBatch, LSketchConfig, LSketchState
+from repro_torch.telemetry.spans import span
 
 from .kernel import pool_pass_kernel_sharded, sketch_insert_kernel_sharded
 
@@ -75,9 +75,9 @@ def matrix_insert_binned_sharded(cfg: LSketchConfig, state: LSketchState,
     S, B = probes.rows.shape[:2]
     max_bin = B if max_bin is None else max_bin
     weight = weight.to(torch.int32).contiguous()
-    with record_function("lsketch.bin_plan"):
+    with span("lsketch.bin_plan"):
         _, _, order, counts, offs = _bin_plan(cfg, probes, weight)
-    with record_function("lsketch.insert_kernel"):
+    with span("lsketch.insert_kernel"):
         inserted = sketch_insert_kernel_sharded(
             probes.rows.contiguous(), probes.cols.contiguous(),
             probes.keys.contiguous(), weight,
@@ -85,7 +85,7 @@ def matrix_insert_binned_sharded(cfg: LSketchConfig, state: LSketchState,
             slot.to(torch.int32).contiguous(), order, offs, counts,
             state.key, state.C, state.P, max_bin)
     failed = (~inserted) & (weight > 0)
-    with record_function("lsketch.pool_pass"):
+    with span("lsketch.pool_pass"):
         return _pool_pass(cfg, state, slot, probes, le_idx, weight, failed)
 
 

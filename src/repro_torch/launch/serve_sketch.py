@@ -54,6 +54,7 @@ from repro_torch.core.gss import gss_config
 from repro_torch.core.types import resolve_device
 from repro_torch.data.stream import PHONE, edge_batches, generate
 from repro_torch.distributed.ranks import spawn_ranks
+from repro_torch.telemetry.spans import span
 
 
 @dataclasses.dataclass
@@ -219,17 +220,18 @@ class SketchServer:
 
     # ---- ingest ----
     def ingest(self, batch, tenant=None) -> None:
-        if self.pool is not None:
-            if tenant is None:
-                raise ValueError("pool-mode ingest needs tenant=")
-            self.ingest_many([(tenant, batch)])
-            return
-        if tenant is not None:
-            raise ValueError("tenant= needs a pool-mode server (pool=)")
-        self._ingestor.submit(batch)
-        if not self.pipeline:
-            self._ingestor.flush()
-        self._prewarm_many([None])
+        with span("lsketch.server.ingest"):
+            if self.pool is not None:
+                if tenant is None:
+                    raise ValueError("pool-mode ingest needs tenant=")
+                self.ingest_many([(tenant, batch)])
+                return
+            if tenant is not None:
+                raise ValueError("tenant= needs a pool-mode server (pool=)")
+            self._ingestor.submit(batch)
+            if not self.pipeline:
+                self._ingestor.flush()
+            self._prewarm_many([None])
 
     def ingest_many(self, batches) -> None:
         """One cross-tenant ingest round (pool mode): ``{tenant: batch}``
@@ -278,19 +280,20 @@ class SketchServer:
                 want.append(h)
         if not want:
             return
-        if len(want) == 1:
-            self._prewarm(want[0], handle=handle)
-            return
-        if self.pool is not None:
-            h0 = handle if handle is not None else self.pool.dispatched
+        with span("lsketch.server.prewarm"):
+            if len(want) == 1:
+                self._prewarm(want[0], handle=handle)
+                return
+            if self.pool is not None:
+                h0 = handle if handle is not None else self.pool.dispatched
+                skt.query_planes_multi(self.spec, h0, want,
+                                       groups=self.pool.n_slots)
+                return
+            h0 = handle if handle is not None else self._ingestor.dispatched
+            if h0 is None:
+                return
             skt.query_planes_multi(self.spec, h0, want,
-                                   groups=self.pool.n_slots)
-            return
-        h0 = handle if handle is not None else self._ingestor.dispatched
-        if h0 is None:
-            return
-        skt.query_planes_multi(self.spec, h0, want,
-                               collective=self._path() == "collective")
+                                   collective=self._path() == "collective")
 
     def serving_summary(self, alpha: float = 0.5) -> str:
         """One-line serving health for periodic logging: queue depth, the
@@ -346,48 +349,52 @@ class SketchServer:
     def flush(self) -> int:
         if not self.pending:  # nothing queued: no dispatch, no state touch
             return 0
-        done = 0
-        groups: Dict[tuple, List[QueryRequest]] = {}
-        for r in self.pending:
-            groups.setdefault(self._group_key(r), []).append(r)
-        # .state drains the ingest pipeline; a flush spanning several
-        # horizons prewarms them in one stacked build
-        self._prewarm_many([g[2] for g in groups], handle=self.state)
-        for (kind, with_le, last, direction), reqs in groups.items():
-            if self.pool is not None:
-                # one pooled dispatch for the whole group: stable-sorted
-                # contiguous per-tenant runs keep the row layout the same
-                # under any arrival interleaving
-                order = sorted(range(len(reqs)),
-                               key=lambda i: self.pool.slot_of(
-                                   reqs[i].tenant)
-                               if reqs[i].tenant in self.pool.tenants
-                               else -1)
-                runs: List[tuple] = []  # (tenant, [req, ...]) runs
-                for i in order:
-                    r = reqs[i]
-                    if runs and runs[-1][0] == r.tenant:
-                        runs[-1][1].append(r)
-                    else:
-                        runs.append((r.tenant, [r]))
-                pairs = [(t, self._group_batch(kind, rs, with_le, last,
-                                               direction))
-                         for t, rs in runs]
-                outs = self.pool.query_many(pairs, path=self.query_path)
-                for (_, rs), out in zip(runs, outs):
-                    for r, v in zip(rs, out.cpu().numpy()):
-                        r.answer = int(v)
-                done += len(reqs)
-                continue
+        with span("lsketch.server.flush"):
+            groups: Dict[tuple, List[QueryRequest]] = {}
+            for r in self.pending:
+                groups.setdefault(self._group_key(r), []).append(r)
+            # .state drains the ingest pipeline; a flush spanning several
+            # horizons prewarms them in one stacked build
+            self._prewarm_many([g[2] for g in groups], handle=self.state)
+            for key, reqs in groups.items():
+                with span("lsketch.server.group"):
+                    self._answer_group(key, reqs)
+            done = len(self.pending)
+            self.pending.clear()
+            return done
+
+    def _answer_group(self, key: tuple, reqs: List[QueryRequest]) -> None:
+        """One request group's batched dispatch, its answers set on its
+        requests."""
+        kind, with_le, last, direction = key
+        if self.pool is not None:
+            # one pooled dispatch for the whole group: stable-sorted
+            # contiguous per-tenant runs keep the row layout the same
+            # under any arrival interleaving
+            order = sorted(range(len(reqs)),
+                           key=lambda i: self.pool.slot_of(reqs[i].tenant)
+                           if reqs[i].tenant in self.pool.tenants else -1)
+            runs: List[tuple] = []  # (tenant, [req, ...]) runs
+            for i in order:
+                r = reqs[i]
+                if runs and runs[-1][0] == r.tenant:
+                    runs[-1][1].append(r)
+                else:
+                    runs.append((r.tenant, [r]))
+            pairs = [(t, self._group_batch(kind, rs, with_le, last,
+                                           direction))
+                     for t, rs in runs]
+            outs = self.pool.query_many(pairs, path=self.query_path)
+            answered = [(rs, out) for (_, rs), out in zip(runs, outs)]
+        else:
             q = self._group_batch(kind, reqs, with_le, last, direction)
             self._log_query_endpoints(kind, q)
-            out = skt.query(self.spec, self.state, q,
-                            path=self.query_path).cpu().numpy()
-            for r, v in zip(reqs, out):
-                r.answer = int(v)
-            done += len(reqs)
-        self.pending.clear()
-        return done
+            answered = [(reqs, skt.query(self.spec, self.state, q,
+                                         path=self.query_path))]
+        with span("lsketch.server.readback"):
+            for rs, out in answered:
+                for r, v in zip(rs, out.cpu().numpy()):
+                    r.answer = int(v)
 
     # ---- analytics ----
     def top_k(self, kind: str = "vertex", k: int = 10, *,

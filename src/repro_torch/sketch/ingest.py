@@ -55,6 +55,7 @@ from repro_torch.core.types import EdgeBatch
 from repro_torch.engine import insert as eng_insert
 from repro_torch.engine.window import pad_to_bucket
 
+from repro_torch.telemetry.spans import span
 from repro_torch.telemetry.stream_stats import PARTITION_STATS
 
 from . import query as _query
@@ -123,24 +124,26 @@ def _partition_stack(spec: SketchSpec, batch: EdgeBatch):
     """Host-side stable partition under the spec's routing -> (dict of
     int32 ``[n_shards, L]`` numpy arrays, n_valid int32 ``[n_shards]``);
     the round's shard counts go to ``PARTITION_STATS``."""
-    fields = {f: np.asarray(getattr(batch, f), np.int32) for f in _FIELDS}
-    sid = routed_assignment(spec, fields["src"], fields["dst"],
-                            fields["src_label"])
-    n_sh = spec.n_shards
-    index = [np.flatnonzero(sid == s) for s in range(n_sh)]
-    counts = np.array([len(ix) for ix in index], np.int32)
-    L = _shard_bucket(max(int(counts.max()), 1), floor=64)
-    PARTITION_STATS.record(counts, L)
-    out = {f: np.zeros((n_sh, L), np.int32) for f in _FIELDS}
-    for s, ix in enumerate(index):
-        m = len(ix)
-        if m == 0:
-            continue  # all-zero row, fully masked by n_valid == 0
-        for f in _FIELDS:
-            row = out[f][s]
-            row[:m] = fields[f][ix]
-            row[m:] = row[m - 1]  # replicate-last keeps time non-decreasing
-    return out, counts
+    with span("lsketch.ingest.partition"):
+        fields = {f: np.asarray(getattr(batch, f), np.int32) for f in _FIELDS}
+        sid = routed_assignment(spec, fields["src"], fields["dst"],
+                                fields["src_label"])
+        n_sh = spec.n_shards
+        index = [np.flatnonzero(sid == s) for s in range(n_sh)]
+        counts = np.array([len(ix) for ix in index], np.int32)
+        L = _shard_bucket(max(int(counts.max()), 1), floor=64)
+        PARTITION_STATS.record(counts, L)
+        out = {f: np.zeros((n_sh, L), np.int32) for f in _FIELDS}
+        for s, ix in enumerate(index):
+            m = len(ix)
+            if m == 0:
+                continue  # all-zero row, fully masked by n_valid == 0
+            for f in _FIELDS:
+                row = out[f][s]
+                row[:m] = fields[f][ix]
+                # replicate-last keeps time non-decreasing
+                row[m:] = row[m - 1]
+        return out, counts
 
 
 def _ingest_stacked_lgs(cfg, shards, batch: StackedBatch, n_valid) -> None:
@@ -163,37 +166,40 @@ def _dispatch_stacked(spec: SketchSpec, state: ShardedState, cols,
     and returns the new handle, which carries the flush delta when
     ``state`` held planes or a pending chain, and the ``MeshContext``
     (a split handle inserts its block of the partition's rows)."""
-    shards = state.live()
-    dev = state.device
-    split = split_context(spec, state)
-    route_cols, route_counts = cols, counts
-    if split is not None:
-        sl = split.block(spec.n_shards)
-        cols = {f: v[sl] for f, v in cols.items()}
-        counts = counts[sl]
-    stacked = StackedBatch(time_host=cols["time"],
-                           **{f: torch.from_numpy(cols[f]).to(dev)
-                              for f in _FIELDS})
-    carry = None
-    if spec.kind == "lgs":
-        _ingest_stacked_lgs(spec.config, shards, stacked, counts)
-    else:
-        path = eng_insert.resolve_path(spec.config, path, dev)
-        if path == "chunked":
-            raise ValueError("the stacked ingest has no chunked path")
-        carry = _query.planes_delta_base(state)
-        use_kernel = path == "cuda"
-        if split is not None:  # the whole partition's route, not the block's
-            use_kernel = use_kernel and bool(eng_insert.one_segment(
-                spec.config, route_cols["time"], route_counts).all())
-        out = eng_insert.insert_stacked_fused_impl(
-            spec.config, shards, stacked, counts, use_kernel=use_kernel,
-            emit_delta=carry is not None)
-    state.spent = True
-    new = with_mesh(ShardedState(shards), mesh_context(state))
-    if carry is not None:
-        _query.attach_planes_delta(new, carry[0], carry[1], out[1])
-    return new
+    with span("lsketch.ingest.dispatch"):
+        shards = state.live()
+        dev = state.device
+        split = split_context(spec, state)
+        route_cols, route_counts = cols, counts
+        if split is not None:
+            sl = split.block(spec.n_shards)
+            cols = {f: v[sl] for f, v in cols.items()}
+            counts = counts[sl]
+        stacked = StackedBatch(time_host=cols["time"],
+                               **{f: torch.from_numpy(cols[f]).to(dev)
+                                  for f in _FIELDS})
+        carry = None
+        if spec.kind == "lgs":
+            _ingest_stacked_lgs(spec.config, shards, stacked, counts)
+        else:
+            path = eng_insert.resolve_path(spec.config, path, dev)
+            if path == "chunked":
+                raise ValueError("the stacked ingest has no chunked path")
+            carry = _query.planes_delta_base(state)
+            use_kernel = path == "cuda"
+            # a split handle takes the whole partition's route, not the
+            # block's
+            if split is not None:
+                use_kernel = use_kernel and bool(eng_insert.one_segment(
+                    spec.config, route_cols["time"], route_counts).all())
+            out = eng_insert.insert_stacked_fused_impl(
+                spec.config, shards, stacked, counts, use_kernel=use_kernel,
+                emit_delta=carry is not None)
+        state.spent = True
+        new = with_mesh(ShardedState(shards), mesh_context(state))
+        if carry is not None:
+            _query.attach_planes_delta(new, carry[0], carry[1], out[1])
+        return new
 
 
 def _stage(spec: SketchSpec, batch: EdgeBatch):

@@ -72,6 +72,7 @@ from repro_torch.core.lgs import _lgs_edge_query, _lgs_vertex_query
 from repro_torch.core.merge import pmax, psum
 from repro_torch.core.types import EMPTY
 from repro_torch.engine.window import bucket_size
+from repro_torch.telemetry.spans import span
 
 from .spec import SketchSpec
 from .state import ShardedState, mesh_context, split_context
@@ -338,18 +339,21 @@ def _resolve_pending(state: ShardedState, ckey, apply_one, group=None):
     base, deltas = pend
     if ckey not in base:
         return None
-    moved = (~torch.stack([d.ok.all() for d in deltas]).all()).to(
-        torch.int32).reshape(1)
-    if group is not None:  # one rank's moved ring moves the fleet's
-        moved = pmax(moved, group)
-    if bool(moved):
+    with span("lsketch.planes.resolve"):
+        moved = (~torch.stack([d.ok.all() for d in deltas]).all()).to(
+            torch.int32).reshape(1)
+        if group is not None:  # one rank's moved ring moves the fleet's
+            moved = pmax(moved, group)
+        moved = bool(moved)
+    if moved:
         setattr(state, _PENDING_ATTR, None)
         return None
     planes = base[ckey]
     # every link ok: the ring never moved across the chain, so every
     # link's mask is the final state's; fold them all under it
     for d in deltas:
-        planes = apply_one(planes, d)
+        with span("lsketch.planes.fold"):
+            planes = apply_one(planes, d)
     PLANES_BUILD_COUNTS["delta"] += 1
     return planes
 
@@ -369,7 +373,8 @@ def _lookup(state: ShardedState, ckey, fold, build,
         how, planes = "delta", _resolve_pending(state, ckey, fold, group)
     if planes is None:
         PLANES_BUILD_COUNTS["build"] += 1
-        how, planes = "build", build()
+        with span("lsketch.planes.build"):
+            how, planes = "build", build()
     _cache_put(cache, ckey, planes)
     return planes, how
 
@@ -551,17 +556,21 @@ def query(spec: SketchSpec, state: ShardedState, q: QueryBatch,
     shards = state.live()
     cfg = spec.config
     path = resolve_query_path(path, state.device, spec.kind)
-    arrays, with_le, last, n = normalize_query(q, state.device, spec.kind)
-
-    if path == "collective":
-        ctx = _collective_ctx(spec, state)
-        planes = query_planes(spec, state, last, collective=True)
-        return _answer_planes(cfg, planes, q, arrays, with_le,
-                              ctx.group)[:n]
-    group = _group_of(split_context(spec, state))
-    if path == "cuda":
-        planes = query_planes(spec, state, last)
-        return _answer_planes(cfg, planes, q, arrays, with_le, group)[:n]
+    with span("lsketch.query.prepare"):
+        arrays, with_le, last, n = normalize_query(q, state.device,
+                                                   spec.kind)
+        planes = None
+        if path == "collective":
+            group = _collective_ctx(spec, state).group
+            planes = query_planes(spec, state, last, collective=True)
+        else:
+            group = _group_of(split_context(spec, state))
+            if path == "cuda":
+                planes = query_planes(spec, state, last)
+    if planes is not None:
+        with span("lsketch.query.answer"):
+            return _answer_planes(cfg, planes, q, arrays, with_le,
+                                  group)[:n]
 
     glob = _with_global_window(shards, group)
     if spec.kind == "lgs":
@@ -600,5 +609,6 @@ def query(spec: SketchSpec, state: ShardedState, q: QueryBatch,
                 cfg, st, lv, direction=q.direction, with_edge_label=with_le,
                 last=last, edge_label=les if with_le else None)
             return wl if with_le else w
-    out = _per_shard(glob, one)
-    return (out if group is None else psum(out, group))[:n]
+    with span("lsketch.query.answer"):
+        out = _per_shard(glob, one)
+        return (out if group is None else psum(out, group))[:n]

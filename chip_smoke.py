@@ -135,7 +135,8 @@ Phases (any failure raises, so the exit code is non-zero):
      split_replicas=SPLIT_REPLICAS, horizons=SERVER_HORIZONS)``; V2
      SERVER_REQUESTS interleaved requests (every kind, with and without
      the edge label, last in SERVER_LASTS) in one flush and again kind by
-     kind (µs a request; one probe or scan launch a group); V3 every
+     kind (µs a request; one probe launch a flush, one scan launch a
+     (direction, horizon)); V3 every
      answer equal to ``skt.query`` on the served state, samples equal to
      the scan path, ``top_k`` equal to ``skt.heavy_*`` on the scan path,
      reachability of sampled in-window edges, ``budget_report()`` and
@@ -5936,11 +5937,19 @@ def serve_requests(server, reqs):
                           for n, w in WRAPPERS.items()}
 
 
-def _check_group_launches(groups, moved, what) -> None:
+def _check_group_launches(groups, moved, what, k=None) -> None:
     """One edge-probe launch per edge group and one vertex-scan launch per
-    vertex group (label groups reduce planes: none)."""
-    want = (sum(k[0] == "edge" for k in groups),
-            sum(k[0] == "vertex" for k in groups))
+    vertex group (label groups reduce planes: none); with ``k``, a single
+    handle's passes: one edge-probe launch a flush with edge groups and
+    one vertex-scan launch a (direction, horizon ``min(last or k, k)``)
+    of its vertex groups."""
+    if k is None:
+        want = (sum(g[0] == "edge" for g in groups),
+                sum(g[0] == "vertex" for g in groups))
+    else:
+        want = (int(any(g[0] == "edge" for g in groups)),
+                len({(g[3], min(g[2] or k, k)) for g in groups
+                     if g[0] == "vertex"}))
     got = (moved["sketch_query_kernel_sharded"],
            moved["vertex_scan_kernel_sharded"])
     if got != want:
@@ -5968,14 +5977,16 @@ def server_single(spec, stream, flushes, qi, dev, tag):
     handles, sec, moved = serve_requests(server, reqs)
     groups = _groups(server, handles)
     if dev.type == "cuda":
-        _check_group_launches(groups, moved, "phase V2 mixed flush")
+        _check_group_launches(groups, moved, "phase V2 mixed flush",
+                              spec.config.effective_k)
     by_kind = {}
     for kind in KINDS:
         sub = [r for i, r in enumerate(reqs) if KINDS[i % 4] == kind]
         hs, s, mv = serve_requests(server, sub)
         if dev.type == "cuda":
             _check_group_launches(_groups(server, hs), mv,
-                                  f"phase V2 {kind} flush")
+                                  f"phase V2 {kind} flush",
+                                  spec.config.effective_k)
         by_kind[kind] = dict(requests=len(sub), us=1e6 * s / len(sub))
     topk = {kind: [x.cpu() for x in server.top_k(kind, SERVER_TOPK)]
             for kind in ("vertex", "edge", "label")}

@@ -77,10 +77,22 @@ def vertex_query_planes(cfg: LSketchConfig, planes: QueryPlanes, vertex,
     lv, le = labels
     pre, lines = scan_lines(cfg, vertex, lv)
     le_idx = hsh.edge_label_bucket(le, cfg.c, cfg.seed) if with_le else None
+    return vertex_scan_planes(cfg, planes, lines, pre.f, pre.vid, le_idx,
+                              direction, groups, group)
+
+
+def vertex_scan_planes(cfg: LSketchConfig, planes: QueryPlanes, lines, f,
+                       vid, le_idx=None, direction: str = "out",
+                       groups: int = 1, group=None):
+    """``vertex_query_planes`` past the addressing: the line scan and the
+    pool lookup of queries whose lines ``[B, r]``, fingerprints ``f``,
+    pool ids ``vid`` and label buckets ``le_idx`` (None: no label) are
+    already made, so one addressing can serve several scans. Returns
+    what ``vertex_query_planes`` returns."""
     w, wl = vertex_scan_kernel_sharded(
-        lines, pre.f.contiguous(), le_idx, planes.key, planes.cw, planes.pw,
+        lines, f.contiguous(), le_idx, planes.key, planes.cw, planes.pw,
         r=cfg.r, F=cfg.F, direction=direction, groups=groups)
-    pw, pwl = pool_lookup(planes, pre.vid, le_idx, direction, groups)
+    pw, pwl = pool_lookup(planes, vid, le_idx, direction, groups)
     w = w + pw
     if pwl is not None:
         wl = wl + pwl
@@ -140,6 +152,38 @@ def label_aggregate_planes(cfg: LSketchConfig, planes: QueryPlanes, vlabel,
             2, 3), 2, le_idx.view(G, 1, Lq, 1).expand(G, per, Lq, Q))
         wl = wl + _sum32(torch.where(pmatch, plw, 0), -1).view(S, Lq)
     return maybe_psum_partials(w.to(torch.int32), wl.to(torch.int32), group)
+
+
+def label_weight_planes(cfg: LSketchConfig, planes: QueryPlanes, vlabel,
+                        edge_label, direction: str = "out"):
+    """``label_aggregate_planes``' ``w_label`` [S, B] (one sketch, no
+    ``groups``) for rows whose vertex and edge labels ``vlabel`` and
+    ``edge_label`` are on the host: one masked sum a distinct (block,
+    bucket) pair of the rows, over that block's rows (out) / columns (in)
+    of that bucket's label plane and the block's pool entries, in place
+    of reducing every bucket's plane (int32 sums wrap alike in any
+    order)."""
+    pairs, pick = torch.unique(torch.stack([
+        hsh.vertex_label_block(torch.as_tensor(vlabel), cfg.n_blocks,
+                               cfg.seed),
+        hsh.edge_label_bucket(torch.as_tensor(edge_label), cfg.c, cfg.seed)],
+        1), dim=0, return_inverse=True)
+    starts, widths = cfg.block_start_width()
+    occ = planes.key != EMPTY  # [S, 2, d, d]
+    pcol = planes.pool_key[:, :, 0 if direction == "out" else 1]  # [S, Q]
+    pm_blocks, _, _ = hsh.unpack_vertex_id(pcol, cfg.F)
+    pocc = pcol != EMPTY
+    tot = []
+    for m, b in pairs.tolist():
+        block = slice(int(starts[m]), int(starts[m] + widths[m]))
+        at = (..., block, slice(None)) if direction == "out" else \
+            (..., block)
+        tot.append(torch.where(occ[at], planes.pw[..., b][at], 0).sum(
+            (1, 2, 3), dtype=torch.int64) + torch.where(
+                pocc & (pm_blocks == m), planes.pool_pw[..., b], 0).sum(
+                    1, dtype=torch.int64))
+    return torch.stack(tot, 1).to(torch.int32).index_select(
+        1, pick.to(planes.key.device))
 
 
 def vertex_query_pallas(cfg: LSketchConfig, state: LSketchState, vertex,

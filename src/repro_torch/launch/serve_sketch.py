@@ -8,8 +8,9 @@ dispatch (the insert and pool kernels on the card, the scan on the CPU)
 and is pipelined, the host partition of batch N+1 overlapping batch N's
 dispatch (``--no-pipeline`` dispatches each batch at once). Queries flush
 the pipeline first, so answers reflect every batch submitted before
-them, and answer one batched dispatch per request group through every
-shard. ``--query-path`` picks the read path: ``scan`` (the dense
+them, and are answered in one pass per query kind through every shard
+(one batched dispatch per request group in pool mode and off the kernel
+route). ``--query-path`` picks the read path: ``scan`` (the dense
 reference) or ``cuda`` (the probe and scan kernels over cached
 window-reduced planes; ``pallas``, the reference's name, means the same);
 ``auto`` is ``cuda`` on the card. The plane cache is kept hot after each
@@ -71,10 +72,14 @@ class SketchServer:
     """Continuous-batching frontend over one sharded sketch handle, or,
     with ``pool=``, over a ``sketch.TenantPool`` of same-spec sketches.
 
-    ``submit`` enqueues; ``flush`` answers every pending request with one
-    batched dispatch per (kind, edge-label?, last, direction) group. In
-    pool mode the tenant is a per-row axis of the pooled dispatch, so a
-    group takes one dispatch whatever the tenants it spans.
+    ``submit`` enqueues; ``flush`` groups every pending request by (kind,
+    edge-label?, last, direction). On a single handle it answers each
+    kind's groups in one pass (``skt.query_many``: on the kernel route
+    one edge launch over every edge request, one addressing and a scan
+    per (direction, horizon) for vertices, a plane reduction per
+    (direction, horizon) for labels) and reads every answer back in one
+    copy. In pool mode each group takes one pooled dispatch, the tenant
+    a per-row axis of it, whatever the tenants it spans.
 
     Ingest rides an ``AsyncIngestor`` (``pipeline=True``) and the query
     path flushes it before answering. In pool mode the pool's own
@@ -207,15 +212,18 @@ class SketchServer:
         return skt.recommend_budget(self.live_spec, det,
                                     self.query_shard_counts, alpha=alpha)
 
-    def _log_query_endpoints(self, kind: str, q: "skt.QueryBatch") -> None:
-        if kind == "edge":
-            v, lv = q.src, q.src_label
-        elif kind == "vertex":
-            v, lv = q.vertex, q.vertex_label
-        else:  # label aggregates touch every shard equally: no signal
+    def _log_query_endpoints(self, batches) -> None:
+        """Count every edge and vertex request's endpoint shard, in one
+        pass over the flush's batches."""
+        ends = [(q.src, q.src_label) if q.kind == "edge" else
+                (q.vertex, q.vertex_label) for q in batches
+                if q.kind in ("edge", "vertex")]
+        if not ends:  # label aggregates touch every shard equally
             return
+        v, lv = (np.concatenate([np.asarray(x[i]) for x in ends])
+                 for i in (0, 1))
         self.query_shard_counts += np.bincount(
-            skt.shard_assignment(self.spec, np.asarray(v), np.asarray(lv)),
+            skt.shard_assignment(self.spec, v, lv),
             minlength=self.spec.n_shards).astype(np.int64)
 
     # ---- ingest ----
@@ -267,6 +275,12 @@ class SketchServer:
         skt.query_planes(self.spec, h, last,
                          collective=self._path() == "collective")
 
+    def _wanted(self, lasts) -> list:
+        """The horizons a flush's planes cover: its own, then the
+        registered sweep's."""
+        want = list(dict.fromkeys(lasts))
+        return want + [h for h in self.horizons if h not in want]
+
     def _prewarm_many(self, lasts, handle=None) -> None:
         """Multi-horizon prewarm: when a flush (or the registered
         ``horizons=`` sweep) needs several horizons, one stacked build
@@ -274,10 +288,7 @@ class SketchServer:
         horizon with no sweep takes the plain prewarm."""
         if not self.prewarm or self._path() == "scan":
             return
-        want = list(dict.fromkeys(lasts))
-        for h in self.horizons:
-            if h not in want:
-                want.append(h)
+        want = self._wanted(lasts)
         if not want:
             return
         with span("lsketch.server.prewarm"):
@@ -355,44 +366,64 @@ class SketchServer:
                 groups.setdefault(self._group_key(r), []).append(r)
             # .state drains the ingest pipeline; a flush spanning several
             # horizons prewarms them in one stacked build
-            self._prewarm_many([g[2] for g in groups], handle=self.state)
-            for key, reqs in groups.items():
-                with span("lsketch.server.group"):
-                    self._answer_group(key, reqs)
+            lasts = [g[2] for g in groups]
+            self._prewarm_many(lasts, handle=self.state)
+            if self.pool is not None:
+                for key, reqs in groups.items():
+                    with span("lsketch.server.group"):
+                        self._answer_group(key, reqs)
+            else:
+                self._answer_passes(groups, self._wanted(lasts))
             done = len(self.pending)
             self.pending.clear()
             return done
 
-    def _answer_group(self, key: tuple, reqs: List[QueryRequest]) -> None:
-        """One request group's batched dispatch, its answers set on its
-        requests."""
-        kind, with_le, last, direction = key
-        if self.pool is not None:
-            # one pooled dispatch for the whole group: stable-sorted
-            # contiguous per-tenant runs keep the row layout the same
-            # under any arrival interleaving
-            order = sorted(range(len(reqs)),
-                           key=lambda i: self.pool.slot_of(reqs[i].tenant)
-                           if reqs[i].tenant in self.pool.tenants else -1)
-            runs: List[tuple] = []  # (tenant, [req, ...]) runs
-            for i in order:
-                r = reqs[i]
-                if runs and runs[-1][0] == r.tenant:
-                    runs[-1][1].append(r)
-                else:
-                    runs.append((r.tenant, [r]))
-            pairs = [(t, self._group_batch(kind, rs, with_le, last,
-                                           direction))
-                     for t, rs in runs]
-            outs = self.pool.query_many(pairs, path=self.query_path)
-            answered = [(rs, out) for (_, rs), out in zip(runs, outs)]
-        else:
-            q = self._group_batch(kind, reqs, with_le, last, direction)
-            self._log_query_endpoints(kind, q)
-            answered = [(reqs, skt.query(self.spec, self.state, q,
-                                         path=self.query_path))]
+    def _answer_passes(self, groups: Dict[tuple, List[QueryRequest]],
+                       horizons: list) -> None:
+        """A single handle's flush: one ``skt.query_many`` pass a query
+        kind over every group of that kind (on the kernel route one
+        launch or a few; on the other paths a dispatch a group), then
+        every answer read back in one copy."""
+        by_kind: Dict[str, list] = {}
+        for key, reqs in groups.items():
+            kind, with_le, last, direction = key
+            by_kind.setdefault(kind, []).append(
+                (reqs, self._group_batch(kind, reqs, with_le, last,
+                                         direction)))
+        self._log_query_endpoints([q for items in by_kind.values()
+                                   for _, q in items])
+        state, outs, answered = self.state, [], []
+        for items in by_kind.values():
+            with span("lsketch.server.group"):
+                outs += skt.query_many(self.spec, state,
+                                       [q for _, q in items],
+                                       path=self.query_path,
+                                       horizons=horizons)
+            answered += [r for reqs, _ in items for r in reqs]
         with span("lsketch.server.readback"):
-            for rs, out in answered:
+            for r, v in zip(answered, torch.cat(outs).cpu().tolist()):
+                r.answer = v
+
+    def _answer_group(self, key: tuple, reqs: List[QueryRequest]) -> None:
+        """One request group's pooled dispatch (pool mode), its answers
+        set on its requests: stable-sorted contiguous per-tenant runs keep
+        the row layout the same under any arrival interleaving."""
+        kind, with_le, last, direction = key
+        order = sorted(range(len(reqs)),
+                       key=lambda i: self.pool.slot_of(reqs[i].tenant)
+                       if reqs[i].tenant in self.pool.tenants else -1)
+        runs: List[tuple] = []  # (tenant, [req, ...]) runs
+        for i in order:
+            r = reqs[i]
+            if runs and runs[-1][0] == r.tenant:
+                runs[-1][1].append(r)
+            else:
+                runs.append((r.tenant, [r]))
+        pairs = [(t, self._group_batch(kind, rs, with_le, last, direction))
+                 for t, rs in runs]
+        outs = self.pool.query_many(pairs, path=self.query_path)
+        with span("lsketch.server.readback"):
+            for (_, rs), out in zip(runs, outs):
                 for r, v in zip(rs, out.cpu().numpy()):
                     r.answer = int(v)
 

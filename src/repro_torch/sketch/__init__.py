@@ -6,6 +6,7 @@
     ing   = AsyncIngestor(spec, heat_threshold=0.02); ing.submit(b)
     w     = query(spec, state, QueryBatch.edges(src, la, dst, lb))
     W     = query(spec, state, QueryBatch.vertices(v, lv, last=[None, 1]))
+    ws    = query_many(spec, state, [q_edges, q_vertices, q_labels])
     vids, weights = heavy_vertices(spec, state, k=16, last=1)
     save(spec, state, ckpt_dir); state = restore(spec, ckpt_dir)
     state8 = reshard(spec, state, 8)           # balanced across 8 shards
@@ -29,7 +30,8 @@ from .state import (MeshContext, ShardedState, create, fleet_shards,
 from .ingest import AsyncIngestor, ingest, ingest_single
 from .query import (MAX_DELTA_CHAIN, PLANES_BUILD_COUNTS, QueryBatch,
                     clear_plane_cache, default_query_path, query,
-                    query_planes, query_planes_multi, resolve_query_path)
+                    query_many, query_planes, query_planes_multi,
+                    resolve_query_path)
 from .analytics import (heavy_edges, heavy_vertices, reachable_many,
                         top_labels)
 from .reshard import reshard
@@ -46,7 +48,8 @@ __all__ = [
     "MeshContext", "fleet_shards", "mesh_context", "named_shardings",
     "place", "with_mesh",
     "AsyncIngestor", "ingest", "ingest_single", "QueryBatch",
-    "MAX_DELTA_CHAIN", "PLANES_BUILD_COUNTS", "query", "query_planes",
+    "MAX_DELTA_CHAIN", "PLANES_BUILD_COUNTS", "query", "query_many",
+    "query_planes",
     "query_planes_multi", "clear_plane_cache", "default_query_path",
     "resolve_query_path",
     "heavy_vertices", "heavy_edges", "top_labels", "reachable_many",

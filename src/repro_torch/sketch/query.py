@@ -544,6 +544,213 @@ def _query_multi(spec: SketchSpec, state: ShardedState, q: QueryBatch,
     return torch.stack([rows[i][:n] for i in sel])
 
 
+def _host_i32(x, n: int | None = None) -> np.ndarray:
+    """``as_i32`` on the host: an int32 numpy array, broadcast to ``n``."""
+    a = np.atleast_1d(np.asarray(
+        x.cpu() if isinstance(x, torch.Tensor) else x, np.int32))
+    return a if n is None or a.shape[0] == n else np.broadcast_to(a, (n,))
+
+
+def _horizon_index(spec: SketchSpec, q: QueryBatch, uniq) -> int:
+    """The row of ``q``'s clamped horizon among ``uniq`` (a ``gss``
+    query has no window: the full one)."""
+    k = spec.config.effective_k
+    last = None if spec.kind == "gss" else q.last
+    return uniq.index(k if last is None else min(int(last), k))
+
+
+def _rows(spec: SketchSpec, q: QueryBatch):
+    """One batch's ``normalize_query`` columns on the host, unpadded, the
+    edge label 0 where it has none: ``(columns, with_le, n)``."""
+    gss = spec.kind == "gss"
+    if q.kind == "edge":
+        src, dst = _host_i32(q.src), _host_i32(q.dst)
+        n = max(src.shape[0], dst.shape[0])
+        main, lab = [_host_i32(src, n), _host_i32(dst, n)], \
+            [q.src_label, q.dst_label]
+    elif q.kind == "vertex":
+        main = [_host_i32(q.vertex)]
+        n, lab = main[0].shape[0], [q.vertex_label]
+    elif q.kind == "label":
+        if spec.kind == "lgs":
+            raise NotImplementedError(
+                "LGS stores no label blocks; label aggregates need "
+                "LSketch/GSS")
+        main, lab = [], [q.vertex_label]
+        n = _host_i32(q.vertex_label).shape[0]
+    else:
+        raise ValueError(f"unknown query kind {q.kind!r}")
+    with_le = q.edge_label is not None and not gss
+    lab = [np.zeros(n, np.int32) if gss else _host_i32(x, n) for x in lab]
+    le = _host_i32(q.edge_label, n) if with_le else np.zeros(n, np.int32)
+    return main + lab + [le], with_le, n
+
+
+def _pack_pass(spec: SketchSpec, qs, uniq, H: int, device):
+    """Every row of the batches ``qs`` (one kind), in their order, on the
+    device in one copy. Returns ``(host, columns, sel, has, counts)``:
+    ``columns`` as ``normalize_query`` makes them, bucket-padded with
+    ``EMPTY`` over the whole pass; ``sel`` each row's index into the
+    pass's flattened ``[2, H, B]`` (edges: w then w_label, horizon,
+    padded row) or ``[2, rows]`` (w then w_label) answers; ``host`` the
+    columns on the host, unpadded; ``has`` (host) whether a row carries
+    an edge label; ``counts`` each batch's rows."""
+    got = [_rows(spec, q) for q in qs]
+    counts = [n for _, _, n in got]
+    n = sum(counts)
+    has = np.concatenate([np.full(c, w) for _, w, c in got])
+    to = bucket_size(n, floor=32)
+    if qs[0].kind == "edge":
+        hi = np.concatenate([np.full(c, _horizon_index(spec, q, uniq))
+                             for q, c in zip(qs, counts)])
+        sel = (has * H + hi) * to + np.arange(n)
+    else:
+        sel = has * n + np.arange(n)
+    packed = np.full((len(got[0][0]) + 1, to), EMPTY, np.int32)
+    for j in range(len(got[0][0])):
+        packed[j, :n] = np.concatenate([cols[j] for cols, _, _ in got])
+    packed[-1, :n] = sel
+    dev = torch.from_numpy(packed).to(device)
+    return packed[:-1, :n], list(dev[:-1]), dev[-1, :n], has, counts
+
+
+def _runs(spec: SketchSpec, qs, uniq):
+    """The batches ``qs`` (vertex or label) stably ordered by (direction,
+    horizon), and that order's runs: ``(order, [(direction, h, first,
+    end)])`` in positions of the order."""
+    key = [(q.direction, _horizon_index(spec, q, uniq)) for q in qs]
+    order = sorted(range(len(qs)), key=lambda i: key[i])
+    runs = []
+    for j, i in enumerate(order):
+        if runs and runs[-1][:2] == list(key[i]):
+            runs[-1][3] = j + 1
+        else:
+            runs.append([*key[i], j, j + 1])
+    return order, runs
+
+
+def _answer_pass(spec: SketchSpec, planes_of, H: int, qs, uniq,
+                 device) -> list:
+    """One kind's pass over the batches ``qs``: each batch's answers, int32
+    ``[n]`` views of the pass's one answer tensor."""
+    from repro_torch.core import hashing as hsh
+    from repro_torch.kernels.sketch_query.ops import edge_query_planes
+    from repro_torch.kernels.vertex_scan.ops import (
+        label_aggregate_planes, label_weight_planes, scan_lines,
+        vertex_scan_planes)
+    cfg, kind = spec.config, qs[0].kind
+    order, runs = (list(range(len(qs))), None) if kind == "edge" else \
+        _runs(spec, qs, uniq)
+    qs = [qs[i] for i in order]
+    with span("lsketch.query.prepare"):
+        host, cols, sel, has, counts = _pack_pass(spec, qs, uniq, H,
+                                                  device)
+        at = np.cumsum([0] + counts)
+        planes = planes_of(None) if kind == "edge" else \
+            {h: planes_of(h) for _, h, _, _ in runs}
+    with span("lsketch.query.answer"):
+        if kind == "edge":  # every row at every horizon: [2, H, B]
+            src, dst, la, lb, le = cols
+            both = torch.stack(edge_query_planes(
+                cfg, planes, src, dst, (la, lb, le),
+                with_le=bool(has.any())))
+            if H == 1:  # [2, S, B] shard partials
+                both = both.sum(1, dtype=torch.int64).to(torch.int32)
+        else:  # one addressing, then a scan or a reduction a run
+            if kind == "vertex":
+                pre, lines = scan_lines(cfg, cols[0], cols[1])
+                le_idx = hsh.edge_label_bucket(cols[-1], cfg.c, cfg.seed) \
+                    if has.any() else None
+            parts = []
+            for direction, h, a, b in runs:
+                r = slice(int(at[a]), int(at[b]))
+                if kind == "vertex":
+                    parts.append(vertex_scan_planes(
+                        cfg, planes[h], lines[r], pre.f[r], pre.vid[r],
+                        None if le_idx is None else le_idx[r], direction))
+                else:
+                    w, wl = label_aggregate_planes(cfg, planes[h],
+                                                   cols[0][r],
+                                                   direction=direction)
+                    if has[r].any():  # unlabelled rows borrow a labelled
+                        # row's labels: their w_label is not read
+                        i = np.where(has[r], np.arange(r.stop - r.start),
+                                     has[r].argmax())
+                        wl = label_weight_planes(
+                            cfg, planes[h], host[0][r][i], host[-1][r][i],
+                            direction)
+                    parts.append((w, wl))
+            both = torch.stack([torch.cat(x, 1) for x in zip(*parts)]).sum(
+                1, dtype=torch.int64).to(torch.int32)  # [2, rows]
+        ans = both.reshape(-1).index_select(0, sel)
+    got = [ans[at[j]:at[j + 1]] for j in range(len(qs))]
+    back = [None] * len(qs)
+    for j, i in enumerate(order):
+        back[i] = got[j]
+    return back
+
+
+def query_many(spec: SketchSpec, state: ShardedState, batches,
+               path: str = "auto", horizons=()) -> list:
+    """Answer several ``QueryBatch``es against one handle: one device
+    tensor a batch, each equal to ``query(spec, state, batch, path)``.
+
+    On the ``"cuda"`` route of a handle this process holds whole, the
+    batches are answered by kind, in one pass a kind whatever their edge
+    labels, horizons and directions, from the planes of every horizon
+    they ask plus ``horizons`` (one horizon-stacked entry, the one a
+    server's prewarm builds for the same list):
+
+      * edges: one launch of the edge kernel over every row at every
+        horizon (the edge label 0 where a batch has none), then each row
+        picks its (horizon, ``w`` or ``w_label``) in one gather;
+      * vertices: one addressing of every row, then one scan and pool
+        lookup a (direction, horizon) present;
+      * labels: one reduction of the weight planes a (direction,
+        horizon) present, and, for the rows with an edge label, one
+        block of one label plane a distinct (block, bucket) pair.
+
+    Each pass marks ``query.prepare`` (its rows on the device in one
+    copy, the plane lookup) and ``query.answer``. On the other paths, on
+    a split handle and for a horizon sweep, each batch takes ``query``."""
+    if not isinstance(state, ShardedState):
+        state = ShardedState.lift(state)
+    path = resolve_query_path(path, state.device, spec.kind)
+    whole = path == "cuda" and split_context(spec, state) is None
+    out = [None] * len(batches)
+    fused = {}
+    for i, q in enumerate(batches):
+        if whole and not isinstance(q.last, (list, tuple)):
+            fused.setdefault(q.kind, []).append(i)
+        else:
+            out[i] = query(spec, state, q, path=path)
+    if not fused:
+        return out
+    gss = spec.kind == "gss"
+    lasts = [None if gss else batches[i].last
+             for ids in fused.values() for i in ids] + list(horizons)
+    uniq, _ = _normalize_horizons(spec, lasts)
+    H = len(uniq)
+    multi = {}
+
+    def planes_of(h):
+        """Horizon index ``h``'s planes; None: every horizon's, stacked
+        where there are several."""
+        if H == 1:
+            return query_planes(spec, state, uniq[0])
+        if "p" not in multi:
+            multi["p"] = query_planes_multi(spec, state, list(uniq))[0]
+        return multi["p"] if h is None else \
+            _q.slice_horizon(multi["p"], h)
+
+    for ids in fused.values():
+        got = _answer_pass(spec, planes_of, H, [batches[i] for i in ids],
+                           uniq, state.device)
+        for i, x in zip(ids, got):
+            out[i] = x
+    return out
+
+
 def query(spec: SketchSpec, state: ShardedState, q: QueryBatch,
           path: str = "auto") -> torch.Tensor:
     """Answer a QueryBatch against a sharded handle (or a plain

@@ -20,13 +20,18 @@ The ranges are named ``lsketch.<stage>``:
   * the plane cache (``sketch/query.py``): ``planes.resolve``, the
     check of a pending delta chain and its device read,
     ``planes.fold``, one link folded, ``planes.build``, one build;
-  * a query (``sketch/query.py::query``): ``query.prepare``, the padded
-    batch on the device and the plane lookup, and ``query.answer``, the
-    launches;
+  * a query (``sketch/query.py``: ``query``, and each pass of
+    ``query_many``): ``query.prepare``, the padded batch on the device
+    and the plane lookup, and ``query.answer``, the launches;
   * the server (``launch/serve_sketch.py::SketchServer``):
     ``server.ingest`` and ``server.flush``, each call, ``server.prewarm``,
-    each warming of the plane cache, ``server.group``, one request group
-    of a flush, and ``server.readback``, its answers read to the host.
+    each warming of the plane cache, ``server.group``, one dispatch pass
+    of a flush (a single handle's: one a query kind present; a pool's:
+    one a request group), and ``server.readback``, answers read to the
+    host (a single handle's: once a flush, directly under
+    ``server.flush``; a pool's: once a group). So ``server.group``
+    ranges over ``server.flush`` ranges count the dispatch passes a
+    flush.
 
 A range that waits on the device (a ``.cpu()``, a ``bool`` of a device
 tensor) holds that wait in its duration.

@@ -1531,7 +1531,9 @@ def test_cuda_sketch_server_matches_cpu_twin(pooled):
             launched = sketch_query_kernel_sharded.launches - before
         answers[dev] = [r.answer for r in reqs]
     assert answers["cuda"] == answers["cpu"]
-    assert launched == 6  # 6 edge groups: (le?) x (last in None, 1, 2)
+    # 6 edge groups, (le?) x (last in None, 1, 2): one pooled dispatch a
+    # group, or the single handle's one edge pass
+    assert launched == (6 if pooled else 1)
     for x, y in zip(skt.to_numpy(servers["cuda"].state),
                     skt.to_numpy(servers["cpu"].state)):
         np.testing.assert_array_equal(x, y)
@@ -1543,6 +1545,65 @@ def test_cuda_sketch_server_matches_cpu_twin(pooled):
     if not pooled:
         assert servers["cuda"].budget_report().to_json() == \
             servers["cpu"].budget_report().to_json()
+
+
+@pytest.mark.gpu
+def test_cuda_fused_flush_matches_per_group_query():
+    """A single handle's 512-request mixed flush on the card (every kind,
+    with and without an edge label, lasts None, 1 and k, both directions)
+    answers each request as ``skt.query`` answers its group on the card
+    with the real kernels: one edge-probe launch for the flush, one
+    vertex-scan launch a (direction, horizon) present."""
+    _need_card()
+    from repro_torch.data.stream import PHONE, edge_batches, generate
+    from repro_torch.launch.serve_sketch import SketchServer, build_spec
+    stream = generate(dataclasses.replace(PHONE, n_edges=6000,
+                                          n_vertices=300), seed=4)
+    spec = build_spec("lsketch", PHONE.window_size, 4)
+    k = spec.config.effective_k
+    server = SketchServer(spec, query_path="cuda", horizons=[1, k],
+                          device="cuda")
+    for b in edge_batches(stream, 1000):
+        server.ingest(b)
+    rng = np.random.default_rng(9)
+    idx = rng.integers(0, len(stream), 512)
+    handles = []
+    for j, i in enumerate(idx):
+        kw = dict(last=(None, 1, k)[j % 3])
+        if (j // 3) % 2:
+            kw["le"] = int(stream.edge_label[i])
+        kind = ("edge", "edge", "vertex", "label")[(j // 6) % 4]
+        d = ("out", "in")[(j // 24) % 2]
+        if kind == "edge":
+            kw.update(src=int(stream.src[i]), la=int(stream.src_label[i]),
+                      dst=int(stream.dst[i]), lb=int(stream.dst_label[i]))
+        elif kind == "vertex":
+            kw.update(v=int(stream.src[i] if d == "out" else stream.dst[i]),
+                      lv=int(stream.src_label[i] if d == "out"
+                             else stream.dst_label[i]), direction=d)
+        else:
+            kw.update(lv=int(stream.src_label[i]), direction=d)
+        handles.append(server.submit(kind, **kw))
+    groups = {}
+    for h in handles:
+        groups.setdefault(server._group_key(h), []).append(h)
+    assert len(groups) == 30
+    before = (sketch_query_kernel_sharded.launches,
+              vertex_scan_kernel_sharded.launches)
+    assert server.flush() == 512
+    launched = (sketch_query_kernel_sharded.launches - before[0],
+                vertex_scan_kernel_sharded.launches - before[1])
+    runs = {(d, min(last or k, k)) for kind, _, last, d in groups
+            if kind == "vertex"}
+    assert launched == (1, len(runs)) == (1, 4)
+    state = server.state
+    for (kind, with_le, last, d), hs in groups.items():
+        q = server._group_batch(kind, hs, with_le, last, d)
+        want = skt.query(spec, state, q, path="cuda")
+        assert want.device.type == "cuda"
+        assert [h.answer for h in hs] == want.cpu().tolist(), (kind, with_le,
+                                                               last, d)
+    assert any(h.answer for h in handles)
 
 
 # --------------------------------------------------------------------------

@@ -132,6 +132,109 @@ def test_request_grouping_axes():
     assert all(r.answer is not None for r in treqs)
 
 
+def _every_key_requests(cols, n=33):
+    """Requests over all 30 group keys at ``SERVE_KW``'s k = 4 (lasts
+    None, 1 and k, with and without an edge label, both directions for
+    vertices and labels), about edges and endpoints of the newest batch
+    ``cols``, each kind's pass ``n`` = 33 rows (one past a bucket)."""
+    src, dst, la, lb, le_ = (c.tolist() for c in cols[:5])
+    out = []
+    for i in range(n):
+        le, last = (None, le_[i])[i % 2], (None, 1, 4)[(i // 2) % 3]
+        out.append(("edge", dict(src=src[i], la=la[i], dst=dst[i],
+                                 lb=lb[i], le=le, last=last)))
+        d = ("out", "in")[(i // 6) % 2]
+        v, lv = (src[i], la[i]) if d == "out" else (dst[i], lb[i])
+        out.append(("vertex", dict(v=v, lv=lv, le=le, last=last,
+                                   direction=d)))
+        out.append(("label", dict(lv=i % 3, le=le, last=last, direction=d)))
+    return [(k, {a: b for a, b in args.items() if b is not None})
+            for k, args in out]
+
+
+@pytest.fixture(scope="module")
+def every_key_served():
+    """One port server on the kernel route (the kernels' plain versions)
+    and ``repro``'s on ``"pallas"``, the same stream over several
+    subwindows ingested into both; ``repro``'s answers to every request
+    of ``_every_key_requests`` in one flush."""
+    tspec, jspec = _serve_specs(2)
+    t = tserve.SketchServer(tspec, query_path="cuda", horizons=[1, 4],
+                            device=CPU)
+    j = jserve.SketchServer(jspec, query_path="pallas", horizons=[1, 4])
+    rng = np.random.default_rng(5)
+    for lo in range(0, 2400, 400):
+        cols = _mk(rng, 160, lo, lo + 400)
+        t.ingest(_tb(cols))
+        j.ingest(_jb(cols))
+    reqs = _every_key_requests(cols)
+    jh = [j.submit(k, **a) for k, a in reqs]
+    j.flush()
+    return t, tspec, reqs, [h.answer for h in jh]
+
+
+def _query_one(spec, state, kind, a) -> int:
+    """One request's answer from ``skt.query`` on the kernel route."""
+    le = None if a.get("le") is None else [a["le"]]
+    last = a.get("last")
+    if kind == "edge":
+        q = tskt.QueryBatch.edges([a["src"]], [a["la"]], [a["dst"]],
+                                  [a["lb"]], edge_label=le, last=last)
+    elif kind == "vertex":
+        q = tskt.QueryBatch.vertices([a["v"]], [a["lv"]], edge_label=le,
+                                     direction=a["direction"], last=last)
+    else:
+        q = tskt.QueryBatch.labels([a["lv"]], edge_label=le,
+                                   direction=a["direction"], last=last)
+    return int(tskt.query(spec, state, q, path="cuda")[0])
+
+
+@pytest.mark.parametrize("kinds,n_keys", [
+    (("edge",), 6), (("vertex",), 12), (("label",), 12),
+    (("edge", "vertex", "label"), 30)],
+    ids=["edge", "vertex", "label", "mixed"])
+def test_fused_flush_answers_every_group_key_as_query_and_repro(
+        every_key_served, kinds, n_keys):
+    """A single handle's flush on the kernel route answers each kind in
+    one pass over all its group keys (``skt.query_many``); every answer
+    equals a per-request ``skt.query`` on the served state and
+    ``repro``'s server, for each pass alone and for all three at once."""
+    server, spec, reqs, jans = every_key_served
+    pick = [i for i, (k, _) in enumerate(reqs) if k in kinds]
+    keys = {server._group_key(tserve.QueryRequest(*reqs[i])) for i in pick}
+    assert len(keys) == n_keys
+    handles = [server.submit(reqs[i][0], **reqs[i][1]) for i in pick]
+    assert server.flush() == len(pick) >= 33
+    state = server.state
+    for h, i in zip(handles, pick):
+        want = _query_one(spec, state, *reqs[i])
+        assert h.answer == want == jans[i], (reqs[i], h.answer, want,
+                                             jans[i])
+    assert all(any(h.answer for h, i in zip(handles, pick)
+                   if reqs[i][0] == k) for k in kinds)
+
+
+@pytest.mark.parametrize("direction", ["out", "in"])
+def test_label_pass_reduces_only_the_rows_buckets(every_key_served,
+                                                  direction):
+    """The label pass's ``w_label``, one masked sum a distinct (block,
+    bucket) pair of the rows (repeated labels, and more labels than ``c``
+    buckets), equals ``label_aggregate_planes``' shard by shard."""
+    from repro_torch.kernels.vertex_scan import ops as vs_ops
+    server, spec, _, _ = every_key_served
+    cfg = spec.config
+    planes = tskt.query_planes(spec, server.state, 4)
+    rng = np.random.default_rng(3)
+    lv = rng.integers(0, 3, 40).astype(np.int32)
+    le = rng.integers(0, 4 * cfg.c, 40).astype(np.int32)
+    le[:5] = le[0]
+    _, want = vs_ops.label_aggregate_planes(
+        cfg, planes, torch.from_numpy(lv), torch.from_numpy(le), direction,
+        with_le=True)
+    got = vs_ops.label_weight_planes(cfg, planes, lv, le, direction)
+    assert torch.equal(got, want) and bool(want.any())
+
+
 @pytest.mark.parametrize("tpath,jpath", PATHS)
 def test_sharded_server_answers_match_repro_and_single_sketch(tpath, jpath):
     tst, jst = _streams()

@@ -102,7 +102,7 @@ def test_every_stage_is_marked(traced, name):
     ("lsketch.planes.build", "lsketch.server.prewarm", False),
     ("lsketch.server.prewarm", "lsketch.server.flush", False),
     ("lsketch.server.group", "lsketch.server.flush", True),
-    ("lsketch.server.readback", "lsketch.server.group", True),
+    ("lsketch.server.readback", "lsketch.server.flush", True),
     ("lsketch.query.prepare", "lsketch.server.group", True),
     ("lsketch.query.answer", "lsketch.server.group", True),
 ])
@@ -114,8 +114,20 @@ def test_ranges_nest_as_the_stages_call(traced, child, parent, every):
 
 
 def test_one_group_range_a_group_key_and_the_same_answers(traced, plain):
+    """A single handle's flush of nine group keys over three kinds: one
+    ``server.group`` range a kind present (one pass each), one readback
+    a flush, no range of one inside another of its name, and the answers
+    of the run with no profiler."""
     ranges, answers, keys = traced
-    assert len(ranges["lsketch.server.group"]) == len(keys) == 9
+    assert len(keys) == 9
+    assert len(ranges["lsketch.server.group"]) == \
+        len({k[0] for k in keys}) == 3
     assert len(ranges["lsketch.server.flush"]) == 1
+    assert len(ranges["lsketch.server.readback"]) == 1
+    for name in ("lsketch.server.group", "lsketch.query.prepare",
+                 "lsketch.query.answer"):
+        got = sorted(ranges[name])
+        assert all(b <= c for (_, b), (c, _) in zip(got, got[1:]))
+    assert len(ranges["lsketch.query.answer"]) == 3
     assert answers == plain[1]
     assert all(isinstance(a, int) for a in answers)
